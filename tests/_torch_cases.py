@@ -1,0 +1,108 @@
+"""Seeded inputs shared by the port's kernel tests (numpy + torch only,
+so the card-only tests can run where JAX is not installed)."""
+import zlib
+
+import numpy as np
+import torch
+
+SENTINEL = 2 ** 31 - 1
+
+
+def cache_ids_for(rng, n_hot, lo, hi):
+    """Sorted unique ids in [lo, hi), padded to n_hot with the sentinel."""
+    k = min(n_hot, hi - lo)
+    real = np.sort(rng.choice(np.arange(lo, hi), size=k, replace=False))
+    out = np.full(n_hot, SENTINEL, np.int32)
+    out[:k] = real
+    return out
+
+
+SEARCH_CASES = {
+    # name: (n_hot, m)
+    "mixed": (64, 200),
+    "empty_cache": (0, 50),
+    "m_one": (16, 1),
+    "big_cache": (1500, 300),
+}
+
+
+def search_case(name):
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    n_hot, m = SEARCH_CASES[name]
+    ids = cache_ids_for(rng, n_hot, 0, 4 * max(n_hot, 1) + 10)
+    if n_hot > 4:
+        ids[-3:] = SENTINEL                     # padded tail
+        ids[:-3] = np.sort(ids[:-3])
+    q = rng.integers(0, 4 * max(n_hot, 1) + 20, size=m).astype(np.int32)
+    if m > 4:
+        q[::5] = -1                             # padding queries
+        q[1::7] = SENTINEL                      # sentinel queries
+        real = ids[ids != SENTINEL]
+        if real.size:
+            q[2::3] = rng.choice(real, size=q[2::3].shape[0])   # hits
+    return ids, q
+
+
+ASSEMBLE_CASES = {
+    # name: (m, n_hot, d, query kind)
+    "mixed": (96, 24, 40, "mixed"),
+    "empty_cache": (64, 0, 24, "mixed"),
+    "all_hit": (48, 32, 16, "hit"),
+    "all_miss": (48, 32, 16, "miss"),
+    "all_local": (48, 16, 16, "local"),
+    "padded": (64, 20, 16, "padded"),
+    "d_not_mult_128": (40, 12, 130, "mixed"),
+    "d_602": (24, 8, 602, "mixed"),
+    "m_one": (1, 8, 33, "mixed"),
+}
+
+
+def assemble_case(name):
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    m, n_hot, d, kind = ASSEMBLE_CASES[name]
+    n_per, base, n_total = 50, 100, 400
+    table = rng.normal(size=(n_per, d)).astype(np.float32)
+    remote = np.setdiff1d(np.arange(n_total), np.arange(base, base + n_per))
+    cache_ids = np.sort(rng.choice(remote, size=n_hot, replace=False)) \
+        .astype(np.int32)
+    cache_feats = rng.normal(size=(n_hot, d)).astype(np.float32)
+    if kind == "hit":
+        q = rng.choice(cache_ids, size=m)
+    elif kind == "miss":
+        q = rng.choice(np.setdiff1d(remote, cache_ids), size=m)
+    elif kind == "local":
+        q = rng.integers(base, base + n_per, size=m)
+    else:
+        q = rng.integers(0, n_total, size=m)
+        if n_hot and m > 2:
+            q[::3] = rng.choice(cache_ids, size=q[::3].shape[0])
+        if kind == "padded":
+            q[::4] = -1
+            q[1::6] = SENTINEL
+    q = q.astype(np.int32)
+    pulled = rng.normal(size=(m, d)).astype(np.float32)
+    pulled[q == -1] = 0.0
+    return table, base, cache_ids, cache_feats, q, pulled
+
+
+def to_t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+GATHER_CASES = {
+    # name: (nd, fanout, m, d)
+    "small": (6, 3, 20, 16),
+    "d_not_mult_128": (9, 4, 30, 130),
+    "d_602": (5, 25, 60, 602),
+    "nd_one": (1, 10, 12, 8),
+}
+
+
+def gather_case(name):
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    nd, fo, m, d = GATHER_CASES[name]
+    h = rng.normal(size=(m, d)).astype(np.float32)
+    src = rng.integers(0, m, size=nd * fo).astype(np.int32)
+    mask = rng.random(nd * fo) < 0.7
+    mask[:fo] = False                     # a zero-degree dst row
+    return h, src, mask, nd, fo

@@ -1,0 +1,115 @@
+"""Card-only tests of the port: each CUDA kernel against its plain
+PyTorch version on the same inputs, and the serving slice on ``cuda``
+against its own oracle and the CPU path. They import no JAX, so they run
+on a machine with only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Without a CUDA device every test here skips (the fixture decides, at run
+time, so every pytest worker collects the same tests).
+"""
+import numpy as np
+import pytest
+import torch
+
+from _torch_cases import (ASSEMBLE_CASES, GATHER_CASES, SEARCH_CASES,
+                          assemble_case, gather_case, search_case, to_t)
+from repro_torch.kernels.assemble import ops as t_assemble_ops
+from repro_torch.kernels.assemble.ops import assemble_features as t_assemble
+from repro_torch.kernels.cache_lookup import ops as t_search_ops
+from repro_torch.kernels.gather_agg import ops as t_gather_ops
+from repro_torch.kernels.gather_agg.ref import gather_agg_ref as t_gather_ref
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SEARCH_CASES))
+def test_search_kernel_equals_plain_on_card(cuda, name):
+    ids, q = search_case(name)
+    args = [t.to(cuda) for t in to_t(ids, q)]
+    before = t_search_ops.LAUNCHES.value
+    pos, hit = t_search_ops.search(*args)
+    want_pos, want_hit = t_search_ops.search(*args, interpret=True)
+    torch.cuda.synchronize()
+    assert torch.equal(pos, want_pos) and torch.equal(hit, want_hit)
+    assert t_search_ops.LAUNCHES.value == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(ASSEMBLE_CASES))
+def test_assemble_kernel_equals_plain_on_card(cuda, name):
+    table, base, ids, feats, q, pulled = assemble_case(name)
+    tt, ti, tf, tq, tp = [t.to(cuda) for t in to_t(table, ids, feats, q,
+                                                  pulled)]
+    before = t_assemble_ops.LAUNCHES.value
+    got = t_assemble(tt, base, ti, tf, tq, tp, backend="fused")
+    want = t_assemble(tt, base, ti, tf, tq, tp, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert t_assemble_ops.LAUNCHES.value == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GATHER_CASES))
+def test_gather_agg_kernel_equals_plain_on_card(cuda, name):
+    h, src, mask, nd, fo = gather_case(name)
+    th, ts, tm = [t.to(cuda) for t in to_t(h, src, mask)]
+    before = t_gather_ops.LAUNCHES.value
+    got = t_gather_ops.gather_agg(th, ts, tm, nd=nd, fanout=fo)
+    want = t_gather_ref(th, ts, tm, nd, fo)
+    torch.cuda.synchronize()
+    # same order of sums, IEEE division on both: exact
+    assert torch.equal(got, want)
+    assert t_gather_ops.LAUNCHES.value == before + 1
+
+
+@pytest.mark.gpu
+def test_service_on_card_matches_oracle_and_cpu(cuda):
+    """The serving slice on ``cuda`` at a small size: uncached then fresh
+    responses bit-equal to the card's own oracle and within the
+    reference's cross-program tolerance of the CPU path, with every
+    kernel launched while serving."""
+    from repro_torch.graph import KHopSampler, load_dataset, partition_graph
+    from repro_torch.graph.sampler import rng_from
+    from repro_torch.models.gnn import GNNConfig, init_params
+    from repro_torch.serve.gnn import GNNInferenceService
+
+    g = load_dataset("tiny", seed=0)
+    pg = partition_graph(g, 4, "greedy")
+    sampler = KHopSampler(g, fanouts=[3, 3], batch_size=4)
+    cfg = GNNConfig(kind="sage", in_dim=g.feat_dim, hidden_dim=16,
+                    num_classes=g.num_classes, num_layers=2, fanouts=(3, 3),
+                    agg_backend="kernel")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    counters = (t_search_ops.LAUNCHES, t_assemble_ops.LAUNCHES,
+                t_gather_ops.LAUNCHES)
+    before = [c.value for c in counters]
+    rng = rng_from(4, 0x7E57)
+    streams = [rng.integers(0, g.num_nodes, size=4) for _ in range(8)]
+    svc = GNNInferenceService(pg, sampler, cfg, params, s0=7, n_hot=32,
+                              default_timeout_s=30.0, device=cuda)
+    ref = GNNInferenceService(pg, sampler, cfg, params, s0=7, n_hot=32,
+                              device="cpu")
+    try:
+        for lo, hi in ((0, 4), (4, 8)):
+            if lo:
+                assert svc.warmer.warm_now()
+            pendings = [svc.submit(s) for s in streams[lo:hi]]
+            assert svc.step(timeout=1.0) == hi - lo
+            for p, s in zip(pendings, streams[lo:hi]):
+                r = p.result(timeout=5.0)
+                np.testing.assert_array_equal(r.logits, svc.oracle(s, r.rid))
+                np.testing.assert_allclose(r.logits, ref.oracle(s, r.rid),
+                                           rtol=1e-4, atol=1e-5)
+    finally:
+        svc.close()
+        ref.close()
+    assert svc.health()["served_uncached"] == 4
+    assert svc.health()["served_fresh"] == 4
+    assert all(c.value > b for c, b in zip(counters, before))
