@@ -8,9 +8,6 @@ takes seconds. Libraries land in ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``), named by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is reused.
 
-``build_all`` starts one ``nvcc`` per family at once and waits for all
-of them; ``library`` builds a single family on demand.
-
 Each C entry point launches on the stream it is handed (PyTorch's
 current stream), allocates nothing and returns ``cudaGetLastError()``;
 ``check`` turns a non-zero code into an exception. ``LaunchCount`` is
@@ -25,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List
 
 KERNELS_DIR = Path(__file__).resolve().parent
 #: checkout root (``src/repro_torch/kernels`` -> three levels up)
@@ -36,7 +33,8 @@ FAMILIES = ("cache_lookup", "assemble", "gather_agg")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+#: one lock per family, so families may be built from threads at once
+_locks: Dict[str, threading.Lock] = {f: threading.Lock() for f in FAMILIES}
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -70,66 +68,33 @@ def library_path(family: str) -> Path:
     return BUILD_DIR / f"{family}-{h.hexdigest()[:16]}.so"
 
 
-def _tmp_path(out: Path) -> Path:
-    """Per-process build output, renamed over ``out`` once complete."""
-    return out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-
-
-def _start(family: str) -> Optional[subprocess.Popen]:
-    """Start ``nvcc`` for ``family`` unless its library exists."""
+def _compile(family: str) -> None:
+    """Run ``nvcc`` for ``family`` unless its library exists; the output
+    goes to a per-process file renamed over the library once complete,
+    beside the compiler's log."""
     out = library_path(family)
     if out.exists():
-        return None
+        return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = _tmp_path(out)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
            *map(str, sources(family))]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-
-def _finish(family: str, proc: subprocess.Popen) -> str:
-    """Wait for one build; publish the library atomically; -> log."""
-    log, _ = proc.communicate()
-    out = library_path(family)
-    tmp = _tmp_path(out)
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for kernel family {family!r} "
-                           f"(exit {proc.returncode}):\n{log}")
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)
-    out.with_suffix(".log").write_text(log)
-    return log
-
-
-def build_all(families: Sequence[str] = FAMILIES) -> Dict[str, str]:
-    """Build every family not yet built, one ``nvcc`` each, all started
-    together. -> {family: compiler log ('' when reused)}."""
-    with _lock:
-        procs = {f: _start(f) for f in families}
-        logs: Dict[str, str] = {}
-        errors: List[str] = []
-        for f, proc in procs.items():
-            if proc is None:
-                logs[f] = ""
-                continue
-            try:
-                logs[f] = _finish(f, proc)
-            except RuntimeError as exc:
-                errors.append(str(exc))
-        if errors:
-            raise RuntimeError("\n".join(errors))
-        return logs
+    out.with_suffix(".log").write_text(proc.stdout)
 
 
 def library(family: str) -> ctypes.CDLL:
     """The loaded library of ``family``, built on first use."""
-    with _lock:
+    with _locks[family]:
         lib = _libs.get(family)
         if lib is not None:
             return lib
-        proc = _start(family)
-        if proc is not None:
-            _finish(family, proc)
+        _compile(family)
         lib = ctypes.CDLL(str(library_path(family)))
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p

@@ -8,9 +8,11 @@
 // On the card one warp owns one output row. It reads the row's query id
 // and the `search` kernel's (pos, hit), does the classify arithmetic of
 // repro/kernels/assemble/assemble.py:40 inline (priority local shard >
-// cache hit > pulled, with the clamps cpos = min(pos, n_hot - 1) and
-// lslot = clip(slot, 0, n_per - 1)), and copies ONLY the winning source
-// row. The bound is bytes: one row read and one row written per query,
+// cache hit > pulled, with the clamp cpos = min(pos, n_hot - 1)), and
+// copies ONLY the winning source row. The reference also clips the local
+// slot to [0, n_per - 1] because it addresses all three candidates
+// unconditionally; here the local row is read only inside the branch
+// 0 <= slot < n_per, which makes that clip a no-op. The bound is bytes: one row read and one row written per query,
 // 2 x m x d x 4 bytes. Rows move as 16-byte vectors when both the source
 // and the destination row are 16-byte aligned (d = 602 rows alternate
 // between 16- and 8-byte alignment), as 8-byte vectors when both are
@@ -50,8 +52,7 @@ __global__ void select_kernel(const float* __restrict__ table,
   const long long slot = static_cast<long long>(query[row]) - base;
   const float* src;
   if (slot >= 0 && slot < n_per) {
-    const long long lslot = slot < 0 ? 0 : (slot > n_per - 1 ? n_per - 1 : slot);
-    src = table + lslot * d;
+    src = table + slot * d;
   } else if (hit[row]) {
     const int cpos = min(pos[row], n_hot - 1);
     src = cache_feats + static_cast<long long>(cpos) * d;

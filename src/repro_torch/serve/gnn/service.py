@@ -62,22 +62,16 @@ from repro_torch.serve.gnn.warmer import CacheWarmer, WarmSnapshot
 class ServeProgram:
     """The inference program: a plain callable that moves one
     micro-batch to the device, runs ``assemble_features`` then the
-    batched ``forward``, and returns numpy logits. Shareable across
-    service instances with identical static shapes (``key``)."""
+    batched ``forward``, and returns numpy logits."""
 
     def __init__(self, cfg: GNNConfig, max_requests: int, m_max: int,
-                 batch_size: int, d: int, base: int, backend: str,
-                 interpret: bool, device: torch.device):
-        self.key = (cfg, max_requests, m_max, batch_size, d, base,
-                    backend, interpret, device)
+                 batch_size: int, d: int, base: int, device: torch.device):
         self.cfg = cfg
         self.max_requests = max_requests
         self.m_max = m_max
         self.batch_size = batch_size
         self.d = d
         self.base = base
-        self.backend = backend
-        self.interpret = interpret
         self.device = device
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -93,8 +87,7 @@ class ServeProgram:
             flat = assemble_features(
                 table, self.base, self._dev(cache_ids),
                 self._dev(cache_feats), self._dev(query).reshape(-1),
-                self._dev(pulled).reshape(-1, self.d),
-                backend=self.backend, interpret=self.interpret)
+                self._dev(pulled).reshape(-1, self.d))
             h = flat.reshape(self.max_requests, self.m_max, self.d)
             logits = forward(self.cfg, params, h,
                              [self._dev(e) for e in edge_src],
@@ -117,8 +110,6 @@ class GNNInferenceService:
                  pressure_slack_s: float = 0.02,
                  warm_interval_s: float = 0.05,
                  net: Optional[NetworkModel] = None,
-                 backend: str = "auto", interpret: bool = False,
-                 program: Optional[ServeProgram] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -126,8 +117,6 @@ class GNNInferenceService:
         self.worker = int(worker)
         self.default_timeout_s = float(default_timeout_s)
         self.pressure_slack_s = float(pressure_slack_s)
-        self.backend = backend
-        self.interpret = interpret
 
         self.dv = DeviceView.build(pg)
         self.store = ShardedFeatureStore(pg, self.worker, net=net)
@@ -146,17 +135,9 @@ class GNNInferenceService:
         self._empty_cache_feats = np.zeros((self.n_hot, self.store.d),
                                            np.float32)
 
-        expect_key = (cfg, max_batch_requests, self.collator.m_max,
-                      self.collator.batch_size, self.store.d, self._base,
-                      backend, interpret, self.device)
-        if program is not None and program.key != expect_key:
-            raise ValueError(
-                f"shared ServeProgram key {program.key} does not match "
-                f"this service's static shape {expect_key}")
-        self.program = program if program is not None else ServeProgram(
+        self.program = ServeProgram(
             cfg, max_batch_requests, self.collator.m_max,
-            self.collator.batch_size, self.store.d, self._base, backend,
-            interpret, self.device)
+            self.collator.batch_size, self.store.d, self._base, self.device)
 
         self._lock = threading.Lock()         # stats + lifecycle
         self._stats = {"served_fresh": 0, "served_stale": 0,
