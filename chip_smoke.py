@@ -26,6 +26,26 @@ Phases (any failure raises, so the exit code is non-zero):
    one exists, the single PyTorch library call computing the same
    function (``torch.searchsorted`` for ``search``, ``F.embedding_bag``
    for ``gather_agg``; CUDA-graph replays timed with CUDA events).
+4. Train: the paper's RapidGNN pipeline on one card at the same width
+   (``sage("reddit_sim", 1000)``: batch 1000, hidden 256, fan-outs
+   (25, 10), n_hot 4096, Q 4, AdamW lr 3e-3, parameters from a seed).
+   The schedule for 2 epochs is compiled on the card (``seg_sort``) and
+   must be bit-equal to the numpy compiler's; then ``RapidGNNRunner``
+   trains 2 epochs x 10 steps through the ``gather_agg`` forward and
+   backward kernels, with every launch count (set to 0 before the
+   schedule build, read after the run) risen and ``gather_agg_bwd``
+   launched once a step (layer 1 only). The first 3 losses must agree
+   with the same steps on the CPU (plain versions) to ``rtol=1e-4,
+   atol=1e-5`` and a second card run must give the same loss curve bit
+   for bit. Prints build ms per epoch for each compiler, steps/s, the
+   per-step prefetch stall and compute (H2D copy and step apart), the
+   peak device memory and a traced split of the card's time by op.
+5. Hold ``seg_sort`` (the compiler's largest stream, keys only, and the
+   backward's by-source sort, with a payload; bit-equal) and
+   ``gather_agg_bwd`` (layer 1's shapes, and layer 0's for reference;
+   ``rtol=atol=1e-5``, and two runs bit-equal) against their plain
+   versions on the card, with their times beside ``torch.sort`` and
+   ``index_add_``.
 
 Output: one ``kernel {...}`` line per kernel, the card's name and power
 limit, one ``{"kernels": [...]}`` line, and as the last line
@@ -59,6 +79,10 @@ MAX_BATCH_REQUESTS = 4
 UNCACHED_REQUESTS = 8
 FRESH_REQUESTS = 24
 CPU_CHECKS = 2
+TRAIN_BATCH = 1000
+TRAIN_EPOCHS = 2
+TRAIN_LR = 3e-3
+CPU_LOSS_STEPS = 3
 
 
 def log(msg: str) -> None:
@@ -536,6 +560,435 @@ def kernel_phase(torch, device, x, launches):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the training path
+# ---------------------------------------------------------------------------
+
+def train_world(g):
+    from repro_torch.configs.rapidgnn_paper import sage
+    from repro_torch.graph import KHopSampler
+    from repro_torch.models.gnn import GNNConfig
+
+    exp = sage(DATASET, TRAIN_BATCH, workers=PARTS, epochs=TRAIN_EPOCHS)
+    sampler = KHopSampler(g, fanouts=list(exp.fanouts),
+                          batch_size=exp.batch_size)
+    cfg = GNNConfig(kind=exp.model, in_dim=g.feat_dim,
+                    hidden_dim=exp.hidden_dim, num_classes=g.num_classes,
+                    num_layers=exp.num_layers, fanouts=tuple(exp.fanouts),
+                    agg_backend="kernel")
+    return exp, sampler, cfg
+
+
+def schedule_kw(exp):
+    return dict(worker=WORKER, s0=exp.s0, num_epochs=exp.num_epochs,
+                n_hot=exp.n_hot)
+
+
+def build_device_schedule(torch, device, exp, sampler, pg):
+    """The schedule compiled on the card, with the largest key stream
+    the compiler handed ``seg_sort`` kept (a copy) for the kernel rows."""
+    import repro_torch.graph.device_sampler as dsm
+    from repro_torch.core import build_schedule
+
+    real, seen = dsm.seg_sort, {"n": -1}
+
+    def recording(keys, payload=None, **kw):
+        if payload is None and keys.shape[0] > seen["n"]:
+            seen.update(n=keys.shape[0], keys=keys.clone(),
+                        num_bits=kw["num_bits"])
+        return real(keys, payload, **kw)
+    dsm.seg_sort = recording
+    try:
+        t0 = time.perf_counter()
+        ws = build_schedule(sampler, pg, compiler="device", device=device,
+                            **schedule_kw(exp))
+        seconds = time.perf_counter() - t0
+    finally:
+        dsm.seg_sort = real
+    return ws, seconds, seen
+
+
+def check_schedules_equal(ref, dev, n_epochs: int) -> None:
+    """Every FlatEpoch array (dtype too), the hot set, the remote ids and
+    frequencies and the pad bounds: bit-equal, or raise."""
+    import numpy as np
+
+    def same(a, b, what):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise RuntimeError(f"device-compiled schedule differs from the "
+                               f"numpy compiler's: {what}")
+    for e in range(n_epochs):
+        a, b = ref.epoch(e), dev.epoch(e)
+        if a.m_max != b.m_max:
+            raise RuntimeError(f"epoch {e}: m_max {a.m_max} != {b.m_max}")
+        for f in ("seeds", "seed_starts", "input_nodes", "input_starts",
+                  "num_dst"):
+            same(getattr(a.flat, f), getattr(b.flat, f), f"epoch {e} {f}")
+        for f in ("edge_src", "edge_dst", "edge_mask", "edge_starts"):
+            for l, (x, y) in enumerate(zip(getattr(a.flat, f),
+                                           getattr(b.flat, f))):
+                same(x, y, f"epoch {e} {f}[{l}]")
+        for f in ("cache_ids", "remote_ids", "remote_freq"):
+            same(getattr(a, f), getattr(b, f), f"epoch {e} {f}")
+    if ref.pad_bounds() != dev.pad_bounds():
+        raise RuntimeError(f"pad bounds {ref.pad_bounds()} != "
+                           f"{dev.pad_bounds()}")
+
+
+def train_run(torch, device, exp, cfg, ws, pg, capture: int = 0):
+    """``RapidGNNRunner`` over the schedule with the port's train step on
+    ``device``, parameters from ``exp.s0``. -> per-step losses, the run's
+    metrics and wall time, the first ``capture`` (features, batch)
+    pairs the step was given, and per-step (H2D, step) host seconds."""
+    from repro_torch.core import (NetworkModel, RapidGNNRunner,
+                                  ShardedFeatureStore)
+    from repro_torch.models.gnn import (batch_to_device, init_params,
+                                        make_train_step)
+    from repro_torch.train import AdamW
+
+    params = init_params(cfg, torch.Generator().manual_seed(exp.s0), device)
+    opt = AdamW(lr=TRAIN_LR)
+    state = [params, opt.init(params)]
+    step = make_train_step(cfg, opt)
+    hist, captured, split = [], [], []
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def train_fn(feats, cb):
+        if len(captured) < capture:
+            captured.append((feats.copy(), cb))
+        t0 = time.perf_counter()
+        batch = batch_to_device(cb, feats, device)
+        sync()
+        t1 = time.perf_counter()
+        state[0], state[1], aux = step(state[0], state[1], batch)
+        hist.append(float(aux["loss"]))       # waits for the step
+        split.append((t1 - t0, time.perf_counter() - t1))
+        return hist[-1]
+
+    store = ShardedFeatureStore(pg, worker=WORKER,
+                                net=NetworkModel(enabled=False))
+    runner = RapidGNNRunner(ws, store, batch_size=exp.batch_size, Q=exp.Q,
+                            train_fn=train_fn)
+    t0 = time.perf_counter()
+    metrics = runner.run()
+    return hist, metrics, time.perf_counter() - t0, captured, split
+
+
+def cpu_losses(torch, exp, cfg, captured):
+    """The first steps again on the CPU (plain versions), from the same
+    parameters and the same batches."""
+    from repro_torch.models.gnn import (batch_to_device, init_params,
+                                        make_train_step)
+    from repro_torch.train import AdamW
+
+    cpu = torch.device("cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(exp.s0), cpu)
+    opt = AdamW(lr=TRAIN_LR)
+    state, step, out = opt.init(params), make_train_step(cfg, opt), []
+    for feats, cb in captured:
+        params, state, aux = step(params, state,
+                                  batch_to_device(cb, feats, cpu))
+        out.append(float(aux["loss"]))
+    return out
+
+
+def trace_steps(torch, device, exp, cfg, captured):
+    """Card time by op over the captured steps (H2D copy included),
+    traced by ``torch.profiler``; parameters fresh from the seed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.gnn import (batch_to_device, init_params,
+                                        make_train_step)
+    from repro_torch.train import AdamW
+
+    params = init_params(cfg, torch.Generator().manual_seed(exp.s0), device)
+    opt = AdamW(lr=TRAIN_LR)
+    state, step = opt.init(params), make_train_step(cfg, opt)
+    feats, cb = captured[0]
+    params, state, _ = step(params, state, batch_to_device(cb, feats, device))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for feats, cb in captured:
+            params, state, aux = step(params, state,
+                                      batch_to_device(cb, feats, device))
+            float(aux["loss"])
+        traced_s = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    n = len(captured)
+    return {"steps": n, "traced_step_ms": 1e3 * traced_s / n,
+            "card_busy_ms_per_step": busy_us / 1e3 / n,
+            "card_busy_share": busy_us / 1e6 / traced_s,
+            "top_device_ms_per_step": {
+                e.key: e.self_device_time_total / 1e3 / n for e in top}}
+
+
+def train_phase(torch, device, g, pg, counters):
+    """Schedule on the card (bit-equal to the numpy compiler), then
+    ``TRAIN_EPOCHS`` epochs of RapidGNN training through the kernels,
+    held against the CPU and against a second run on the card."""
+    import numpy as np
+    from repro_torch.core import build_schedule
+
+    exp, sampler, cfg = train_world(g)
+    t0 = time.perf_counter()
+    ref = build_schedule(sampler, pg, compiler="batched", **schedule_kw(exp))
+    numpy_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    ws, device_s, sort_input = build_device_schedule(torch, device, exp,
+                                                     sampler, pg)
+    hist, metrics, wall, captured, split = train_run(
+        torch, device, exp, cfg, ws, pg, capture=CPU_LOSS_STEPS)
+    torch.cuda.synchronize()
+    launches = {c.name: c.value for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+
+    check_schedules_equal(ref, ws, exp.num_epochs)
+    m_max, edge_max = ws.pad_bounds()
+    log(f"train schedule: {exp.num_epochs} epochs x "
+        f"{ws.epoch(0).num_batches} batches, m_max={m_max} "
+        f"edge_max={edge_max}; device compiler bit-equal to numpy; build "
+        f"ms per epoch: device {1e3 * device_s / exp.num_epochs:.1f}, "
+        f"numpy {1e3 * numpy_s / exp.num_epochs:.1f}")
+    steps = len(hist)
+    want = sum(ws.epoch(e).num_batches for e in range(exp.num_epochs))
+    if steps != want or not np.isfinite(hist).all():
+        raise RuntimeError(f"{steps} steps of {want}, losses {hist}")
+    if launches["seg_sort"] == 0 or launches["gather_agg"] == 0:
+        raise RuntimeError(f"training did not launch every kernel of its "
+                           f"path: {launches}")
+    # one backward launch a step: layer 1 only, never layer 0, whose
+    # input (the features) needs no gradient
+    if launches["gather_agg_bwd"] != steps:
+        raise RuntimeError(f"gather_agg_bwd launched "
+                           f"{launches['gather_agg_bwd']} times in {steps} "
+                           f"steps (once a step, at layer 1, expected)")
+    cpu = cpu_losses(torch, exp, cfg, captured)
+    np.testing.assert_allclose(hist[:CPU_LOSS_STEPS], cpu, rtol=1e-4,
+                               atol=1e-5)
+    again, _, wall2, _, _ = train_run(torch, device, exp, cfg, ws, pg)
+    if again != hist:
+        raise RuntimeError(f"a second run on the card gave another loss "
+                           f"curve: {hist} vs {again}")
+    tot = metrics.totals()
+    h2d = sorted(a for a, _ in split)
+    stp = sorted(b for _, b in split)
+    out = {
+        "schedule_ms_per_epoch": {"device": 1e3 * device_s / exp.num_epochs,
+                                  "numpy": 1e3 * numpy_s / exp.num_epochs},
+        "m_max": m_max, "edge_max": edge_max,
+        "sort_stream": {"n": sort_input["n"],
+                        "num_bits": sort_input["num_bits"]},
+        "steps": steps, "losses": hist, "cpu_losses": cpu,
+        "wall_s": wall, "wall_s_second_run": wall2,
+        "steps_per_s": steps / wall,
+        "prefetch_stall_ms_per_step": 1e3 * tot["fetch_stall_s"] / steps,
+        "compute_ms_per_step": 1e3 * tot["compute_time_s"] / steps,
+        "h2d_ms_median": 1e3 * h2d[len(h2d) // 2],
+        "step_ms_median": 1e3 * stp[len(stp) // 2],
+        "peak_bytes": peak, "launches": launches,
+        "counters": {k: int(tot[k]) for k in (
+            "rpc_count", "remote_bytes", "vector_pull_bytes", "cache_hits",
+            "cache_misses", "prefetch_hits", "default_path")},
+        "trace": trace_steps(torch, device, exp, cfg, captured)}
+    log(f"train: {steps} steps in {wall:.3f} s = {out['steps_per_s']:.2f} "
+        f"steps/s (second run {wall2:.3f} s); per step: prefetch stall "
+        f"{out['prefetch_stall_ms_per_step']:.2f} ms + compute "
+        f"{out['compute_ms_per_step']:.2f} ms (of which H2D copy "
+        f"{out['h2d_ms_median']:.2f} ms, step {out['step_ms_median']:.2f} "
+        f"ms, medians); peak device memory {peak / 2**20:.1f} MiB")
+    log(f"train losses {['%.6f' % x for x in hist]}; first "
+        f"{CPU_LOSS_STEPS} within rtol=1e-4 atol=1e-5 of the CPU "
+        f"{['%.6f' % x for x in cpu]}; second card run bit-identical")
+    log(f"train launches {json.dumps(launches)}; counters "
+        f"{json.dumps(out['counters'])}")
+    tr = out["trace"]
+    log(f"traced steps: {tr['traced_step_ms']:.2f} ms a step, card busy "
+        f"{tr['card_busy_ms_per_step']:.3f} ms "
+        f"({100 * tr['card_busy_share']:.2f} %); card ms a step by op: "
+        f"{json.dumps(tr['top_device_ms_per_step'])}")
+    return out, sort_input, captured, m_max, cfg
+
+
+def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
+                       launches):
+    """``seg_sort`` and ``gather_agg_bwd`` against their plain versions
+    on the card, at the training path's shapes, with their times."""
+    import numpy as np
+    from repro_torch.kernels.gather_agg import ops as gather_ops
+    from repro_torch.kernels.gather_agg.ref import gather_agg_bwd_ref
+    from repro_torch.kernels.seg_sort import ops as sort_ops
+    from repro_torch.kernels.seg_sort.ref import seg_sort_ref
+
+    sentinel = 2 ** 31 - 1
+    _, cb = captured[0]
+    fanouts = cfg.fanouts
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def sort_row(keys, payload, num_bits, what):
+        got = sort_ops.seg_sort(keys, payload, num_bits=num_bits)
+        want = seg_sort_ref(keys, payload)
+        _equal(torch, got[0], want[0])
+        if payload is not None:
+            _equal(torch, got[1], want[1])
+        n = keys.shape[0]
+        passes = -(-min(num_bits + 1, 32) // 8)
+        per_key = 8 if payload is None else 16     # read + write once
+        r = {"what": what, "n": n, "num_bits": num_bits,
+             "bound": bound_ms(n * per_key, n * passes),
+             "ms": device_ms(torch, lambda: sort_ops.seg_sort(
+                 keys, payload, num_bits=num_bits)),
+             "plain_ms": device_ms(torch, lambda: seg_sort_ref(
+                 keys, payload)),
+             "library_ms": device_ms(torch, lambda: torch.sort(
+                 keys, stable=True))}
+        log(f"seg_sort {what}: n={n} num_bits={num_bits} "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f}")
+        return r
+
+    # the compiler's largest stream (layer 0 of an epoch), keys only,
+    # and the backward's by-source sort of layer 1, with a payload
+    src1, msk1 = t(cb.edge_src[1]), t(cb.edge_mask[1])
+    bwd_keys = torch.where(msk1, src1, torch.full_like(src1, sentinel))
+    bwd_ids = torch.arange(bwd_keys.shape[0], dtype=torch.int32,
+                           device=device)
+    sorts = [sort_row(sort_input["keys"], None, sort_input["num_bits"],
+                      "layer-0 stream"),
+             sort_row(bwd_keys, bwd_ids, max((m_max - 1).bit_length(), 1),
+                      "backward by-source")]
+
+    def bwd_row(layer, d, what, tol):
+        """``tol`` (rtol = atol) bounds the kernel's distance from the
+        plain version on the card, whose ``index_add_`` sums with atomics
+        in no fixed order, and from the plain version on the CPU, which
+        sums each row in edge order as the kernel does."""
+        fo = fanouts[layer]
+        src, msk = t(cb.edge_src[layer]), t(cb.edge_mask[layer])
+        nd = src.shape[0] // fo
+        gen = torch.Generator(device="cpu").manual_seed(layer)
+        g = torch.randn((nd, d), generator=gen).to(device)
+        got = gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
+                                        fanout=fo)
+        again = gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
+                                          fanout=fo)
+        want = gather_agg_bwd_ref(g, src, msk, m_max, nd, fo)
+        cpu = gather_agg_bwd_ref(g.cpu(), src.cpu(), msk.cpu(), m_max, nd,
+                                 fo)
+        if not (torch.allclose(got, want, rtol=tol, atol=tol)
+                and torch.allclose(got.cpu(), cpu, rtol=tol, atol=tol)):
+            raise RuntimeError(f"gather_agg_bwd {what} differs from its "
+                               f"plain version")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"gather_agg_bwd {what}: two runs differ")
+        cnt = msk.reshape(nd, fo).sum(1).float().clamp(min=1.0)
+        msg = (g / cnt[:, None])[:, None, :].expand(nd, fo, d) \
+            .reshape(nd * fo, d) * msk[:, None].float()
+        src_l = src.long()
+
+        def library():
+            return torch.zeros((m_max, d), device=device).index_add_(
+                0, src_l, msg)
+        if not torch.allclose(library().cpu(), cpu, rtol=tol, atol=tol):
+            raise RuntimeError("index_add_ yardstick computes another "
+                               "function")
+        unmasked = int(msk.sum().item())
+        nbytes = nd * d * 4 + src.shape[0] * 5 + m_max * d * 4
+        r = {"what": what, "err": (got - want).abs().max().item(),
+             "bound": bound_ms(nbytes, 2 * unmasked * d),
+             "ms": device_ms(torch, lambda: gather_ops.gather_agg_bwd(
+                 g, src, msk, m=m_max, nd=nd, fanout=fo)),
+             "plain_ms": device_ms(torch, lambda: gather_agg_bwd_ref(
+                 g, src, msk, m_max, nd, fo)),
+             "library_ms": device_ms(torch, library),
+             "cpu_err": (got.cpu() - cpu).abs().max().item(),
+             "shape": f"g=({nd},{d}) m={m_max} fanout={fo} "
+                      f"unmasked={unmasked}"}
+        log(f"gather_agg_bwd {what}: {r['shape']} ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"bound_ms={r['bound'][0]:.4f} max_abs_err={r['err']:.3e} "
+            f"(CPU plain version: {r['cpu_err']:.3e})")
+        return r
+    bwd1 = bwd_row(1, cfg.hidden_dim, "layer 1 (the path)", 1e-5)
+    # layer 0's hub rows sum thousands of terms: the card's atomic order
+    # moves the plain version by more than 1e-5 there
+    bwd0 = bwd_row(0, cfg.in_dim, "layer 0 (for reference, not launched "
+                                  "in training)", 1e-4)
+
+    # awkward shapes
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    for n, bits, payload in ((1, 3, True), (4095, 20, True),
+                             (4097, 31, False), (700, 1, True)):
+        keys = torch.randint(0, 1 << bits, (n,), generator=gen,
+                             dtype=torch.int32)
+        keys[::5] = sentinel
+        pay = torch.randperm(n, generator=gen).to(torch.int32) \
+            if payload else None
+        keys = keys.to(device)
+        pay = None if pay is None else pay.to(device)
+        got = sort_ops.seg_sort(keys, pay, num_bits=bits)
+        want = seg_sort_ref(keys, pay)
+        _equal(torch, got[0], want[0])
+        if pay is not None:
+            _equal(torch, got[1], want[1])
+    same = torch.full((3000,), 5, dtype=torch.int32, device=device)
+    order = torch.arange(3000, dtype=torch.int32, device=device)
+    _equal(torch, sort_ops.seg_sort(same, order, num_bits=4)[1], order)
+    hub_src = torch.full((400,), 7, dtype=torch.int32, device=device)
+    hub_msk = torch.ones(400, dtype=torch.bool, device=device)
+    hub_msk[:10] = False
+    hub_g = torch.randn((40, 33), generator=gen).to(device)
+    got = gather_ops.gather_agg_bwd(hub_g, hub_src, hub_msk, m=9, nd=40,
+                                    fanout=10)
+    if not torch.allclose(got.cpu(), gather_agg_bwd_ref(
+            hub_g.cpu(), hub_src.cpu(), hub_msk.cpu(), 9, 40, 10),
+            rtol=1e-5, atol=1e-5):
+        raise RuntimeError("gather_agg_bwd hub row differs")
+    log("awkward shapes: seg_sort (n=1, 4095, 4097, all keys equal, "
+        "num_bits 1/3/20/31, sentinels between keys) and gather_agg_bwd "
+        "(one hub row, a zero-count dst row) equal to their plain versions")
+    torch.cuda.synchronize()
+
+    rows = [{
+        "name": "seg_sort", "route": "cuda",
+        "source": "src/repro_torch/kernels/seg_sort/csrc/radix_sort.cu",
+        "replaces": "src/repro/kernels/seg_sort/seg_sort.py:46",
+        "launches": launches["seg_sort"], "max_abs_err": 0.0,
+        "ms": sum(r["ms"] for r in sorts),
+        "plain_ms": sum(r["plain_ms"] for r in sorts),
+        "bound_ms": sum(r["bound"][0] for r in sorts),
+        "bound_by": sorts[0]["bound"][1],
+        "library_ms": sum(r["library_ms"] for r in sorts),
+        "shape": " + ".join(f"{r['what']} n={r['n']} num_bits="
+                            f"{r['num_bits']}" for r in sorts),
+        "parts": sorts}, {
+        "name": "gather_agg_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/gather_agg/csrc/"
+                  "gather_agg_bwd.cu",
+        "replaces": "src/repro/kernels/gather_agg/ops.py:39",
+        "launches": launches["gather_agg_bwd"], "max_abs_err": bwd1["err"],
+        "ms": bwd1["ms"], "plain_ms": bwd1["plain_ms"],
+        "bound_ms": bwd1["bound"][0], "bound_by": bwd1["bound"][1],
+        "library_ms": bwd1["library_ms"], "shape": bwd1["shape"],
+        "layer0_reference": bwd0}]
+    for r in rows[0]["parts"] + [rows[1]["layer0_reference"]]:
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -552,6 +1005,7 @@ def main() -> int:
     from repro_torch.kernels.assemble import ops as assemble_ops
     from repro_torch.kernels.cache_lookup import ops as search_ops
     from repro_torch.kernels.gather_agg import ops as gather_ops
+    from repro_torch.kernels.seg_sort import ops as sort_ops
 
     device = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -579,6 +1033,12 @@ def main() -> int:
 
     x = served_inputs(torch, device, svc, streams, responses)
     kernels = kernel_phase(torch, device, x, launches)
+
+    train_counters = counters + [gather_ops.BWD_LAUNCHES, sort_ops.LAUNCHES]
+    train, sort_input, captured, m_max, train_cfg = train_phase(
+        torch, device, g, pg, train_counters)
+    kernels += train_kernel_phase(torch, device, train_cfg, sort_input,
+                                  captured, m_max, train["launches"])
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -591,7 +1051,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serve": phases,
                    "breakdown": split, "peak_bytes": peak,
-                   "launches": launches}, f, indent=1)
+                   "launches": launches, "train": train}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -17,10 +17,10 @@ keeps per-layer edge counts static (num_dst x F) -- the fan-out-regular
 layout the ``gather_agg`` kernel reads -- while preserving the uniform
 marginal Prop 3.1 relies on. Zero-degree nodes contribute masked edges.
 
-This is the port's own copy of ``repro.graph.sampler`` (the serving
-slice needs ``sample_batch`` and ``FlatEpoch``; the whole-epoch
-compiler comes with the training slice). Its outputs are bit-identical
-to the reference for the same seeds.
+This is the port's own copy of ``repro.graph.sampler``: the per-batch
+sampler, the per-batch epoch loop (``sample_epoch``) and the whole-epoch
+compiler (``sample_epoch_batched``). Its outputs are bit-identical to the
+reference for the same seeds.
 """
 from __future__ import annotations
 
@@ -39,6 +39,13 @@ def _starts(counts: np.ndarray) -> np.ndarray:
     out = np.zeros(counts.shape[0] + 1, np.int64)
     np.cumsum(counts, out=out[1:])
     return out
+
+
+#: composite (batch, id) key spaces below this bound sort as int32
+#: keys: numpy's stable sort on 32-bit integers is a radix sort, which
+#: turns the segment-unique argsorts O(n) and cache-friendly. Larger
+#: spaces fall back to int64 keys (same algorithm, comparison sort).
+KEY_INT32_MAX_SLOTS = 2 ** 31
 
 
 def derive_seed(s0: int, *fields: int) -> int:
@@ -251,3 +258,151 @@ class KHopSampler:
         return SampledBatch(epoch=epoch, index=index, worker=worker,
                             seeds=np.asarray(seed_nodes, dtype=np.int64),
                             input_nodes=cur, blocks=blocks)
+
+    def sample_epoch(self, s0: int, worker: int, epoch: int,
+                     train_nodes: np.ndarray) -> List[SampledBatch]:
+        """Per-batch reference epoch sampler: one ``sample_batch`` call
+        per batch. Kept as the parity oracle ``sample_epoch_batched`` is
+        tested and benchmarked against (repo convention: the loop
+        survives as the oracle of every vectorized pass)."""
+        out = []
+        for i, seeds in enumerate(
+                self.epoch_seed_batches(s0, worker, epoch, train_nodes)):
+            out.append(self.sample_batch(s0, worker, epoch, i, seeds))
+        return out
+
+    # ---- whole-epoch compiler (DESIGN.md §2.1) ----
+    def sample_epoch_batched(self, s0: int, worker: int, epoch: int,
+                             train_nodes: np.ndarray) -> FlatEpoch:
+        """Sample a whole epoch in a handful of vectorized passes,
+        BIT-IDENTICAL to ``sample_epoch`` (the hypothesis parity suite
+        pins it batch-for-batch, array-for-array).
+
+        All batches' frontiers ride one flat, batch-segmented stream:
+        per layer there is ONE degree gather, ONE neighbor-table gather
+        and ONE composite-key sort for the segment-aware unique /
+        dst-prefix construction, replacing the per-batch
+        ``unique``/``setdiff1d``/``argsort``/``searchsorted`` quartet.
+        Only the offset draw stays per batch -- each batch owns an
+        independent Philox stream seeded ``H(s0, w, e, i)`` (Prop 3.1
+        demands it), so its draw is one blockwise ``Generator.integers``
+        call on that stream, exactly the call ``sample_batch`` makes.
+
+        This numpy path doubles as the ORACLE for the accelerator port
+        (``graph.device_sampler.sample_epoch_batched_device``, DESIGN.md
+        §2.2), which moves the sort-bound middle on device and must stay
+        bit-identical to it.
+        """
+        g = self.graph
+        L = len(self.fanouts)
+        seed_batches = self.epoch_seed_batches(s0, worker, epoch,
+                                               train_nodes)
+        nb = len(seed_batches)
+        if nb == 0:
+            return FlatEpoch.empty(epoch, worker, L)
+        seeds_flat = np.concatenate(seed_batches).astype(np.int64)
+        seed_counts = np.fromiter((b.shape[0] for b in seed_batches),
+                                  np.int64, nb)
+        seed_starts = _starts(seed_counts)
+        rngs = [rng_from(s0, worker, epoch, i) for i in range(nb)]
+        span = np.int64(g.num_nodes)
+
+        cur = seeds_flat                 # flat frontier, batch-segmented
+        counts, starts = seed_counts, seed_starts
+        num_dst = np.zeros((L, nb), np.int64)
+        rev_src: List[np.ndarray] = []
+        rev_dst: List[np.ndarray] = []
+        rev_mask: List[np.ndarray] = []
+        rev_starts: List[np.ndarray] = []
+
+        # int32 composite keys whenever the key space allows: the
+        # per-layer segment-unique argsorts are memory-bound at epoch
+        # scale, and halving the key width buys ~1.6x there
+        kdt = (np.int32 if nb * int(span) < KEY_INT32_MAX_SLOTS
+               else np.int64)
+        span_k = kdt(span)
+        bids = np.arange(nb, dtype=kdt)
+
+        # walk output layer -> input layer, as sample_batch does
+        for j, fanout in enumerate(reversed(self.fanouts)):
+            num_dst[L - 1 - j] = counts
+            batch_of = np.repeat(bids, counts)
+            within = np.arange(cur.shape[0], dtype=np.int64) \
+                - starts[batch_of]
+            deg = (g.indptr[cur + 1] - g.indptr[cur]).astype(np.int64)
+            hi = np.maximum(deg, 1)
+            offs = np.empty((cur.shape[0], fanout), np.int64)
+            for i in range(nb):     # one blockwise draw per Philox stream
+                sl = slice(starts[i], starts[i + 1])
+                offs[sl] = rngs[i].integers(
+                    0, hi[sl][:, None], size=(int(counts[i]), fanout))
+            src_pos = g.indptr[cur][:, None] + offs
+            zero = np.flatnonzero(deg == 0)
+            if zero.size:       # only deg-0 rows can index past the end
+                src_pos[zero] = 0
+            src_flat = g.indices[src_pos].reshape(-1) \
+                .astype(kdt, copy=False)
+            mask = np.repeat(deg > 0, fanout)
+            if zero.size:
+                # masked (zero-degree) edges self-loop onto their dst:
+                # patch just those slots (edge e <- frontier row e // F)
+                bad = np.flatnonzero(~mask)
+                src_flat[bad] = cur[bad // fanout]
+
+            dst_idx = np.repeat(within, fanout).astype(np.int32)
+            ecount = counts * fanout
+            cand_key = np.repeat(bids, ecount) * span_k + src_flat
+
+            # segment-aware unique: composite (batch, id) keys make one
+            # global sort act per batch (keys never cross segments);
+            # the inverse indices replace every per-batch searchsorted
+            uk, inv = np.unique(cand_key, return_inverse=True)
+
+            cur_key = (batch_of * span_k
+                       + cur.astype(kdt, copy=False))
+            csort = np.argsort(cur_key)
+            cks = cur_key[csort]
+            pos = np.minimum(np.searchsorted(cks, uk),
+                             cks.shape[0] - 1)
+            is_new = cks[pos] != uk
+            ext_key = uk[is_new]
+            ext_batch = (ext_key // span_k).astype(np.int64)
+            ext_id = (ext_key - ext_batch * span_k).astype(np.int64)
+            ext_counts = np.bincount(ext_batch, minlength=nb) \
+                .astype(np.int64)
+            ext_starts = _starts(ext_counts)
+            ewithin = np.arange(ext_id.shape[0], dtype=np.int64) \
+                - ext_starts[ext_batch]
+
+            # next frontier: dst prefix then the new unique sources
+            # (ascending per batch == the setdiff1d contract)
+            new_counts = counts + ext_counts
+            new_starts = _starts(new_counts)
+            new_cur = np.empty(int(new_starts[-1]), np.int64)
+            new_cur[new_starts[batch_of] + within] = cur
+            new_cur[new_starts[ext_batch] + counts[ext_batch]
+                    + ewithin] = ext_id
+
+            # resolve each UNIQUE key once (old keys sit at their
+            # dst-prefix position, new keys at prefix + extra rank),
+            # then fan out to edges through the unique-inverse -- no
+            # edge-sized searchsorted ever runs
+            uk_local = np.empty(uk.shape[0], np.int64)
+            uk_local[~is_new] = within[csort[pos[~is_new]]]
+            uk_local[is_new] = counts[ext_batch] + ewithin
+            src_idx = uk_local[inv].astype(np.int32)
+
+            rev_src.append(src_idx)
+            rev_dst.append(dst_idx)
+            rev_mask.append(mask)
+            rev_starts.append(_starts(ecount))
+            cur, counts, starts = new_cur, new_counts, new_starts
+
+        return FlatEpoch(
+            epoch=epoch, worker=worker, seeds=seeds_flat,
+            seed_starts=seed_starts, input_nodes=cur, input_starts=starts,
+            num_dst=num_dst,
+            edge_src=list(reversed(rev_src)),
+            edge_dst=list(reversed(rev_dst)),
+            edge_mask=list(reversed(rev_mask)),
+            edge_starts=list(reversed(rev_starts)))

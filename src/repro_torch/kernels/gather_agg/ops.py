@@ -1,4 +1,4 @@
-"""Public wrapper of the ``gather_agg`` kernel (forward only).
+"""Public wrappers of the ``gather_agg`` kernels, forward and backward.
 
 Replaces the TPU kernel ``repro/kernels/gather_agg/gather_agg.py:47``:
 the fan-out-regular, dst-major masked mean ``h (m, d)``,
@@ -9,28 +9,37 @@ the (nd, d) output. The design reads rows as coalesced column streams,
 skips masked edges' rows and sums in order with no atomics, so the
 result is deterministic.
 
-CPU tensors (or ``interpret=True``) take the plain version in
-``ref.py``; CUDA tensors launch the kernel or raise. The backward (a
-scatter-add over ``edge_src``) comes with the training path; until then
-asking for a gradient raises.
+``gather_agg`` is differentiable in ``h``, as the JAX kernel's custom
+VJP (``repro/kernels/gather_agg/ops.py:27``) makes it: the backward is
+``gather_agg_bwd``, the scatter-add of ``g / max(count, 1)`` over
+``edge_src``, done as a by-source sort (``seg_sort``) and an ordered
+per-row gather, so it is deterministic too. The edge operands carry no
+gradient, and no backward runs when ``h`` needs none (the input
+features of layer 0).
+
+CPU tensors (or ``interpret=True``) take the plain versions in
+``ref.py``; CUDA tensors launch the kernels or raise.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels._build import LaunchCount, expect, use_plain
-from repro_torch.kernels.gather_agg.gather_agg import launch_gather_agg
-from repro_torch.kernels.gather_agg.ref import gather_agg_ref
+from repro_torch.kernels.gather_agg.gather_agg import (launch_gather_agg,
+                                                       launch_gather_agg_bwd)
+from repro_torch.kernels.gather_agg.ref import (gather_agg_bwd_ref,
+                                                gather_agg_ref)
+from repro_torch.kernels.seg_sort.ops import seg_sort
 
 LAUNCHES = LaunchCount("gather_agg")
+BWD_LAUNCHES = LaunchCount("gather_agg_bwd")
+
+SENTINEL = 2 ** 31 - 1
 
 
-def gather_agg(h: torch.Tensor, edge_src: torch.Tensor,
-               edge_mask: torch.Tensor, *, nd: int, fanout: int,
-               interpret: bool = False) -> torch.Tensor:
-    """h (m, d) float32; edge_src (nd*fanout,) int32 rows of ``h``;
-    edge_mask (nd*fanout,) bool -> (nd, d) masked neighbour mean."""
-    expect(h, "h", torch.float32, 2)
+def _check_edges(edge_src: torch.Tensor, edge_mask: torch.Tensor, nd: int,
+                 fanout: int) -> None:
     expect(edge_src, "edge_src", torch.int32, 1)
     expect(edge_mask, "edge_mask", torch.bool, 1)
     if fanout < 1 or edge_src.shape[0] != nd * fanout \
@@ -38,10 +47,9 @@ def gather_agg(h: torch.Tensor, edge_src: torch.Tensor,
         raise ValueError(f"edge lists of {edge_src.shape[0]}/"
                          f"{edge_mask.shape[0]} entries are not "
                          f"nd*fanout = {nd}*{fanout}")
-    if h.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "gather_agg has no backward yet; call it under torch.no_grad() "
-            "or torch.inference_mode()")
+
+
+def _forward(h, edge_src, edge_mask, nd, fanout, interpret):
     if use_plain(interpret, h, edge_src, edge_mask):
         return gather_agg_ref(h, edge_src, edge_mask, nd, fanout)
     out = torch.empty((nd, h.shape[1]), dtype=torch.float32, device=h.device)
@@ -50,3 +58,60 @@ def gather_agg(h: torch.Tensor, edge_src: torch.Tensor,
     launch_gather_agg(h, edge_src, edge_mask, nd, fanout, out)
     LAUNCHES.bump()
     return out
+
+
+def gather_agg_bwd(g: torch.Tensor, edge_src: torch.Tensor,
+                   edge_mask: torch.Tensor, *, m: int, nd: int, fanout: int,
+                   interpret: bool = False) -> torch.Tensor:
+    """g (nd, d) float32, the gradient of the (nd, d) mean -> dh (m, d):
+    ``dh[src_e] += g[e // fanout] / max(cnt[e // fanout], 1)`` over the
+    unmasked edges e, each row summed in ascending edge order."""
+    expect(g, "g", torch.float32, 2)
+    _check_edges(edge_src, edge_mask, nd, fanout)
+    if g.shape[0] != nd:
+        raise ValueError(f"g has {g.shape[0]} rows for nd = {nd}")
+    if use_plain(interpret, g, edge_src, edge_mask):
+        return gather_agg_bwd_ref(g, edge_src, edge_mask, m, nd, fanout)
+    dh = torch.empty((m, g.shape[1]), dtype=torch.float32, device=g.device)
+    if m == 0 or g.shape[1] == 0:
+        return dh
+    keys = torch.where(edge_mask, edge_src,
+                       torch.full_like(edge_src, SENTINEL))
+    edge_ids = torch.arange(keys.shape[0], dtype=torch.int32,
+                            device=g.device)
+    sorted_src, sorted_edge = seg_sort(
+        keys, edge_ids, num_bits=max((m - 1).bit_length(), 1))
+    launch_gather_agg_bwd(g, sorted_src, sorted_edge, edge_mask, nd, fanout,
+                          dh)
+    BWD_LAUNCHES.bump()
+    return dh
+
+
+class _GatherAgg(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, edge_src, edge_mask, nd, fanout, interpret):
+        ctx.save_for_backward(edge_src, edge_mask)
+        ctx.shape = (h.shape[0], nd, fanout, interpret)
+        return _forward(h, edge_src, edge_mask, nd, fanout, interpret)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
+        edge_src, edge_mask = ctx.saved_tensors
+        m, nd, fanout, interpret = ctx.shape
+        dh = gather_agg_bwd(g.contiguous(), edge_src, edge_mask, m=m, nd=nd,
+                            fanout=fanout, interpret=interpret)
+        return dh, None, None, None, None, None
+
+
+def gather_agg(h: torch.Tensor, edge_src: torch.Tensor,
+               edge_mask: torch.Tensor, *, nd: int, fanout: int,
+               interpret: bool = False) -> torch.Tensor:
+    """h (m, d) float32; edge_src (nd*fanout,) int32 rows of ``h``;
+    edge_mask (nd*fanout,) bool -> (nd, d) masked neighbour mean,
+    differentiable in ``h``."""
+    expect(h, "h", torch.float32, 2)
+    _check_edges(edge_src, edge_mask, nd, fanout)
+    return _GatherAgg.apply(h, edge_src, edge_mask, nd, fanout, interpret)

@@ -19,7 +19,15 @@ the masked ``index_add_`` oracle over the padded edge lists;
 deterministic sampler's dst-major fan-out-regular layout (every dst owns
 exactly ``fanout`` contiguous edges) -- ``cfg.fanouts`` must then carry
 the per-layer fan-outs. ``index_add_`` on CUDA sums with atomics, in no
-fixed order; the kernel backend is deterministic.
+fixed order; the kernel backend is deterministic, its backward too
+(``gather_agg_bwd``, a by-source sort and an ordered per-row sum).
+
+Training: ``loss_fn`` (masked mean NLL and accuracy over the seed
+prefix), ``make_train_step`` (a functional step: parameter tree in,
+parameter tree out, gradients from ``torch.autograd.grad``, then the
+optimizer's ``update``) and ``batch_to_device`` (a ``CollatedBatch``
+and its feature rows onto a device), as the JAX package's
+``loss_fn`` / ``make_train_step`` / ``batch_to_device``.
 """
 from __future__ import annotations
 
@@ -30,7 +38,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.schedule import CollatedBatch
 from repro_torch.kernels.gather_agg.ops import gather_agg
+from repro_torch.train.optim import tree_leaves, tree_map
 
 AGG_BACKENDS = ("segment", "kernel")
 
@@ -190,3 +200,61 @@ def forward(cfg: GNNConfig, params: Params, features: torch.Tensor,
             h_new = torch.relu(h_new)
         h = h_new
     return h[0] if single else h
+
+
+def loss_fn(cfg: GNNConfig, params: Params, features: torch.Tensor,
+            edge_src: Sequence[torch.Tensor],
+            edge_dst: Sequence[torch.Tensor],
+            edge_mask: Sequence[torch.Tensor], labels: torch.Tensor,
+            seed_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (masked mean NLL, masked accuracy) over the seed prefix."""
+    logits = forward(cfg, params, features, edge_src, edge_dst, edge_mask)
+    B = labels.shape[0]
+    lg = logits[:B]
+    logp = torch.log_softmax(lg, dim=-1)
+    nll = -torch.gather(logp, 1, labels[:, None].long())[:, 0]
+    w = seed_mask.to(torch.float32)
+    denom = torch.clamp(torch.sum(w), min=1.0)
+    loss = torch.sum(nll * w) / denom
+    acc = torch.sum((torch.argmax(lg, -1) == labels) * w) / denom
+    return loss, acc
+
+
+def loss_and_grads(cfg: GNNConfig, params: Params, batch: Dict[str, Any]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Params]:
+    """-> (loss, acc, gradient tree shaped like ``params``)."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, acc = loss_fn(cfg, p, batch["features"], batch["edge_src"],
+                        batch["edge_dst"], batch["edge_mask"],
+                        batch["labels"], batch["seed_mask"])
+    grads = iter(torch.autograd.grad(loss, tree_leaves(p)))
+    return loss.detach(), acc.detach(), tree_map(lambda _: next(grads), p)
+
+
+def make_train_step(cfg: GNNConfig, optimizer):
+    """-> (params, opt_state, batch_dict) -> (params, opt_state, aux)."""
+
+    def step(params, opt_state, batch):
+        loss, acc, grads = loss_and_grads(cfg, params, batch)
+        params2, opt_state2 = optimizer.update(grads, opt_state, params)
+        return params2, opt_state2, {"loss": loss, "acc": acc}
+
+    return step
+
+
+def batch_to_device(cb: CollatedBatch, features: np.ndarray,
+                    device: torch.device) -> Dict[str, Any]:
+    """The step's inputs on ``device``: features (m_max, d) float32,
+    per-layer int32 edge lists and bool masks, int32 labels, bool seed
+    mask (plain copies from pageable host memory, as the reference
+    makes them)."""
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return {
+        "features": t(features),
+        "edge_src": [t(e) for e in cb.edge_src],
+        "edge_dst": [t(e) for e in cb.edge_dst],
+        "edge_mask": [t(e) for e in cb.edge_mask],
+        "labels": t(cb.labels),
+        "seed_mask": t(cb.seed_mask),
+    }

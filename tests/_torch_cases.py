@@ -106,3 +106,74 @@ def gather_case(name):
     mask = rng.random(nd * fo) < 0.7
     mask[:fo] = False                     # a zero-degree dst row
     return h, src, mask, nd, fo
+
+
+SORT_CASES = {
+    # name: (n, num_bits, kind, payload)
+    "empty": (0, 8, "random", True),
+    "one": (1, 5, "random", True),
+    "sentinel_tail": (300, 12, "tail", True),
+    "duplicates_payload": (2048, 4, "random", True),
+    "keys_only": (1000, 20, "random", False),
+    "all_equal_payload": (700, 9, "equal", True),
+    "num_bits_1": (257, 1, "random", True),
+    "num_bits_31": (500, 31, "random", True),
+    "block_minus_one": (4095, 20, "tail", True),
+    "block": (4096, 4, "random", True),
+    "block_plus_one": (4097, 31, "random", False),
+    "interspersed_sentinel": (3000, 10, "interspersed", True),
+    "two_to_21_plus_5": (2 ** 21 + 5, 20, "tail", False),
+}
+
+#: cases the JAX interpret-mode radix kernel takes in seconds (n <= 2048,
+#: sentinels only in the tail, which is what that kernel sorts right)
+SMALL_SORT_CASES = sorted(k for k, (n, _, kind, _) in SORT_CASES.items()
+                          if n <= 2048 and kind != "interspersed")
+
+
+def sort_case(name):
+    """-> (keys (n,) int32, payload (n,) int32 or None, num_bits):
+    keys below 2^num_bits, with INT32_MAX sentinels in the tail or
+    between real keys."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    n, num_bits, kind, with_payload = SORT_CASES[name]
+    if kind == "equal":
+        keys = np.full(n, (1 << num_bits) - 1, np.int32)
+    else:
+        keys = rng.integers(0, 1 << num_bits, size=n).astype(np.int32)
+    if kind == "tail" and n:
+        keys[-(n // 7 + 1):] = SENTINEL
+    if kind == "interspersed":
+        keys[rng.random(n) < 0.3] = SENTINEL
+        keys[::11] = (1 << num_bits) - 1         # ties with the clamp
+    payload = (rng.permutation(n).astype(np.int32) if with_payload
+               else None)
+    return keys, payload, num_bits
+
+
+BWD_CASES = {
+    # name: (nd, fanout, m, d, kind)
+    "small": (6, 3, 20, 16, "random"),
+    "zero_rows": (5, 4, 64, 8, "random"),
+    "hub": (200, 10, 300, 32, "hub"),
+    "all_masked": (4, 3, 10, 5, "masked"),
+    "d_602": (20, 25, 500, 602, "random"),
+    "layer1_like": (100, 10, 2000, 256, "hub"),
+}
+
+
+def bwd_case(name):
+    """-> (g (nd, d), edge_src, edge_mask, m, nd, fanout) for the
+    gather_agg backward: zero-count dst rows, rows of h no edge reads,
+    repeated sources, and a hub row that half the edges read."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    nd, fo, m, d, kind = BWD_CASES[name]
+    g = rng.normal(size=(nd, d)).astype(np.float32)
+    src = rng.integers(0, m, size=nd * fo).astype(np.int32)
+    mask = rng.random(nd * fo) < 0.7
+    mask[:fo] = False                     # a zero-count dst row
+    if kind == "hub":
+        src[rng.random(nd * fo) < 0.5] = 7
+    if kind == "masked":
+        mask[:] = False
+    return g, src, mask, m, nd, fo

@@ -1,6 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-PyTorch version on the same inputs, and the serving slice on ``cuda``
-against its own oracle and the CPU path. They import no JAX, so they run
+PyTorch version on the same inputs, the serving slice on ``cuda``
+against its own oracle and the CPU path, and the training slice (the
+device-compiled schedule, the train step) against the CPU path. They import no JAX, so they run
 on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -12,13 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (ASSEMBLE_CASES, GATHER_CASES, SEARCH_CASES,
-                          assemble_case, gather_case, search_case, to_t)
+from _torch_cases import (ASSEMBLE_CASES, BWD_CASES, GATHER_CASES,
+                          SEARCH_CASES, SORT_CASES, assemble_case, bwd_case,
+                          gather_case, search_case, sort_case, to_t)
 from repro_torch.kernels.assemble import ops as t_assemble_ops
 from repro_torch.kernels.assemble.ops import assemble_features as t_assemble
 from repro_torch.kernels.cache_lookup import ops as t_search_ops
 from repro_torch.kernels.gather_agg import ops as t_gather_ops
 from repro_torch.kernels.gather_agg.ref import gather_agg_ref as t_gather_ref
+from repro_torch.kernels.seg_sort import ops as t_sort_ops
 
 
 @pytest.fixture
@@ -113,3 +116,111 @@ def test_service_on_card_matches_oracle_and_cpu(cuda):
     assert svc.health()["served_uncached"] == 4
     assert svc.health()["served_fresh"] == 4
     assert all(c.value > b for c, b in zip(counters, before))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SORT_CASES))
+def test_seg_sort_kernel_equals_plain_on_card(cuda, name):
+    keys, payload, num_bits = sort_case(name)
+    tk = to_t(keys)[0].to(cuda)
+    tp = None if payload is None else to_t(payload)[0].to(cuda)
+    before = t_sort_ops.LAUNCHES.value
+    sk, sp = t_sort_ops.seg_sort(tk, tp, num_bits=num_bits)
+    wk, wp = t_sort_ops.seg_sort(tk, tp, num_bits=num_bits, interpret=True)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, wk)
+    assert (sp is None and wp is None) or torch.equal(sp, wp)
+    assert t_sort_ops.LAUNCHES.value == before + (1 if keys.size else 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_gather_agg_bwd_kernel_equals_plain_on_card(cuda, name):
+    g, src, mask, m, nd, fo = bwd_case(name)
+    tg, ts, tm = [t.to(cuda) for t in to_t(g, src, mask)]
+    before = t_gather_ops.BWD_LAUNCHES.value
+    got = t_gather_ops.gather_agg_bwd(tg, ts, tm, m=m, nd=nd, fanout=fo)
+    # the plain version on the CPU sums each row in edge order, as the
+    # kernel does (on the card its index_add_ sums in atomic order)
+    want = t_gather_ops.gather_agg_bwd(*to_t(g, src, mask), m=m, nd=nd,
+                                       fanout=fo)
+    again = t_gather_ops.gather_agg_bwd(tg, ts, tm, m=m, nd=nd, fanout=fo)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)          # deterministic: no atomics
+    assert t_gather_ops.BWD_LAUNCHES.value == before + 2
+
+
+@pytest.mark.gpu
+def test_gather_agg_backward_through_autograd_on_card(cuda):
+    """The autograd Function launches the backward kernel for an ``h``
+    that needs a gradient, twice to the same bits, and never for one
+    that needs none."""
+    g, src, mask, m, nd, fo = bwd_case("layer1_like")
+    rng = np.random.default_rng(3)
+    h = torch.from_numpy(rng.normal(size=(m, g.shape[1])).astype(np.float32))
+    ts, tm, tg = [t.to(cuda) for t in to_t(src, mask, g)]
+    grads = []
+    for _ in range(2):
+        th = h.to(cuda).requires_grad_(True)
+        (t_gather_ops.gather_agg(th, ts, tm, nd=nd, fanout=fo) * tg).sum() \
+            .backward()
+        grads.append(th.grad)
+    cpu = h.clone().requires_grad_(True)
+    (t_gather_ops.gather_agg(cpu, *to_t(src, mask), nd=nd, fanout=fo)
+     * torch.from_numpy(g)).sum().backward()
+    before = t_gather_ops.BWD_LAUNCHES.value
+    t_gather_ops.gather_agg(h.to(cuda), ts, tm, nd=nd, fanout=fo).sum()
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0].cpu(), cpu.grad, rtol=1e-5,
+                               atol=1e-5)
+    assert t_gather_ops.BWD_LAUNCHES.value == before
+
+
+@pytest.mark.gpu
+def test_training_slice_on_card_matches_cpu(cuda):
+    """The schedule compiled on the card equals the numpy compiler's,
+    and three train steps on the card follow the CPU steps."""
+    from repro_torch.core import build_schedule, collate
+    from repro_torch.graph import KHopSampler, load_dataset, partition_graph
+    from repro_torch.models.gnn import (GNNConfig, batch_to_device,
+                                        init_params, make_train_step)
+    from repro_torch.train import AdamW
+
+    g = load_dataset("tiny", seed=0)
+    pg = partition_graph(g, 4, "greedy")
+    sampler = KHopSampler(g, fanouts=[5, 5], batch_size=32)
+    kw = dict(worker=0, s0=3, num_epochs=2, n_hot=64)
+    before = t_sort_ops.LAUNCHES.value
+    dev = build_schedule(sampler, pg, compiler="device", device=cuda, **kw)
+    ref = build_schedule(sampler, pg, compiler="batched", **kw)
+    assert t_sort_ops.LAUNCHES.value > before
+    for e in range(2):
+        a, b = ref.epoch(e), dev.epoch(e)
+        for f in ("remote_ids", "remote_freq", "cache_ids"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        for x, y in zip(a.flat.edge_src + [a.flat.input_nodes],
+                        b.flat.edge_src + [b.flat.input_nodes]):
+            np.testing.assert_array_equal(x, y)
+    assert ref.pad_bounds() == dev.pad_bounds()
+
+    cfg = GNNConfig(kind="sage", in_dim=g.feat_dim, hidden_dim=16,
+                    num_classes=g.num_classes, num_layers=2, fanouts=(5, 5),
+                    agg_backend="kernel")
+    m_max, edge_max = ref.pad_bounds()
+    losses = {}
+    for device in (cuda, torch.device("cpu")):
+        params = init_params(cfg, torch.Generator().manual_seed(0), device)
+        opt = AdamW(lr=3e-3)
+        state, step = opt.init(params), make_train_step(cfg, opt)
+        losses[device.type] = []
+        for b in ref.epoch(0).batches[:3]:
+            cb = collate(b, g.labels, 32, m_max, edge_max)
+            feats = np.zeros((m_max, g.feat_dim), np.float32)
+            feats[cb.input_mask] = g.features[cb.input_nodes[cb.input_mask]]
+            params, state, aux = step(params, state,
+                                      batch_to_device(cb, feats, device))
+            losses[device.type].append(float(aux["loss"]))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4,
+                               atol=1e-5)

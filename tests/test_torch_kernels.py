@@ -158,10 +158,15 @@ def test_gather_agg_matches_jax_kernel_and_ref(name):
 
 
 def test_gather_agg_refuses_gradients():
+    """First-order gradients flow to ``h`` (``test_torch_train`` holds
+    them against the JAX VJP); a gradient of the gradient is refused,
+    as the backward is a kernel with no backward of its own."""
     h, src, mask, nd, fo = gather_case("small")
     th = torch.from_numpy(h).requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        t_gather_ops.gather_agg(th, *to_t(src, mask), nd=nd, fanout=fo)
+    out = t_gather_ops.gather_agg(th, *to_t(src, mask), nd=nd, fanout=fo)
+    (dh,) = torch.autograd.grad(out.sum(), th, create_graph=True)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(dh.sum(), th)
     with torch.no_grad():
         t_gather_ops.gather_agg(th, *to_t(src, mask), nd=nd, fanout=fo)
 
