@@ -47,6 +47,25 @@ Phases (any failure raises, so the exit code is non-zero):
    versions on the card, with their times beside ``torch.sort`` and
    ``index_add_``.
 
+6. Decode serving: gemma2-2b (``configs/gemma2_2b.py``) at its full width
+   and depth in bfloat16, weights from a seeded ``torch.Generator`` on
+   the card. (a) Prefill: ``forward`` at B=1, S=8192 (the repo's
+   ``prefill_32k`` with S cut to 8192, still past the 4096 window), one
+   ``flash_attention`` launch per layer (26), with its time, peak device
+   memory and traced split of the card's time. (b) Decode: the
+   ``serve_decode`` launcher's greedy loop at B=8, prompt 16, gen 32, one
+   ``flash_decode`` launch per layer a step (26 x 47), with ms/step and
+   tokens/s, and a second run bit-identical. (c) In float32 at full width
+   over S=64: each decode step's logits against ``forward``'s, within
+   ``atol=1e-3``. (d) Each new kernel against its plain version on the
+   card: ``flash_attention`` on a local and a global layer's own q/k/v at
+   the prefill shape (bfloat16 within one bfloat16 step, ``rtol=2^-7``;
+   the same q/k/v in float32 within ``rtol=1e-4, atol=1e-5``), and
+   ``flash_decode`` over a long cache (B=16, S=32768, ``length``/``start``
+   masks, softcap 50) and the decode loop's own caches (float32
+   partials, ``rtol=1e-4, atol=1e-5``), with their times beside SDPA
+   (``enable_gqa``, the same mask, no softcap).
+
 Output: one ``kernel {...}`` line per kernel, the card's name and power
 limit, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -66,10 +85,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: where the full record of a run is written (listed in .gitignore)
 OUT_DIR = os.path.join(HERE, "artifacts")
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and the non-tensor
-#: fp32 / int32 operation rate
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the non-tensor
+#: fp32 / int32 operation rate and the dense bf16 tensor-core rate
 MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 DATASET = "reddit_sim"
 PARTS = 4
@@ -83,6 +103,13 @@ TRAIN_BATCH = 1000
 TRAIN_EPOCHS = 2
 TRAIN_LR = 3e-3
 CPU_LOSS_STEPS = 3
+LM_ARCH = "gemma2-2b"
+LM_FULL = True              # full width and depth (get_arch)
+LM_SEED = 0
+PREFILL_S = 8192
+DECODE_B, DECODE_PROMPT, DECODE_GEN = 8, 16, 32
+CHECK_B, CHECK_S, CHECK_ATOL = 2, 64, 1e-3
+LONG_B, LONG_S = 16, 32768
 
 
 def log(msg: str) -> None:
@@ -110,8 +137,8 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / OPS_PER_S
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S):
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / ops_per_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -989,6 +1016,487 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 6: transformer decode serving (gemma2-2b)
+# ---------------------------------------------------------------------------
+
+def lm_config(dtype: str = "bfloat16"):
+    import dataclasses
+    from repro_torch.configs import get_arch, get_reduced
+    cfg = get_arch(LM_ARCH) if LM_FULL else get_reduced(LM_ARCH)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def lm_tokens(cfg, shape, field: int):
+    from repro_torch.data.pipeline import zipf_tokens
+    from repro_torch.graph.sampler import rng_from
+    return zipf_tokens(rng_from(LM_SEED, field), cfg.vocab_size, shape)
+
+
+def card_time_by_op(torch, fn, top: int = 8):
+    """Run ``fn`` once under ``torch.profiler``: (wall s, card busy ms,
+    the ``top`` card ops by self time in ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    ops = {e.key: e.self_device_time_total / 1e3 for e in sorted(
+        events, key=lambda e: -e.self_device_time_total)[:top]}
+    return wall, busy_us / 1e3, ops
+
+
+def prefill_phase(torch, device, cfg, params, counters):
+    """(a) ``forward`` at B=1, S=PREFILL_S: launches (counts set to 0
+    just before, read just after), time, peak memory, card time by op."""
+    from repro_torch.models.transformer import forward
+
+    toks = torch.from_numpy(lm_tokens(cfg, (1, PREFILL_S), 0x5046)).to(
+        device)
+
+    def run():
+        with torch.inference_mode():
+            return forward(cfg, params, toks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    logits = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {c.name: c.value for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab_size) or \
+            logits.dtype != torch.float32 or \
+            not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"prefill logits {tuple(logits.shape)} "
+                           f"{logits.dtype} not finite of the right shape")
+    if cfg.final_softcap and float(logits.abs().max()) > cfg.final_softcap:
+        raise RuntimeError("prefill logits exceed the final softcap")
+    last = logits[0, -1].clone()
+    del logits
+    if launches["flash_attention"] != cfg.num_layers or \
+            launches["flash_decode"] != 0:
+        raise RuntimeError(f"prefill launched {launches}, expected "
+                           f"{cfg.num_layers} flash_attention")
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        same = torch.equal(again[0, -1], last)
+        del again
+        if not same:
+            raise RuntimeError("a second prefill gave other logits")
+    traced_s, busy_ms, ops = card_time_by_op(torch, run)
+    out = {"tokens": PREFILL_S, "first_ms": 1e3 * first_s,
+           "ms": 1e3 * min(times), "tokens_per_s": PREFILL_S / min(times),
+           "peak_bytes": peak, "launches": launches,
+           "traced_ms": 1e3 * traced_s, "card_busy_ms": busy_ms,
+           "card_ms_by_op": ops}
+    log(f"prefill {cfg.name}: B=1 S={PREFILL_S} in {out['ms']:.2f} ms "
+        f"({out['tokens_per_s']:.0f} tok/s; first call {out['first_ms']:.2f}"
+        f" ms), peak device memory {peak / 2**30:.2f} GiB, launches "
+        f"{json.dumps(launches)}; logits finite, second run bit-identical")
+    log(f"prefill traced: {out['traced_ms']:.2f} ms, card busy "
+        f"{busy_ms:.2f} ms; card ms by op {json.dumps(ops)}")
+    return out
+
+
+def decode_phase(torch, device, cfg, params, counters):
+    """(b) the ``serve_decode`` launcher's greedy loop: launches (counts
+    set to 0 just before, read just after), ms/step, tokens/s, a second
+    run bit-identical, card time by op."""
+    import numpy as np
+    from repro_torch.launch.serve_decode import greedy_decode
+
+    prompts = lm_tokens(cfg, (DECODE_B, DECODE_PROMPT), 0x4443)
+    steps = DECODE_PROMPT + DECODE_GEN - 1
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    toks, first_s, logits = greedy_decode(cfg, params, prompts, DECODE_GEN,
+                                          device)
+    launches = {c.name: c.value for c in counters}
+    if launches["flash_decode"] != steps * cfg.num_layers or \
+            launches["flash_attention"] != 0:
+        raise RuntimeError(f"decode launched {launches}, expected "
+                           f"{cfg.num_layers} flash_decode a step")
+    if toks.shape != (DECODE_B, DECODE_PROMPT + DECODE_GEN) or \
+            not np.array_equal(toks[:, :DECODE_PROMPT], prompts) or \
+            toks.min() < 0 or toks.max() >= cfg.vocab_size or \
+            not all(bool(torch.isfinite(x).all()) for x in logits):
+        raise RuntimeError("decode gave bad tokens or logits")
+    again, second_s, _ = greedy_decode(cfg, params, prompts, DECODE_GEN,
+                                       device)
+    if not np.array_equal(again, toks):
+        raise RuntimeError("a second decode run gave other tokens")
+    traced_s, busy_ms, ops = card_time_by_op(
+        torch, lambda: greedy_decode(cfg, params, prompts, DECODE_GEN,
+                                     device))
+    out = {"batch": DECODE_B, "prompt": DECODE_PROMPT, "gen": DECODE_GEN,
+           "steps": steps, "first_ms_per_step": 1e3 * first_s / steps,
+           "ms_per_step": 1e3 * second_s / steps,
+           "tokens_per_s": DECODE_B * steps / second_s,
+           "launches": launches, "traced_ms_per_step": 1e3 * traced_s / steps,
+           "card_busy_ms_per_step": busy_ms / steps,
+           "card_busy_share": busy_ms / 1e3 / traced_s,
+           "card_ms_by_op_per_step": {k: v / steps for k, v in ops.items()},
+           "sample": toks[0, DECODE_PROMPT:DECODE_PROMPT + 10].tolist()}
+    log(f"decode {cfg.name}: B={DECODE_B} prompt {DECODE_PROMPT} gen "
+        f"{DECODE_GEN}: {steps} steps, {out['ms_per_step']:.2f} ms/step, "
+        f"{out['tokens_per_s']:.1f} tok/s (first run "
+        f"{out['first_ms_per_step']:.2f} ms/step); launches "
+        f"{json.dumps(launches)}; second run bit-identical; sample "
+        f"{out['sample']}")
+    log(f"decode traced: {out['traced_ms_per_step']:.2f} ms/step, card busy "
+        f"{out['card_busy_ms_per_step']:.3f} ms/step "
+        f"({100 * out['card_busy_share']:.2f} %); card ms a step by op "
+        f"{json.dumps(out['card_ms_by_op_per_step'])}")
+    return out
+
+
+def decode_vs_prefill(torch, device):
+    """(c) float32 at full width, S=CHECK_S: each decode step's logits
+    against ``forward``'s at the same position."""
+    from repro_torch.models.transformer import (forward, init_decode_state,
+                                                init_params, serve_step)
+    cfg = lm_config("float32")
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        LM_SEED + 1), device)
+    toks = torch.from_numpy(lm_tokens(cfg, (CHECK_B, CHECK_S), 0x4356)).to(
+        device)
+    worst = 0.0
+    with torch.inference_mode():
+        full = forward(cfg, params, toks)
+        states = init_decode_state(cfg, CHECK_B, max_len=CHECK_S,
+                                   device=device)
+        for t in range(CHECK_S):
+            lg, states = serve_step(
+                cfg, params, states, toks[:, t:t + 1],
+                torch.full((CHECK_B,), t, dtype=torch.int32, device=device))
+            worst = max(worst, float((lg[:, 0] - full[:, t]).abs().max()))
+    scale = float(full.abs().max())
+    del params, states, full
+    if not worst <= CHECK_ATOL:
+        raise RuntimeError(f"decode logits differ from the prefill's by "
+                           f"{worst} > {CHECK_ATOL}")
+    log(f"decode vs prefill, float32, {cfg.name} "
+        f"{'full width and depth' if LM_FULL else 'reduced'}, "
+        f"B={CHECK_B} S={CHECK_S}: max abs diff {worst:.3e} (tolerance "
+        f"atol={CHECK_ATOL}; logits up to {scale:.2f})")
+    return {"max_abs_diff": worst, "atol": CHECK_ATOL, "max_logit": scale}
+
+
+def layer_qkv(torch, cfg, params, toks):
+    """q/k/v of layer 0 (local) and layer 1 (global) of the prefill, each
+    from its own input: the embeddings, then layer 0's output."""
+    from repro_torch.models.transformer.blocks import (_project_qkv,
+                                                       block_apply)
+    from repro_torch.models.transformer.common import rms_norm
+    from repro_torch.models.transformer.model import _embed, block_params
+
+    pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
+    out = []
+    with torch.inference_mode():
+        x = _embed(cfg, params, toks)
+        for i, kind in enumerate(cfg.pattern[:2]):
+            p = block_params(params, i, 0)
+            h = rms_norm(x, p["ln1"], cfg.norm_eps)
+            q, k, v = _project_qkv(cfg, p["attn"], h, pos)
+            out.append((kind, cfg.window if kind == "local" else 0,
+                        q.contiguous(), k.contiguous(), v.contiguous()))
+            x = block_apply(cfg, kind, p, x, positions=pos)
+    return out
+
+
+def causal_pairs(S: int, window: int) -> int:
+    """Valid (query, key) pairs of one head: the triangle, or the band."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attn_kernel_rows(torch, device, cfg, params, launches):
+    """(d) ``flash_attention`` on the layers' own q/k/v at the prefill
+    shape, in bfloat16 and in float32, against its plain version, with
+    its time beside the plain version's and SDPA's (no softcap)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    toks = torch.from_numpy(lm_tokens(cfg, (1, PREFILL_S), 0x5046)).to(
+        device)
+    cap = cfg.attn_softcap
+    rows = []
+    for kind, window, q, k, v in layer_qkv(torch, cfg, params, toks):
+        B, S, H, dh = q.shape
+        kw = dict(causal=True, window=window, softcap=cap)
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        want = flash_attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=2 ** -7,
+                              atol=1e-5):
+            raise RuntimeError(f"flash_attention {kind} (bf16) differs from "
+                               f"its plain version: {err}")
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        got32 = fa_ops.flash_attention(q32, k32, v32, **kw)
+        want32 = flash_attention_ref(q32, k32, v32, **kw)
+        err32 = float((got32 - want32).abs().max())
+        if not torch.allclose(got32, want32, rtol=1e-4, atol=1e-5):
+            raise RuntimeError(f"flash_attention {kind} (fp32) differs from "
+                               f"its plain version: {err32}")
+        del got32, want32, q32, k32, v32
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            ip = torch.arange(S, device=device)
+            band = (ip[None, :] <= ip[:, None]) & \
+                (ip[None, :] > ip[:, None] - window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band, enable_gqa=True)
+        else:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib_err = float((sdpa().transpose(1, 2).float() - flash_attention_ref(
+            q, k, v, causal=True, window=window).float()).abs().max())
+        if lib_err > 0.05:
+            raise RuntimeError(f"SDPA yardstick ({kind}) computes another "
+                               f"function: {lib_err}")
+        pairs = causal_pairs(S, window)
+        nbytes = B * S * (2 * H + 2 * k.shape[2]) * dh * q.element_size()
+        r = {"kind": kind, "window": window, "err": err, "err_fp32": err32,
+             "bound": bound_ms(nbytes, 4 * dh * H * B * pairs,
+                               BF16_FLOPS_PER_S),
+             "flop": 4 * dh * H * B * pairs,
+             "ms": device_ms(torch, lambda: fa_ops.flash_attention(
+                 q, k, v, **kw), iters=5),
+             "plain_ms": device_ms(torch, lambda: flash_attention_ref(
+                 q, k, v, **kw), iters=3),
+             "library_ms": device_ms(torch, sdpa, iters=5),
+             "library_err_no_softcap": lib_err,
+             "shape": f"{kind} q=({B},{S},{H},{dh}) kvH={k.shape[2]} "
+                      f"window={window} softcap={cap} bf16"}
+        r["tflops"] = r["flop"] / r["ms"] / 1e9
+        log(f"flash_attention {r['shape']}: ms={r['ms']:.3f} plain_ms="
+            f"{r['plain_ms']:.3f} library_ms={r['library_ms']:.3f} (SDPA, "
+            f"no softcap) bound_ms={r['bound'][0]:.4f} "
+            f"({r['tflops']:.1f} TFLOP/s); max_abs_err {err:.3e} (bf16, "
+            f"rtol=2^-7 atol=1e-5), {err32:.3e} (fp32, rtol=1e-4 "
+            f"atol=1e-5)")
+        rows.append(r)
+        del got, want
+    # awkward shapes: odd S, G = 3, dh = 64 / 128, fp32, non-causal window
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    for B, S, H, kvH, dh, causal, window, softcap, dt in (
+            (2, 77, 6, 2, 64, True, 0, 0.0, torch.float32),
+            (1, 301, 3, 1, 128, True, 50, 30.0, torch.bfloat16),
+            (1, 129, 8, 8, 256, False, 20, 50.0, torch.float32),
+            (3, 5, 4, 2, 64, True, 3, 0.0, torch.bfloat16)):
+        qq = torch.randn((B, S, H, dh), generator=gen).to(device, dt)
+        kk = torch.randn((B, S, kvH, dh), generator=gen).to(device, dt)
+        vv = torch.randn((B, S, kvH, dh), generator=gen).to(device, dt)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = fa_ops.flash_attention(qq, kk, vv, **kw).float()
+        want = flash_attention_ref(qq, kk, vv, **kw).float()
+        tol = dict(rtol=1e-4, atol=1e-5) if dt == torch.float32 else \
+            dict(rtol=2 ** -7, atol=1e-5)
+        if not torch.allclose(got, want, **tol):
+            raise RuntimeError(f"flash_attention differs at S={S} G="
+                               f"{H // kvH} dh={dh}")
+    log("awkward shapes: flash_attention (S 5/77/129/301, G 1-3, dh "
+        "64-256, non-causal window) equal to its plain version")
+    torch.cuda.synchronize()
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
+        "launches": launches["flash_attention"],
+        "max_abs_err": max(r["err"] for r in rows),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound"][0] for r in rows),
+        "bound_by": rows[0]["bound"][1],
+        "library_ms": sum(r["library_ms"] for r in rows),
+        "shape": " + ".join(r["shape"] for r in rows), "layers": rows}
+
+
+def long_cache(torch, device, cfg):
+    """B=LONG_B, S=LONG_S bfloat16 K/V with the model's heads, lengths and
+    starts covering 0, 1, S, a window start, start == length."""
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 2)
+    B, S, H, kvH, dh = LONG_B, LONG_S, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    q = torch.randn((B, H, dh), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    k = torch.randn((B, S, kvH, dh), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    v = torch.randn((B, S, kvH, dh), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    lens = [S, S, 1, 0, S // 2, S - 1, 4097, 3, S, 1000, S, 2, 20000, S,
+            12345, S][:B]
+    starts = [0, S - 4096, 0, 0, S // 2 - 4096, 1, 1, 3, S // 3, 999, 0, 0,
+              0, S - 1, 0, 5][:B]
+    length = torch.tensor(lens, dtype=torch.int32, device=device)
+    start = torch.tensor(starts, dtype=torch.int32, device=device)
+    return q, k, v, length, start
+
+
+def decode_kernel_row(torch, device, cfg, params, launches):
+    """(d) ``flash_decode`` against its plain version over the long cache
+    and the decode loop's own cache shape, with its time beside the plain
+    version's and SDPA's (no softcap)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import (flash_decode_batched_ref,
+                                                      finalize)
+
+    cap = cfg.attn_softcap
+    q, k, v, length, start = long_cache(torch, device, cfg)
+    B, S, kvH, dh = k.shape
+    H = q.shape[1]
+    got = fd_ops.flash_decode_batched(q, k, v, length, start, softcap=cap)
+    acc, m, l = flash_decode_batched_ref(q, k, v, length, start,
+                                         softcap=cap)
+    want = finalize(acc, l)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+        raise RuntimeError(f"flash_decode (long cache) differs from its plain "
+                           f"version: {err}")
+    parts = fd_ops.flash_decode(q[2], k[2], v[2], length[2], start[2],
+                                softcap=cap)
+    for g_, w_ in zip(parts, (acc[2], m[2], l[2])):
+        if not torch.allclose(g_, w_, rtol=1e-4, atol=1e-5):
+            raise RuntimeError("flash_decode partials differ")
+    empty = got[(length <= start)]
+    if empty.numel() and not bool((empty == 0).all()):
+        raise RuntimeError("flash_decode: an empty range did not give 0")
+    # the decode loop's shape: the caches the serving loop fills
+    from repro_torch.models.transformer import init_decode_state
+    small = init_decode_state(cfg, DECODE_B, DECODE_PROMPT + DECODE_GEN,
+                              device=device)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 3)
+    for st in small["scan"]:
+        kc = torch.randn(st["k"][0].shape, generator=gen, device=device,
+                         dtype=torch.bfloat16)
+        vc = torch.randn(st["v"][0].shape, generator=gen, device=device,
+                         dtype=torch.bfloat16)
+        qc = torch.randn((DECODE_B, H, dh), generator=gen, device=device,
+                         dtype=torch.bfloat16)
+        ln = torch.arange(DECODE_B, dtype=torch.int32, device=device) * 7 % \
+            (kc.shape[1] + 1)
+        st0 = torch.zeros_like(ln)
+        g2 = fd_ops.flash_decode_batched(qc, kc, vc, ln, st0, softcap=cap)
+        a2, _, l2 = flash_decode_batched_ref(qc, kc, vc, ln, st0,
+                                             softcap=cap)
+        if not torch.allclose(g2, finalize(a2, l2), rtol=1e-4, atol=1e-5):
+            raise RuntimeError(f"flash_decode differs at the decode shape "
+                               f"S={kc.shape[1]}")
+        small_shape = tuple(kc.shape)
+
+    valid = (length.clamp(max=S) - start.clamp(min=0)).clamp(min=0)
+    n_valid = int(valid.sum())
+    nbytes = n_valid * kvH * dh * 2 * k.element_size() + \
+        q.numel() * q.element_size() + B * H * dh * 4
+    pos = torch.arange(S, device=device)
+    mask = ((pos[None, :] < length[:, None]) &
+            (pos[None, :] >= start[:, None]))[:, None, None, :]
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    full_rows = valid > 0
+    lib = sdpa()[:, :, 0].float()
+    lib_want = finalize(*flash_decode_batched_ref(q, k, v, length, start)[::2])
+    lib_err = float((lib - lib_want)[full_rows].abs().max())
+    if lib_err > 0.05:
+        raise RuntimeError(f"SDPA yardstick (decode) computes another "
+                           f"function: {lib_err}")
+    r = {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
+         "launches": launches["flash_decode"], "max_abs_err": err,
+         "ms": device_ms(torch, lambda: fd_ops.flash_decode_batched(
+             q, k, v, length, start, softcap=cap)),
+         "plain_ms": device_ms(torch, lambda: flash_decode_batched_ref(
+             q, k, v, length, start, softcap=cap), iters=5),
+         "library_ms": device_ms(torch, sdpa, iters=5),
+         "library_err_no_softcap": lib_err,
+         "shape": f"q=({B},{H},{dh}) cache=({B},{S},{kvH},{dh}) bf16, "
+                  f"{n_valid} valid positions, softcap {cap}"}
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 4 * dh * H * n_valid,
+                                            BF16_FLOPS_PER_S)
+    r["gb_per_s"] = nbytes / r["ms"] / 1e6
+    qs = torch.randn((DECODE_B, H, dh), generator=gen, device=device,
+                     dtype=torch.bfloat16)
+    ln = torch.full((DECODE_B,), small_shape[1], dtype=torch.int32,
+                    device=device)
+    kc = torch.randn(small_shape, generator=gen, device=device,
+                     dtype=torch.bfloat16)
+    r["decode_shape_ms"] = device_ms(torch, lambda: fd_ops.flash_decode_batched(
+        qs, kc, kc, ln, softcap=cap))
+    r["decode_shape"] = f"cache={small_shape}"
+    log(f"flash_decode {r['shape']}: ms={r['ms']:.4f} plain_ms="
+        f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA, no "
+        f"softcap) bound_ms={r['bound_ms']:.4f} ({r['gb_per_s']:.0f} GB/s); "
+        f"max_abs_err {err:.3e} (rtol=1e-4 atol=1e-5); at the decode loop's "
+        f"{r['decode_shape']}: {r['decode_shape_ms']:.4f} ms")
+    torch.cuda.synchronize()
+    return r
+
+
+def lm_phase(torch, device, counters):
+    from repro_torch.models.transformer import init_params
+
+    cfg = lm_config()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        LM_SEED), device)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"lm: {cfg.name} {'full' if LM_FULL else 'reduced'} "
+        f"{cfg.num_layers} layers d={cfg.d_model} H={cfg.num_heads} "
+        f"kvH={cfg.num_kv_heads} dh={cfg.head_dim} window={cfg.window} "
+        f"softcap {cfg.attn_softcap}/{cfg.final_softcap} {cfg.dtype}: "
+        f"{n / 1e9:.3f} B parameters from seed {LM_SEED} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    prefill = prefill_phase(torch, device, cfg, params, counters)
+    decode = decode_phase(torch, device, cfg, params, counters)
+    launches = {"flash_attention": prefill["launches"]["flash_attention"],
+                "flash_decode": decode["launches"]["flash_decode"]}
+    check = decode_vs_prefill(torch, device)
+    rows = [attn_kernel_rows(torch, device, cfg, params, launches),
+            decode_kernel_row(torch, device, cfg, params, launches)]
+    del params
+    return {"prefill": prefill, "decode": decode, "decode_vs_prefill": check,
+            "parameters": n}, rows
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+
 def main() -> int:
     import torch
 
@@ -1004,9 +1512,15 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.assemble import ops as assemble_ops
     from repro_torch.kernels.cache_lookup import ops as search_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.gather_agg import ops as gather_ops
     from repro_torch.kernels.seg_sort import ops as sort_ops
 
+    # float32 products in full float32 on the card (the plain versions and
+    # the decode-vs-prefill check compare float32 sums)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device "
@@ -1039,6 +1553,9 @@ def main() -> int:
         torch, device, g, pg, train_counters)
     kernels += train_kernel_phase(torch, device, train_cfg, sort_input,
                                   captured, m_max, train["launches"])
+    del captured, sort_input
+    lm, lm_rows = lm_phase(torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    kernels += lm_rows
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -1051,7 +1568,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serve": phases,
                    "breakdown": split, "peak_bytes": peak,
-                   "launches": launches, "train": train}, f, indent=1)
+                   "launches": launches, "train": train, "lm": lm}, f,
+                  indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

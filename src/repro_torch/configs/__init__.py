@@ -1,4 +1,41 @@
-"""Experiment configurations (plain dataclasses)."""
+"""Experiment configurations (plain dataclasses) and the architecture
+registry of the transformer configs the port runs.
+
+``get_arch(name)`` returns the full-fidelity ``ArchConfig`` and
+``get_reduced(name)`` the CPU-sized variant of the same family, as the
+reference's registry does, for the architectures the port has modules
+for. The rest raise until their modules are ported.
+"""
+from __future__ import annotations
+
+import importlib
+
 from repro_torch.configs.rapidgnn_paper import GNNExperimentConfig, gcn, sage
 
-__all__ = ["GNNExperimentConfig", "gcn", "sage"]
+_MODULES = {
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
+}
+
+ARCH_NAMES = list(_MODULES)
+
+
+def _module(name: str):
+    if name not in _MODULES:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (the port runs "
+            f"{ARCH_NAMES}; MoE, SSM, RG-LRU, enc-dec and M-RoPE wait "
+            f"for ROADMAP Queue 1 item 12)")
+    return importlib.import_module(_MODULES[name])
+
+
+def get_arch(name: str):
+    return _module(name).ARCH
+
+
+def get_reduced(name: str):
+    return _module(name).reduced()
+
+
+__all__ = ["GNNExperimentConfig", "gcn", "sage", "ARCH_NAMES", "get_arch",
+           "get_reduced"]

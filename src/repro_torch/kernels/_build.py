@@ -28,7 +28,8 @@ KERNELS_DIR = Path(__file__).resolve().parent
 #: checkout root (``src/repro_torch/kernels`` -> three levels up)
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 
-FAMILIES = ("cache_lookup", "assemble", "gather_agg", "seg_sort")
+FAMILIES = ("cache_lookup", "assemble", "gather_agg", "seg_sort",
+            "flash_attention", "flash_decode")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

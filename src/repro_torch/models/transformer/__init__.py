@@ -1,0 +1,10 @@
+"""The transformer substrate's dense decoder (prefill and decode), the
+port's ``repro.models.transformer``."""
+from repro_torch.models.transformer.common import ArchConfig
+from repro_torch.models.transformer.model import (forward, init_decode_state,
+                                                  init_params,
+                                                  params_from_numpy,
+                                                  serve_step)
+
+__all__ = ["ArchConfig", "init_params", "params_from_numpy", "forward",
+           "init_decode_state", "serve_step"]

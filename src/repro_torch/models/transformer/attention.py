@@ -1,0 +1,152 @@
+"""Prefill and decode attention of the transformer substrate.
+
+The port's ``repro/models/transformer/attention.py``. On a CUDA tensor
+``attention`` is the hand-written ``flash_attention`` kernel (its whole
+self-attention shape, ``Sq == Skv`` and ``q_offset == 0``; anything
+else raises), and ``decode_attention`` is one ``flash_decode`` launch
+for the whole batch. On the CPU ``attention`` is the reference's chunked
+online-softmax attention written out in PyTorch (``_banded`` for
+sliding-window layers), and ``decode_attention`` the ``flash_decode``
+plain version.
+
+One difference in bfloat16: this chunked version, like the reference,
+scales q in its input dtype before the float32 cast; the kernel (like
+the Pallas kernel it replaces) casts first and then scales. They agree
+in float32.
+
+GQA is computed in grouped form: q is reshaped to (B, S, kvH, G, dh) and
+k/v are never repeated to H heads.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_decode.ops import flash_decode_batched
+from repro_torch.models.transformer.common import softcap as _softcap
+
+NEG_INF = -1e30
+
+
+def _online_update(carry, s, v_chunk, valid):
+    m, l, acc = carry
+    s = torch.where(valid, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = (acc * alpha[..., None]
+               + torch.einsum("bhgqk,bkhd->bhgqd", p, v_chunk))
+    return m_new, l_new, acc_new
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              attn_softcap: float = 0.0, q_chunk: int = 512,
+              kv_chunk: int = 1024, scale: Optional[float] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """q (B,Sq,H,dh); k/v (B,Skv,kvH,dh) -> (B,Sq,H,dh).
+
+    ``q_offset`` is the absolute position of q[0] (cross-chunk prefill).
+    ``window > 0`` restricts attention to the last `window` positions
+    (inclusive of self) and switches to banded compute on the CPU.
+    """
+    B, Sq, H, dh = q.shape
+    _, Skv, kvH, _ = k.shape
+    if q.device.type == "cuda":
+        if Sq != Skv or q_offset != 0:
+            raise NotImplementedError(
+                "attention on the card runs the flash_attention kernel over "
+                "one whole sequence (Sq == Skv, q_offset == 0); cross-chunk "
+                "prefill waits for ROADMAP Queue 1 item 12")
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=attn_softcap, scale=scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"no attention path for device {q.device}")
+    G = H // kvH
+    scale = scale if scale is not None else dh ** -0.5
+    qg = (q * scale).reshape(B, Sq, kvH, G, dh)
+
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Skv)
+    if Sq % q_chunk or Skv % kv_chunk:
+        raise ValueError(f"chunked attention needs Sq % q_chunk == 0 and "
+                         f"Skv % kv_chunk == 0, got {Sq}/{q_chunk}, "
+                         f"{Skv}/{kv_chunk}")
+
+    if window > 0:
+        return _banded(qg, k, v, window=window, attn_softcap=attn_softcap,
+                       q_chunk=q_chunk, q_offset=q_offset).reshape(
+                           B, Sq, H, dh)
+
+    nq, nk = Sq // q_chunk, Skv // kv_chunk
+    blocks = []
+    for i in range(nq):
+        qb = qg[:, i * q_chunk:(i + 1) * q_chunk].permute(0, 2, 3, 1, 4)
+        qpos = q_offset + i * q_chunk + torch.arange(q_chunk)
+        carry = (torch.full((B, kvH, G, q_chunk), NEG_INF),
+                 torch.zeros((B, kvH, G, q_chunk)),
+                 torch.zeros((B, kvH, G, q_chunk, dh)))
+        for j in range(nk):
+            kb = k[:, j * kv_chunk:(j + 1) * kv_chunk]
+            vb = v[:, j * kv_chunk:(j + 1) * kv_chunk]
+            s = torch.einsum("bhgqd,bkhd->bhgqk", qb.float(), kb.float())
+            s = _softcap(s, attn_softcap)
+            kpos = j * kv_chunk + torch.arange(kv_chunk)
+            valid = torch.ones((q_chunk, kv_chunk), dtype=torch.bool)
+            if causal:
+                valid = kpos[None, :] <= qpos[:, None]
+            carry = _online_update(carry, s, vb.float(), valid)
+        m, l, acc = carry
+        out = acc / l.clamp(min=1e-30)[..., None]
+        blocks.append(out.permute(0, 3, 1, 2, 4))          # (B,Tq,kvH,G,dh)
+    out = torch.cat(blocks, dim=1)
+    return out.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def _banded(qg, k, v, *, window, attn_softcap, q_chunk, q_offset):
+    """Sliding-window attention over a sliced KV band."""
+    B, Sq, kvH, G, dh = qg.shape
+    Skv = k.shape[1]
+    band = min(window + q_chunk, Skv)  # covers all positions a chunk needs
+    nq = Sq // q_chunk
+    blocks = []
+    for i in range(nq):
+        qb = qg[:, i * q_chunk:(i + 1) * q_chunk].permute(0, 2, 3, 1, 4)
+        qpos = q_offset + i * q_chunk + torch.arange(q_chunk)
+        start = min(max(q_offset + i * q_chunk + q_chunk - band, 0),
+                    Skv - band)
+        kb = k[:, start:start + band]
+        vb = v[:, start:start + band]
+        s = torch.einsum("bhgqd,bkhd->bhgqk", qb.float(), kb.float())
+        s = _softcap(s, attn_softcap)
+        kpos = start + torch.arange(band)
+        valid = ((kpos[None, :] <= qpos[:, None])
+                 & (kpos[None, :] > qpos[:, None] - window))
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.where(valid, torch.exp(s - m), 0.0)
+        out = torch.einsum("bhgqk,bkhd->bhgqd", p, vb.float())
+        out = out / p.sum(-1).clamp(min=1e-30)[..., None]
+        blocks.append(out.permute(0, 3, 1, 2, 4))          # (B,Tq,kvH,G,dh)
+    out = torch.cat(blocks, dim=1)
+    return out.to(k.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: torch.Tensor, *,
+                     window: int = 0, attn_softcap: float = 0.0,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """One-token decode: q (B,1,H,dh); caches (B,S,kvH,dh); length (B,)
+    int32. One ``flash_decode`` launch for the batch (the reference vmaps
+    its per-element call)."""
+    if window > 0:
+        start = (length - window).clamp(min=0)
+    else:
+        start = torch.zeros_like(length)
+    out = flash_decode_batched(q[:, 0].contiguous(), k_cache, v_cache,
+                               length, start, scale=scale,
+                               softcap=attn_softcap)
+    return out[:, None].to(q.dtype)

@@ -177,3 +177,60 @@ def bwd_case(name):
     if kind == "masked":
         mask[:] = False
     return g, src, mask, m, nd, fo
+
+
+FLASH_ATTN_CASES = {
+    # name: (B, S, H, kvH, dh, causal, window, softcap, dtype); S is never
+    # a multiple of the kernel's 64-row / 64-key tiles except where named
+    "odd_s_g1_dh64": (2, 77, 4, 4, 64, True, 0, 0.0, "float32"),
+    "s_one": (1, 1, 2, 1, 64, True, 0, 0.0, "float32"),
+    "dh48_g3_softcap": (1, 70, 3, 1, 48, True, 0, 50.0, "float32"),
+    "g3_dh256_softcap": (1, 129, 6, 2, 256, True, 0, 30.0, "float32"),
+    "g1_dh128_window_one": (1, 33, 2, 2, 128, True, 1, 0.0, "float32"),
+    "g2_dh128_window_softcap_bf16": (1, 301, 4, 2, 128, True, 50, 50.0,
+                                     "bfloat16"),
+    "g2_dh256_window_bf16": (1, 200, 8, 4, 256, True, 64, 50.0, "bfloat16"),
+    "g3_dh64_noncausal_window_bf16": (2, 65, 3, 1, 64, False, 10, 0.0,
+                                      "bfloat16"),
+    "g2_dh64_causal_softcap_bf16": (3, 100, 4, 2, 64, True, 0, 50.0,
+                                    "bfloat16"),
+    "s_128_tile_multiple": (1, 128, 4, 2, 64, True, 0, 0.0, "float32"),
+}
+
+
+def flash_attn_case(name):
+    """-> (q (B,S,H,dh), k, v (B,S,kvH,dh)) float32 numpy, and the
+    kwargs and dtype name of the case."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    B, S, H, kvH, dh, causal, window, cap, dtype = FLASH_ATTN_CASES[name]
+    q, k, v = (rng.normal(size=(B, S, n, dh)).astype(np.float32)
+               for n in (H, kvH, kvH))
+    return q, k, v, dict(causal=causal, window=window, softcap=cap), dtype
+
+
+FLASH_DECODE_CASES = {
+    # name: (B, H, kvH, dh, S, lengths, starts, softcap, dtype); lengths
+    # and starts at 0, 1 and S
+    "len_0_1_S_g2_dh256_bf16": (3, 8, 4, 256, 1001, (0, 1, 1001), (0, 0, 0),
+                                50.0, "bfloat16"),
+    "start_0_1_S_g3_dh64": (3, 6, 2, 64, 777, (777, 777, 777), (0, 1, 777),
+                            0.0, "float32"),
+    "g1_dh128_window": (2, 4, 4, 128, 4099, (4099, 3000), (3, 2000), 30.0,
+                        "float32"),
+    "g2_dh64_long_split_bf16": (2, 4, 2, 64, 20001, (20001, 12345), (0, 100),
+                                50.0, "bfloat16"),
+    "s_one_g8": (1, 8, 1, 128, 1, (1,), (0,), 0.0, "float32"),
+    "dh48_g3": (2, 3, 1, 48, 33, (33, 17), (5, 17), 0.0, "float32"),
+}
+
+
+def flash_decode_case(name):
+    """-> (q (B,H,dh), k, v (B,S,kvH,dh)) float32 numpy, length/start (B,)
+    int32, softcap and dtype name."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    B, H, kvH, dh, S, lens, starts, cap, dtype = FLASH_DECODE_CASES[name]
+    q = rng.normal(size=(B, H, dh)).astype(np.float32)
+    k, v = (rng.normal(size=(B, S, kvH, dh)).astype(np.float32)
+            for _ in range(2))
+    return (q, k, v, np.array(lens, np.int32), np.array(starts, np.int32),
+            cap, dtype)

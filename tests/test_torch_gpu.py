@@ -1,7 +1,9 @@
 """Card-only tests of the port: each CUDA kernel against its plain
 PyTorch version on the same inputs, the serving slice on ``cuda``
-against its own oracle and the CPU path, and the training slice (the
-device-compiled schedule, the train step) against the CPU path. They import no JAX, so they run
+against its own oracle and the CPU path, the training slice (the
+device-compiled schedule, the train step) against the CPU path, and the
+transformer decode-serving slice (prefill and decode) against the CPU
+path. They import no JAX, so they run
 on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -13,12 +15,20 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (ASSEMBLE_CASES, BWD_CASES, GATHER_CASES,
-                          SEARCH_CASES, SORT_CASES, assemble_case, bwd_case,
-                          gather_case, search_case, sort_case, to_t)
+from _torch_cases import (ASSEMBLE_CASES, BWD_CASES, FLASH_ATTN_CASES,
+                          FLASH_DECODE_CASES, GATHER_CASES, SEARCH_CASES,
+                          SORT_CASES, assemble_case, bwd_case,
+                          flash_attn_case, flash_decode_case, gather_case,
+                          search_case, sort_case, to_t)
 from repro_torch.kernels.assemble import ops as t_assemble_ops
 from repro_torch.kernels.assemble.ops import assemble_features as t_assemble
 from repro_torch.kernels.cache_lookup import ops as t_search_ops
+from repro_torch.kernels.flash_attention import ops as t_fa_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_decode import ops as t_fd_ops
+from repro_torch.kernels.flash_decode.ref import (combine,
+                                                  flash_decode_batched_ref,
+                                                  finalize)
 from repro_torch.kernels.gather_agg import ops as t_gather_ops
 from repro_torch.kernels.gather_agg.ref import gather_agg_ref as t_gather_ref
 from repro_torch.kernels.seg_sort import ops as t_sort_ops
@@ -224,3 +234,132 @@ def test_training_slice_on_card_matches_cpu(cuda):
             losses[device.type].append(float(aux["loss"]))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4,
                                atol=1e-5)
+
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _tol(dtype):
+    """float32: the reference's tolerance. bfloat16 outputs: both sides
+    round a float32 value (summed in another order) once to bfloat16, so
+    they may be one bfloat16 step apart, at most 2^-7 of the value."""
+    return (dict(rtol=1e-4, atol=1e-5) if dtype == "float32"
+            else dict(rtol=2 ** -7, atol=1e-5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(FLASH_ATTN_CASES))
+def test_flash_attention_kernel_equals_plain_on_card(cuda, name):
+    q, k, v, kw, dtype = flash_attn_case(name)
+    tq, tk, tv = [t.to(cuda, _DTYPES[dtype]) for t in to_t(q, k, v)]
+    before = t_fa_ops.LAUNCHES.value
+    got = t_fa_ops.flash_attention(tq, tk, tv, **kw)
+    want = flash_attention_ref(tq, tk, tv, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert t_fa_ops.LAUNCHES.value == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(FLASH_DECODE_CASES))
+def test_flash_decode_kernel_equals_plain_on_card(cuda, name):
+    q, k, v, length, start, cap, dtype = flash_decode_case(name)
+    tq, tk, tv = [t.to(cuda, _DTYPES[dtype]) for t in to_t(q, k, v)]
+    tl, ts = [t.to(cuda) for t in to_t(length, start)]
+    before = t_fd_ops.LAUNCHES.value
+    got = t_fd_ops.flash_decode_batched(tq, tk, tv, tl, ts, softcap=cap)
+    acc, m, l = flash_decode_batched_ref(tq, tk, tv, tl, ts, softcap=cap)
+    # the partials of each element, one launch each
+    parts = [t_fd_ops.flash_decode(tq[b], tk[b], tv[b], tl[b], ts[b],
+                                   softcap=cap) for b in range(q.shape[0])]
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-4, atol=1e-5)          # float32 outputs
+    torch.testing.assert_close(got, finalize(acc, l), **tol)
+    for b, (pa, pm, pl) in enumerate(parts):
+        torch.testing.assert_close(pa, acc[b], **tol)
+        torch.testing.assert_close(pm, m[b], **tol)
+        torch.testing.assert_close(pl, l[b], **tol)
+    empty = torch.from_numpy(np.minimum(length, k.shape[1]) <= start)
+    assert bool((got[empty.to(cuda)] == 0).all())
+    assert bool((m[empty.to(cuda)] == -1e30).all())
+    assert t_fd_ops.LAUNCHES.value == before + 1 + q.shape[0]
+
+
+@pytest.mark.gpu
+def test_flash_decode_combine_over_shards_on_card(cuda):
+    q, k, v, length, start, cap, _ = flash_decode_case("g1_dh128_window")
+    tq, tk, tv = [t.to(cuda) for t in to_t(q[0], k[0], v[0])]
+    ln, st = int(length[0]), int(start[0])
+
+    def i32(x):
+        return torch.tensor(x, dtype=torch.int32, device=cuda)
+    full = t_fd_ops.flash_decode(tq, tk, tv, i32(ln), i32(st), softcap=cap)
+    S, step = tk.shape[0], 1000
+    parts = []
+    for lo in range(0, S, step):
+        hi = min(S, lo + step)
+        parts.append(t_fd_ops.flash_decode(
+            tq, tk[lo:hi].contiguous(), tv[lo:hi].contiguous(),
+            i32(np.clip(ln - lo, 0, hi - lo)), i32(max(st - lo, 0)),
+            softcap=cap))
+    acc, m, l = combine(parts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(m, full[1], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(finalize(acc, l), finalize(full[0], full[2]),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma2-2b", "smollm-360m"])
+def test_transformer_slice_on_card_matches_cpu(cuda, arch):
+    """Reduced configs in float32: ``forward`` at an odd S past the
+    gemma2 window (one ``flash_attention`` launch a layer) and the
+    ``serve_step`` loop with the local ring wrapping (one
+    ``flash_decode`` launch a layer a step) against the CPU path."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import (forward, init_decode_state,
+                                                init_params, serve_step)
+
+    cfg = get_reduced(arch)
+    cpu = torch.device("cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    dev_params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    B, S = 2, 37
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+    with torch.inference_mode():
+        fa0, fd0 = t_fa_ops.LAUNCHES.value, t_fd_ops.LAUNCHES.value
+        got = forward(cfg, dev_params, toks.to(cuda))
+        assert t_fa_ops.LAUNCHES.value == fa0 + cfg.num_layers
+        want = forward(cfg, params, toks)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        st_dev = init_decode_state(cfg, B, max_len=S, device=cuda)
+        st_cpu = init_decode_state(cfg, B, max_len=S, device=cpu)
+        for t in range(S):
+            pos = torch.full((B,), t, dtype=torch.int32)
+            lg_dev, st_dev = serve_step(cfg, dev_params, st_dev,
+                                        toks[:, t:t + 1].to(cuda),
+                                        pos.to(cuda))
+            lg_cpu, st_cpu = serve_step(cfg, params, st_cpu,
+                                        toks[:, t:t + 1], pos)
+            torch.testing.assert_close(lg_dev.cpu(), lg_cpu, rtol=1e-4,
+                                       atol=1e-4)
+            torch.testing.assert_close(lg_dev.cpu(), want[:, t:t + 1],
+                                       rtol=1e-4, atol=1e-4)
+        assert t_fd_ops.LAUNCHES.value == fd0 + cfg.num_layers * S
+        for a, b in zip(st_dev["scan"], st_cpu["scan"]):
+            torch.testing.assert_close(a["k"].cpu(), b["k"], rtol=1e-4,
+                                       atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_serve_decode_launcher_on_card(cuda, capsys):
+    from repro_torch.launch.serve_decode import main
+
+    before = t_fd_ops.LAUNCHES.value
+    main(["--arch", "gemma2-2b", "--batch", "2", "--prompt-len", "4",
+          "--gen", "6"])
+    out = capsys.readouterr().out
+    assert "== serve gemma2-2b (reduced) on cuda ==" in out
+    assert t_fd_ops.LAUNCHES.value == before + 2 * 9
