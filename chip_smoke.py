@@ -6,7 +6,8 @@
 Phases (any failure raises, so the exit code is non-zero):
 
 1. Build the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-   (one ``nvcc`` per kernel family, all started together).
+   (one ``nvcc`` per kernel family, all started together; six families
+   hold the ports of the seven TPU kernels).
 2. Serve requests through ``GNNInferenceService`` on ``cuda`` at the
    paper's GraphSAGE width (``configs/rapidgnn_paper.py`` ``sage``):
    ``reddit_sim`` (d=602, 50 classes), 4 greedy partitions, worker 0,
@@ -65,6 +66,30 @@ Phases (any failure raises, so the exit code is non-zero):
    masks, softcap 50) and the decode loop's own caches (float32
    partials, ``rtol=1e-4, atol=1e-5``), with their times beside SDPA
    (``enable_gqa``, the same mask, no softcap).
+7. The device-distributed epoch: all 4 workers of ``reddit_sim`` in one
+   process on the card (``make_mesh((4,), ("data",))``) at the paper's
+   GraphSAGE width (``sage("reddit_sim", 1000)``, one epoch, AdamW lr
+   3e-3). (a) ``make_pipelined_epoch`` with the fused and with the
+   staged assembly and ``make_ondemand_epoch`` over empty caches, each
+   twice in turns: every loss curve bit-equal to the first (the second
+   fused run's weights too), the first 3 losses within ``rtol=1e-4,
+   atol=1e-5`` of the same steps on the CPU. (b) Step 0, worker by
+   worker: ``pull_features``' buffers equal the numpy rows at
+   ``send_pos``, the staged, fused and host-gathered features are
+   bit-equal, and the pull lanes equal ``host_miss_matrix``. (c) Launch
+   counts (set to 0 before each run): ``merge_gather`` only in the
+   staged runs, ``assemble`` only in the others. (d) ms/step of each run,
+   the exchange's own ms a step (CUDA events), miss lanes of rapid and
+   on-demand and their ratio, the wire bytes, peak memory and a traced
+   split of the card's time. (e) The hot-token embedding lookup at
+   gemma2-2b's widths (vocab 256,000, d 2,304, a 2.36 GB float32 table,
+   8 workers x 16 x 256 tokens, n_hot 32,768): ``device_embedding_lookup``
+   equal to ``table[tokens]`` bit for bit, with ``HotEmbeddingSim``'s
+   traffic reduction. (f) ``merge_gather`` against its plain version at
+   the staged epoch's and the embedding's shapes and awkward ones (d 1 /
+   3 / 602 / 2304, m 0, an empty cache, all and no hits, bfloat16 and
+   mixed dtypes, -1 and sentinel queries through ``cache_lookup``), all
+   bit-exact, timed with CUDA-graph replays.
 
 Output: one ``kernel {...}`` line per kernel, the card's name and power
 limit, one ``{"kernels": [...]}`` line, and as the last line
@@ -110,6 +135,9 @@ PREFILL_S = 8192
 DECODE_B, DECODE_PROMPT, DECODE_GEN = 8, 16, 32
 CHECK_B, CHECK_S, CHECK_ATOL = 2, 64, 1e-3
 LONG_B, LONG_S = 16, 32768
+DIST_EPOCHS = 1
+EMB_WORKERS, EMB_BATCH, EMB_SEQ = 8, 16, 256
+EMB_N_HOT, EMB_STEPS, EMB_S0 = 32768, 100, 7
 
 
 def log(msg: str) -> None:
@@ -1496,6 +1524,497 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the device-distributed epoch (P workers on one card)
+# ---------------------------------------------------------------------------
+
+def first_steps(tree, n: int):
+    """The first ``n`` steps of a collated (S, P, ...) epoch dict."""
+    if isinstance(tree, dict):
+        return {k: first_steps(v, n) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [first_steps(v, n) for v in tree]
+    return tree[:n]
+
+
+def dist_world(g, pg):
+    """The paper's GraphSAGE on all PARTS workers of ``pg`` for one epoch:
+    schedules, device view, both collations (hot caches and empty ones)
+    and the stacked caches."""
+    from repro_torch.configs.rapidgnn_paper import sage
+    from repro_torch.core import build_schedule
+    from repro_torch.core.schedule import epoch_edge_maxima
+    from repro_torch.dist import (DeviceView, collate_device_epoch,
+                                  empty_caches, epoch_k_max, stack_caches)
+    from repro_torch.graph import KHopSampler
+    from repro_torch.models.gnn import GNNConfig
+
+    exp = sage(DATASET, TRAIN_BATCH, workers=PARTS, epochs=DIST_EPOCHS)
+    sampler = KHopSampler(g, fanouts=list(exp.fanouts),
+                          batch_size=exp.batch_size)
+    cfg = GNNConfig(kind=exp.model, in_dim=g.feat_dim,
+                    hidden_dim=exp.hidden_dim, num_classes=g.num_classes,
+                    num_layers=exp.num_layers, fanouts=tuple(exp.fanouts),
+                    agg_backend="kernel")
+    t0 = time.perf_counter()
+    schedules = [build_schedule(sampler, pg, worker=w, s0=exp.s0,
+                                num_epochs=DIST_EPOCHS, n_hot=exp.n_hot)
+                 for w in range(PARTS)]
+    dv = DeviceView.build(pg)
+    es = [ws.epoch(0) for ws in schedules]
+    m_max = max(e.m_max for e in es)
+    edge_max = [max(x) for x in zip(*(epoch_edge_maxima(e) for e in es))]
+    S = max(e.num_batches for e in es)
+    caches = [dv.remap_cache(e.cache_ids) for e in es]
+    empty = empty_caches(PARTS, g.feat_dim)
+    k_max = epoch_k_max(es, caches, dv)
+    k_base = epoch_k_max(es, empty, dv)
+    rapid = collate_device_epoch(es, caches, dv, g.labels, exp.batch_size,
+                                 m_max, edge_max, k_max, S)
+    base = collate_device_epoch(es, empty, dv, g.labels, exp.batch_size,
+                                m_max, edge_max, k_base, S)
+    cids, cfeats = stack_caches(caches, dv, exp.n_hot)
+    log(f"dist world: {PARTS} workers x {S} steps, batch {exp.batch_size}, "
+        f"m_max={m_max} edge_max={edge_max} k_max rapid {k_max} on-demand "
+        f"{k_base}, n_per={dv.n_per}; schedules and collation in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {"exp": exp, "cfg": cfg, "schedules": schedules, "dv": dv,
+            "m_max": m_max, "S": S, "rapid": rapid, "base": base,
+            "cids": cids, "cfeats": cfeats, "k_max": k_max,
+            "k_base": k_base}
+
+
+def dist_run(torch, device, w, x, kind, backend):
+    """One epoch of all workers on ``device``: -> (params, losses, accs,
+    wall s)."""
+    from repro_torch.dist import (make_mesh, make_ondemand_epoch,
+                                  make_pipelined_epoch)
+    from repro_torch.models.gnn import init_params
+    from repro_torch.train import AdamW
+
+    mesh = make_mesh((PARTS,), ("data",), device=device)
+    params = init_params(w["cfg"], torch.Generator().manual_seed(
+        w["exp"].s0), device)
+    opt = AdamW(lr=TRAIN_LR)
+    if kind == "rapid":
+        fn = make_pipelined_epoch(w["cfg"], opt, mesh, w["m_max"],
+                                  assemble_backend=backend)
+        args = (x["table"], x["offsets"], x["cids"], x["cfeats"], x["rapid"])
+    else:
+        fn = make_ondemand_epoch(w["cfg"], opt, mesh, w["m_max"],
+                                 assemble_backend=backend)
+        args = (x["table"], x["offsets"], x["base"])
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _, losses, accs = fn(params, opt.init(params), *args)
+    losses, accs = losses.cpu(), accs.cpu()        # waits for the epoch
+    return params, losses, accs, time.perf_counter() - t0
+
+
+def exchange_ms(torch, mesh, x, key, m_max, S):
+    """The exchange alone: each step's ``pull_features`` between CUDA
+    events, averaged over the steps."""
+    from repro_torch.dist import pull_features
+    bt = x[key]
+    times = []
+    for i in range(S):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pull_features(mesh, x["table"], bt["send_ids"][i], bt["send_pos"][i],
+                      bt["send_mask"][i], x["offsets"], m_max)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sum(times) / len(times)
+
+
+def first_step_checks(torch, device, w, x):
+    """(b) worker by worker on step 0: the pulled buffers are the numpy
+    rows at ``send_pos``; staged, fused and a host gather of the features
+    agree bit for bit. -> the step-0 inputs of worker 0 for the kernel
+    row."""
+    import numpy as np
+    from repro_torch.dist import make_mesh, pull_features
+    from repro_torch.kernels.assemble.ops import assemble_features
+    from repro_torch.kernels.cache_lookup.ops import to_device_ids
+
+    dv, rapid, m_max = w["dv"], w["rapid"], w["m_max"]
+    mesh = make_mesh((PARTS,), ("data",), device=device)
+    bt = x["rapid"]
+    pulled = pull_features(mesh, x["table"], bt["send_ids"][0],
+                           bt["send_pos"][0], bt["send_mask"][0],
+                           x["offsets"], m_max)
+    flat = dv.table.reshape(-1, dv.table.shape[-1])
+    cids32 = to_device_ids(x["cids"])
+    query = to_device_ids(bt["input_nodes"][0])
+    for p in range(PARTS):
+        msk = rapid["send_mask"][0, p]
+        want = np.zeros((m_max, flat.shape[1]), np.float32)
+        want[rapid["send_pos"][0, p][msk]] = \
+            flat[rapid["send_ids"][0, p][msk]] + 0.0
+        if want.tobytes() != pulled[p].cpu().numpy().tobytes():
+            raise RuntimeError(f"worker {p}: pulled buffer differs from the "
+                               f"numpy rows at send_pos")
+        base = int(dv.offsets[p, 0])
+        feats = {be: assemble_features(
+            x["table"][p], base, cids32[p], x["cfeats"][p], query[p],
+            pulled[p], backend=be).cpu().numpy() for be in ("fused",
+                                                            "staged")}
+        ids = rapid["input_nodes"][0, p]
+        host = np.where((ids >= 0)[:, None], flat[np.maximum(ids, 0)], 0.0) \
+            .astype(np.float32)
+        if not (feats["fused"].tobytes() == feats["staged"].tobytes()
+                == host.tobytes()):
+            raise RuntimeError(f"worker {p}: staged, fused and host-gathered "
+                               f"features differ on step 0")
+    return {"cache_feats": x["cfeats"][0], "base": pulled[0],
+            "cache_ids": cids32[0], "query": query[0]}
+
+
+def dist_phase(torch, device, g, pg, counters):
+    """(a)-(d): the pipelined epoch with the fused and the staged
+    assembly and the on-demand epoch, all P workers on the card."""
+    import numpy as np
+    from repro_torch.dist import host_miss_matrix, make_mesh
+    from repro_torch.dist.gnn_step import tree_to_device
+
+    w = dist_world(g, pg)
+    x = tree_to_device({"table": w["dv"].table,
+                        "offsets": w["dv"].offsets.reshape(-1),
+                        "cids": w["cids"], "cfeats": w["cfeats"],
+                        "rapid": w["rapid"], "base": w["base"]}, device)
+    S, m_max = w["S"], w["m_max"]
+    # two rounds of the three runs, in turns: every curve must be the
+    # first one bit for bit, and the spread of ms/step shows
+    runs, launches, peaks = {}, {}, {}
+    want_on = {"rapid fused": ("search", "assemble", "gather_agg",
+                               "gather_agg_bwd", "seg_sort"),
+               "rapid staged": ("search", "merge_gather", "gather_agg",
+                                "gather_agg_bwd", "seg_sort"),
+               "on-demand": ("search", "assemble", "gather_agg",
+                             "gather_agg_bwd", "seg_sort")}
+    for _ in range(2):
+        for name, kind, backend in (("rapid fused", "rapid", "fused"),
+                                    ("rapid staged", "rapid", "staged"),
+                                    ("on-demand", "ondemand", "fused")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.reset()
+            runs.setdefault(name, []).append(
+                dist_run(torch, device, w, x, kind, backend))
+            torch.cuda.synchronize()
+            launches[name] = {c.name: c.value for c in counters}
+            peaks[name] = torch.cuda.max_memory_allocated()
+            idle = [k for k in want_on[name] if launches[name][k] == 0]
+            if idle:
+                raise RuntimeError(f"{name} epoch did not launch {idle}: "
+                                   f"{launches[name]}")
+    if launches["rapid fused"]["merge_gather"] or \
+            launches["rapid staged"]["assemble"]:
+        raise RuntimeError(f"a backend ran another's kernel: {launches}")
+    fused = runs["rapid fused"][0][1]
+    if not bool(torch.isfinite(fused).all()) or fused.shape != (S,):
+        raise RuntimeError(f"bad loss curve {fused.tolist()}")
+    for name, rs in runs.items():
+        for r in rs:
+            if not torch.equal(r[1], fused):
+                raise RuntimeError(f"{name} loss curve {r[1].tolist()} is "
+                                   f"not the fused one {fused.tolist()}")
+    first, again = runs["rapid fused"]
+    for a, b in zip(again[0]["layers"], first[0]["layers"]):
+        for k in a:
+            if not torch.equal(a[k], b[k]):
+                raise RuntimeError("a second fused run gave other weights")
+    cpu_x = tree_to_device({"table": w["dv"].table,
+                            "offsets": w["dv"].offsets.reshape(-1),
+                            "cids": w["cids"], "cfeats": w["cfeats"],
+                            "rapid": first_steps(w["rapid"], CPU_LOSS_STEPS)},
+                           torch.device("cpu"))
+    cpu = dist_run(torch, torch.device("cpu"), w, cpu_x, "rapid", "fused")
+    np.testing.assert_allclose(fused[:CPU_LOSS_STEPS].numpy(), cpu[1].numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+    # (b) step 0 worker by worker; lanes against the host-sim runner
+    kernel_in = first_step_checks(torch, device, w, x)
+    lanes = w["rapid"]["send_mask"].sum(axis=(0, 2, 3))
+    lanes_base = w["base"]["send_mask"].sum(axis=(0, 2, 3))
+    host = host_miss_matrix(w["schedules"], pg, w["exp"].batch_size)[0]
+    if not np.array_equal(lanes, host):
+        raise RuntimeError(f"pull lanes {lanes.tolist()} != host-sim "
+                           f"cache_misses {host.tolist()}")
+
+    # (d) the exchange alone, bytes, and a traced fused epoch
+    mesh = make_mesh((PARTS,), ("data",), device=device)
+    row = g.feat_dim * 4
+    traffic = {}
+    for key in ("rapid", "base"):
+        n_lanes = int(w[key]["send_mask"].sum())
+        slots = int(w[key]["send_ids"].size)
+        traffic[key] = {"payload_bytes": n_lanes * row,
+                        "wire_bytes": slots * row,
+                        "request_bytes": slots * 4,
+                        "exchange_ms_per_step": exchange_ms(
+                            torch, mesh, x, key, m_max, S)}
+    traced_s, busy_ms, ops = card_time_by_op(
+        torch, lambda: dist_run(torch, device, w, x, "rapid", "fused"), 10)
+    out = {"workers": PARTS, "steps": S, "m_max": m_max,
+           "k_max": w["k_max"], "k_max_on_demand": w["k_base"],
+           "losses": fused.tolist(), "cpu_losses": cpu[1].tolist(),
+           "accs": first[2].tolist(),
+           "ms_per_step": {k: [1e3 * r[3] / S for r in rs]
+                           for k, rs in runs.items()},
+           "launches": launches, "peak_bytes": peaks, "dead_pull": "skipped",
+           "miss_lanes": {"rapid": lanes.tolist(),
+                          "on_demand": lanes_base.tolist(),
+                          "host_sim": host.tolist(),
+                          "cut": float(lanes_base.sum() / max(lanes.sum(), 1))},
+           "traffic": traffic,
+           "traced_ms_per_step": 1e3 * traced_s / S,
+           "card_busy_ms_per_step": busy_ms / S,
+           "card_busy_share": busy_ms / 1e3 / traced_s,
+           "card_ms_by_op_per_step": {k: v / S for k, v in ops.items()}}
+    log(f"dist epoch: {PARTS} workers x {S} steps on one card; loss curves "
+        f"of rapid fused, rapid staged and on-demand bit-equal, each run "
+        f"twice (the second fused run's weights bit-identical too), the "
+        f"first {CPU_LOSS_STEPS} within "
+        f"rtol=1e-4 atol=1e-5 of the CPU; losses "
+        f"{['%.6f' % v for v in out['losses']]}")
+    log("dist ms/step (first, second run): " + ", ".join(
+        f"{k} {v[0]:.2f} {v[1]:.2f}" for k, v in out["ms_per_step"].items())
+        + f"; exchange "
+        f"alone {traffic['rapid']['exchange_ms_per_step']:.3f} ms/step "
+        f"(rapid), {traffic['base']['exchange_ms_per_step']:.3f} "
+        f"(on-demand); peak device memory "
+        f"{peaks['rapid fused'] / 2**20:.1f} MiB (fused), "
+        f"{peaks['rapid staged'] / 2**20:.1f} (staged), "
+        f"{peaks['on-demand'] / 2**20:.1f} (on-demand)")
+    log(f"dist launches {json.dumps(launches)}; dead pull (the last step's "
+        f"masked prefetch): skipped")
+    log(f"dist miss lanes per worker: rapid {lanes.tolist()} (== host-sim "
+        f"cache_misses), on-demand {lanes_base.tolist()}: remote fetches "
+        f"cut {out['miss_lanes']['cut']:.3f}x")
+    for key, t in traffic.items():
+        log(f"dist bytes an epoch ({'rapid' if key == 'rapid' else 'on-demand'}"
+            f"): payload_bytes {t['payload_bytes']} wire_bytes "
+            f"{t['wire_bytes']} request_bytes {t['request_bytes']}")
+    log(f"dist traced fused epoch: {out['traced_ms_per_step']:.2f} ms/step, "
+        f"card busy {out['card_busy_ms_per_step']:.3f} ms/step "
+        f"({100 * out['card_busy_share']:.2f} %); card ms a step by op "
+        f"{json.dumps(out['card_ms_by_op_per_step'])}")
+    return out, kernel_in
+
+
+def embedding_phase(torch, device, counters):
+    """(e) the hot-token embedding path at gemma2-2b's widths: every
+    worker's batch through ``device_embedding_lookup`` over a residual-
+    miss plan, equal to ``table[tokens]`` bit for bit."""
+    import numpy as np
+    from repro_torch.configs import get_arch, get_reduced
+    from repro_torch.data.pipeline import (enumerate_token_accesses,
+                                           zipf_tokens)
+    from repro_torch.dist import build_pull_plan, make_mesh
+    from repro_torch.graph.sampler import rng_from
+    from repro_torch.models.transformer.embedding import (
+        HotEmbeddingSim, device_embedding_lookup)
+
+    cfg = get_arch(LM_ARCH) if LM_FULL else get_reduced(LM_ARCH)
+    V, d, W = cfg.vocab_size, cfg.d_model, EMB_WORKERS
+    m = EMB_BATCH * EMB_SEQ
+    t0 = time.perf_counter()
+    counts = enumerate_token_accesses(cfg, EMB_BATCH, EMB_SEQ, EMB_STEPS,
+                                      s0=EMB_S0)
+    sim = HotEmbeddingSim(vocab=V, d=d, num_workers=W, n_hot=EMB_N_HOT,
+                          counts=counts)
+    vper = -(-V // W)
+    # worker w serves step w of the enumerated run
+    tokens = np.stack([zipf_tokens(rng_from(EMB_S0, 0, w), V,
+                                   (EMB_BATCH, EMB_SEQ)).reshape(-1)
+                       for w in range(W)])
+    cache_ids = np.full((W, EMB_N_HOT), 2 ** 31 - 1, np.int32)
+    miss = []
+    for p in range(W):
+        c = sim.cache[p]
+        cache_ids[p, :c.size] = c
+        miss.append(~np.isin(tokens[p], c))
+    k_max = max(int(np.bincount(sim.owner[tokens[p][miss[p]]],
+                                minlength=W).max()) for p in range(W))
+    plans = [build_pull_plan(tokens[p][miss[p]],
+                             np.flatnonzero(miss[p]).astype(np.int32),
+                             sim.owner, W, k_max) for p in range(W)]
+    base_b = cach_b = hits = 0
+    for p in range(W):
+        b_, c_, h_ = sim.batch_traffic(tokens[p], worker=p)
+        base_b, cach_b, hits = base_b + b_, cach_b + c_, hits + h_
+    run_base = run_cach = 0
+    for i in range(EMB_STEPS):
+        b_, c_, _ = sim.batch_traffic(
+            zipf_tokens(rng_from(EMB_S0, 0, i), V, (EMB_BATCH, EMB_SEQ)),
+            worker=0)
+        run_base, run_cach = run_base + b_, run_cach + c_
+    run_cach += sim.cache_build_bytes()
+    host_s = time.perf_counter() - t0
+
+    gen = torch.Generator(device=device).manual_seed(EMB_S0)
+    table = torch.randn((W * vper, d), generator=gen, device=device)
+    cids = torch.from_numpy(cache_ids).to(device)
+    cfeats = table[cids.clamp(max=W * vper - 1).long()]
+    tok = torch.from_numpy(tokens).to(device)
+    plan = {k: torch.from_numpy(np.stack([getattr(p, k) for p in plans]))
+            .to(device) for k in ("send_ids", "send_pos", "send_mask")}
+    plan["offsets"] = (torch.arange(W, dtype=torch.int32, device=device)
+                       * vper)
+    mesh = make_mesh((W,), ("data",), device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    t1 = time.perf_counter()
+    got = device_embedding_lookup(mesh, table.view(W, vper, d), cids,
+                                  cfeats, tok, plan, m)
+    torch.cuda.synchronize()
+    lookup_s = time.perf_counter() - t1
+    launches = {c.name: c.value for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    want = table[tok.long()]
+    if got.shape != want.shape or not torch.equal(
+            got.view(torch.int32), want.view(torch.int32)):
+        raise RuntimeError("device_embedding_lookup differs from "
+                           "table[tokens]")
+    if launches["search"] != W or launches["merge_gather"] != W:
+        raise RuntimeError(f"embedding lookup launched {launches}, expected "
+                           f"{W} search and {W} merge_gather")
+    out = {"arch": cfg.name, "vocab": V, "d": d, "workers": W,
+           "tokens_per_worker": m, "n_hot": EMB_N_HOT, "k_max": k_max,
+           "table_bytes": table.numel() * 4, "lookup_ms": 1e3 * lookup_s,
+           "host_prep_s": host_s, "peak_bytes": peak, "launches": launches,
+           "hits": hits, "batch_baseline_bytes": base_b,
+           "batch_cached_bytes": cach_b,
+           "run_worker0_baseline_bytes": run_base,
+           "run_worker0_cached_bytes": run_cach}
+    log(f"embedding {cfg.name}: vocab {V} d {d} float32 table "
+        f"{out['table_bytes'] / 1e9:.2f} GB, {W} workers x {m} tokens, n_hot "
+        f"{EMB_N_HOT}, k_max {k_max}: device_embedding_lookup == "
+        f"table[tokens] bit for bit; lookup {out['lookup_ms']:.2f} ms, peak "
+        f"device memory {peak / 2**30:.2f} GiB, launches {json.dumps(launches)}")
+    log(f"embedding traffic (HotEmbeddingSim.batch_traffic): these {W} "
+        f"batches {base_b / 1e6:.1f} MB -> {cach_b / 1e6:.1f} MB "
+        f"({base_b / max(cach_b, 1):.2f}x less, {hits} hits); worker 0 over "
+        f"{EMB_STEPS} steps with the cache build {run_base / 1e6:.1f} MB -> "
+        f"{run_cach / 1e6:.1f} MB ({run_base / max(run_cach, 1):.2f}x less)")
+    from repro_torch.kernels.cache_lookup.ops import search
+    pos, hit = search(cids[0], tok[0])
+    return out, {"cache_feats": cfeats[0], "base": got[0].clone(),
+                 "pos": pos, "hit": hit}
+
+
+def merge_awkward(torch, device):
+    """(name, cache_ids, cache_feats, query, base): d 1 / 602 / 2304,
+    m 0, an empty cache, all hits, no hits, bfloat16 (both sides and
+    mixed), -1 and sentinel queries."""
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    sentinel = 2 ** 31 - 1
+    out = []
+    for name, m, n_hot, d, cdt, bdt, kind in (
+            ("d_1", 1001, 37, 1, torch.float32, torch.float32, "mixed"),
+            ("d_602", 777, 64, 602, torch.float32, torch.float32, "mixed"),
+            ("d_2304", 300, 50, 2304, torch.float32, torch.float32, "mixed"),
+            ("m_0", 0, 8, 602, torch.float32, torch.float32, "mixed"),
+            ("empty_cache", 99, 0, 602, torch.float32, torch.float32,
+             "mixed"),
+            ("all_hit", 500, 64, 130, torch.float32, torch.float32, "hit"),
+            ("no_hit", 500, 64, 130, torch.float32, torch.float32, "miss"),
+            ("bf16", 400, 40, 2304, torch.bfloat16, torch.bfloat16,
+             "mixed"),
+            ("bf16_odd_d", 400, 40, 3, torch.bfloat16, torch.bfloat16,
+             "mixed"),
+            ("f32_cache_bf16_base", 300, 40, 602, torch.float32,
+             torch.bfloat16, "mixed"),
+            ("bf16_cache_f32_base", 300, 40, 602, torch.bfloat16,
+             torch.float32, "mixed"),
+            ("padded_queries", 513, 32, 7, torch.float32, torch.float32,
+             "padded")):
+        ids = torch.randperm(5000, generator=gen)[:n_hot].sort().values \
+            .to(torch.int32)
+        feats = torch.randn((n_hot, d), generator=gen).to(cdt)
+        if kind == "hit":
+            q = ids[torch.randint(0, n_hot, (m,), generator=gen)]
+        elif kind == "miss":
+            q = torch.randint(5000, 9000, (m,), generator=gen)
+        else:
+            q = torch.randint(0, 5200, (m,), generator=gen)
+            if n_hot and m:
+                q[::3] = ids[torch.randint(0, n_hot, (q[::3].shape[0],),
+                                           generator=gen)]
+            if kind == "padded":
+                q[::4] = -1
+                q[1::6] = sentinel
+        base = torch.randn((m, d), generator=gen).to(bdt)
+        out.append((name, ids.to(device), feats.to(device),
+                    q.to(torch.int32).to(device), base.to(device)))
+    return out
+
+
+def merge_kernel_row(torch, device, dist_in, emb_in, launches):
+    """(f) ``merge_gather`` against its plain version at the staged
+    epoch's shape (worker 0, step 0) and the embedding shape (worker 0),
+    and over the awkward cases, every case bit-exact; times from CUDA
+    graph replays."""
+    from repro_torch.kernels.cache_lookup import ops as lk
+    from repro_torch.kernels.cache_lookup.ref import (cache_lookup_ref,
+                                                      merge_gather_ref)
+
+    pos, hit = lk.search(dist_in["cache_ids"], dist_in["query"])
+    shapes = []
+    for what, f, b, p, h in (
+            ("staged epoch", dist_in["cache_feats"], dist_in["base"], pos,
+             hit),
+            ("embedding", emb_in["cache_feats"], emb_in["base"],
+             emb_in["pos"], emb_in["hit"])):
+        got = lk.merge_gather(f, b, p, h)
+        _equal(torch, got, merge_gather_ref(f, b, p, h))
+        m, d = b.shape
+        r = {"what": what, "bound": bound_ms(2 * m * d * b.element_size()
+                                             + m * 5, 0),
+             "ms": device_ms(torch, lambda: lk.merge_gather(f, b, p, h)),
+             "plain_ms": device_ms(torch, lambda: merge_gather_ref(
+                 f, b, p, h)),
+             "hit_rate": float(h.float().mean().item()),
+             "shape": f"base=({m},{d}) cache=({f.shape[0]},{d}) "
+                      f"{str(b.dtype).split('.')[-1]}"}
+        log(f"merge_gather {what}: {r['shape']} hit rate "
+            f"{r['hit_rate']:.3f} ms={r['ms']:.4f} plain_ms="
+            f"{r['plain_ms']:.4f} bound_ms={r['bound'][0]:.4f}; bit-equal to "
+            f"its plain version")
+        shapes.append(r)
+    for name, ids, feats, q, base in merge_awkward(torch, device):
+        p, h = lk.search(ids, q)
+        _equal(torch, lk.merge_gather(feats, base, p, h),
+               merge_gather_ref(feats, base, p, h))
+        merged, mhit = lk.cache_lookup(ids, feats, q, base)
+        want, whit = cache_lookup_ref(ids, feats, q, base)
+        _equal(torch, merged, want)
+        _equal(torch, mhit, whit)
+    log("awkward shapes: merge_gather and cache_lookup (d 1/3/7/130/602/"
+        "2304, m 0, empty cache, all hits, no hits, bf16 and mixed dtypes, "
+        "-1 and sentinel queries) bit-equal to their plain versions")
+    torch.cuda.synchronize()
+    main = shapes[0]
+    return {
+        "name": "merge_gather", "route": "cuda",
+        "source": "src/repro_torch/kernels/cache_lookup/csrc/merge_gather.cu",
+        "replaces": "src/repro/kernels/cache_lookup/cache_lookup.py:103",
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound"][0], "bound_by": main["bound"][1],
+        "library_ms": None, "shape": main["shape"],
+        "embedding_shape": {"shape": shapes[1]["shape"],
+                            "ms": shapes[1]["ms"],
+                            "plain_ms": shapes[1]["plain_ms"],
+                            "bound_ms": shapes[1]["bound"][0]}}
+
 
 def main() -> int:
     import torch
@@ -1556,6 +2075,13 @@ def main() -> int:
     del captured, sort_input
     lm, lm_rows = lm_phase(torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
     kernels += lm_rows
+    dist_counters = train_counters + [search_ops.MERGE_LAUNCHES]
+    dist, dist_in = dist_phase(torch, device, g, pg, dist_counters)
+    emb, emb_in = embedding_phase(torch, device, dist_counters)
+    kernels.append(merge_kernel_row(
+        torch, device, dist_in, emb_in,
+        dist["launches"]["rapid staged"]["merge_gather"]
+        + emb["launches"]["merge_gather"]))
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -1568,7 +2094,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serve": phases,
                    "breakdown": split, "peak_bytes": peak,
-                   "launches": launches, "train": train, "lm": lm}, f,
+                   "launches": launches, "train": train, "lm": lm,
+                   "dist": dist, "embedding": emb}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -13,9 +13,14 @@ plain versions in ``ref.py``; CUDA tensors never fall back.
 Backends, bit-identical on the same inputs (every output row is a copy
 of exactly one source row):
 
-  * ``"fused"`` -- ``search`` + select, as above.
-  * ``"ref"``   -- the plain where-chain oracle.
-  * ``"auto"``  -- ``"fused"`` on CUDA tensors, ``"ref"`` on the CPU.
+  * ``"fused"``  -- ``search`` + select, as above.
+  * ``"ref"``    -- the plain where-chain oracle.
+  * ``"staged"`` -- the reference's legacy three-stage chain: the C_s
+    merge (``cache_lookup``: the ``search`` and ``merge_gather`` kernels
+    on CUDA tensors) over the pulled rows, then ``local_merge``, the
+    plain PyTorch overlay of this worker's shard (the reference's
+    overlay is plain jnp, not a Pallas kernel).
+  * ``"auto"``   -- ``"fused"`` on CUDA tensors, ``"ref"`` on the CPU.
 
 ``cache_ids=None`` assembles cache-less: local shard over pulled
 residuals only.
@@ -29,10 +34,10 @@ import torch
 from repro_torch.kernels._build import LaunchCount, expect, use_plain
 from repro_torch.kernels.assemble.assemble import launch_select
 from repro_torch.kernels.assemble.ref import assemble_ref, select_ref
-from repro_torch.kernels.cache_lookup.ops import search
+from repro_torch.kernels.cache_lookup.ops import cache_lookup, search
 from repro_torch.kernels.cache_lookup.ref import SENTINEL
 
-BACKENDS = ("auto", "fused", "ref")
+BACKENDS = ("auto", "fused", "ref", "staged")
 
 LAUNCHES = LaunchCount("assemble")
 
@@ -43,6 +48,29 @@ def resolve_backend(backend: str, device: torch.device) -> str:
     if backend == "auto":
         return "fused" if device.type == "cuda" else "ref"
     return backend
+
+
+def local_merge(table: torch.Tensor, base: int, query: torch.Tensor,
+                fallback: torch.Tensor) -> torch.Tensor:
+    """Overlay this worker's shard rows onto ``fallback`` where the
+    queried device id is locally owned (slot in [0, n_per)); padding ids
+    (-1) are never local. The final stage of the staged chain."""
+    n_per = table.shape[0]
+    slot = query.long() - int(base)
+    local = (slot >= 0) & (slot < n_per)
+    rows = table[slot.clamp(0, n_per - 1)]
+    return torch.where(local[:, None], rows.to(fallback.dtype), fallback)
+
+
+def _staged(table, base, cache_ids, cache_feats, query, pulled,
+            interpret):
+    """pulled -> C_s merge -> local overlay: three (m, d)
+    materializations, bit-identical to the single-pass backends."""
+    if cache_ids is None:
+        return local_merge(table, base, query, pulled)
+    merged, _ = cache_lookup(cache_ids, cache_feats, query, pulled,
+                             interpret=interpret)
+    return local_merge(table, base, query, merged)
 
 
 def select(table: torch.Tensor, base: int, cache_feats: torch.Tensor,
@@ -92,6 +120,9 @@ def assemble_features(table: torch.Tensor, base: int,
     pulled.
     """
     backend = resolve_backend(backend, pulled.device)
+    if backend == "staged":
+        return _staged(table, base, cache_ids, cache_feats, query, pulled,
+                       interpret)
     if cache_ids is None or cache_ids.shape[0] == 0:
         # sentinel row: never hit, but keeps row 0 addressable
         cache_ids = torch.full((1,), SENTINEL, dtype=torch.int32,

@@ -234,3 +234,51 @@ def flash_decode_case(name):
             for _ in range(2))
     return (q, k, v, np.array(lens, np.int32), np.array(starts, np.int32),
             cap, dtype)
+
+
+MERGE_CASES = {
+    # name: (m, n_hot, d, cache dtype, base dtype, query kind)
+    "mixed_d130": (40, 12, 130, "float32", "float32", "mixed"),
+    "d_one": (33, 5, 1, "float32", "float32", "mixed"),
+    "d_602": (21, 9, 602, "float32", "float32", "mixed"),
+    "d_2304": (6, 4, 2304, "float32", "float32", "mixed"),
+    "empty_cache": (17, 0, 24, "float32", "float32", "mixed"),
+    "all_hit": (30, 16, 40, "float32", "float32", "hit"),
+    "no_hit": (30, 16, 40, "float32", "float32", "miss"),
+    "padded": (48, 20, 16, "float32", "float32", "padded"),
+    "m_one": (1, 8, 33, "float32", "float32", "mixed"),
+    "bf16": (25, 10, 130, "bfloat16", "bfloat16", "mixed"),
+    "f32_cache_bf16_base": (25, 10, 67, "float32", "bfloat16", "mixed"),
+    "bf16_cache_f32_base": (25, 10, 67, "bfloat16", "float32", "mixed"),
+}
+
+
+def merge_case(name):
+    """-> (cache_ids (n_hot,) int32 sorted, cache_feats (n_hot, d), query
+    (m,) int32, base (m, d)) as float32 numpy arrays plus the two dtype
+    names: hits, misses, -1 padding and INT32_MAX sentinel queries."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    m, n_hot, d, cdt, bdt, kind = MERGE_CASES[name]
+    ids = np.sort(rng.choice(np.arange(500), size=n_hot, replace=False)) \
+        .astype(np.int32)
+    feats = rng.normal(size=(n_hot, d)).astype(np.float32)
+    if kind == "hit":
+        q = rng.choice(ids, size=m)
+    elif kind == "miss":
+        q = rng.choice(np.setdiff1d(np.arange(520), ids), size=m)
+    else:
+        q = rng.integers(0, 520, size=m)
+        if n_hot and m > 2:
+            q[::3] = rng.choice(ids, size=q[::3].shape[0])
+        if kind == "padded":
+            q[::4] = -1
+            q[1::6] = SENTINEL
+    base = rng.normal(size=(m, d)).astype(np.float32)
+    return ids, feats, q.astype(np.int32), base, cdt, bdt
+
+
+def as_dtype(a, dtype_name):
+    """float32 numpy -> torch tensor of the named dtype (bf16 rounds to
+    nearest even, as JAX's astype does)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(
+        getattr(torch, dtype_name))

@@ -3,7 +3,9 @@ PyTorch version on the same inputs, the serving slice on ``cuda``
 against its own oracle and the CPU path, the training slice (the
 device-compiled schedule, the train step) against the CPU path, and the
 transformer decode-serving slice (prefill and decode) against the CPU
-path. They import no JAX, so they run
+path, and the device-distributed epoch (the ``merge_gather`` kernel,
+``cache_gather``, a staged epoch) against the CPU path. They import no
+JAX, so they run
 on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -16,10 +18,11 @@ import pytest
 import torch
 
 from _torch_cases import (ASSEMBLE_CASES, BWD_CASES, FLASH_ATTN_CASES,
-                          FLASH_DECODE_CASES, GATHER_CASES, SEARCH_CASES,
-                          SORT_CASES, assemble_case, bwd_case,
-                          flash_attn_case, flash_decode_case, gather_case,
-                          search_case, sort_case, to_t)
+                          FLASH_DECODE_CASES, GATHER_CASES, MERGE_CASES,
+                          SEARCH_CASES, SORT_CASES, as_dtype, assemble_case,
+                          bwd_case, flash_attn_case, flash_decode_case,
+                          gather_case, merge_case, search_case, sort_case,
+                          to_t)
 from repro_torch.kernels.assemble import ops as t_assemble_ops
 from repro_torch.kernels.assemble.ops import assemble_features as t_assemble
 from repro_torch.kernels.cache_lookup import ops as t_search_ops
@@ -363,3 +366,108 @@ def test_serve_decode_launcher_on_card(cuda, capsys):
     out = capsys.readouterr().out
     assert "== serve gemma2-2b (reduced) on cuda ==" in out
     assert t_fd_ops.LAUNCHES.value == before + 2 * 9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MERGE_CASES))
+def test_merge_gather_kernel_equals_plain_on_card(cuda, name):
+    ids, feats, q, base, cdt, bdt = merge_case(name)
+    t_ids, t_q = (t.to(cuda) for t in to_t(ids, q))
+    t_feats = as_dtype(feats, cdt).to(cuda)
+    t_base = as_dtype(base, bdt).to(cuda)
+    pos, hit = t_search_ops.search(t_ids, t_q)
+    before = t_search_ops.MERGE_LAUNCHES.value
+    got = t_search_ops.merge_gather(t_feats, t_base, pos, hit)
+    want = t_search_ops.merge_gather(t_feats, t_base, pos, hit,
+                                     interpret=True)
+    merged, mhit = t_search_ops.cache_lookup(t_ids, t_feats, t_q, t_base)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(merged, want) and torch.equal(mhit, hit)
+    launched = 0 if ids.shape[0] == 0 else 2
+    assert t_search_ops.MERGE_LAUNCHES.value == before + launched
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype,row_offset", [
+    (602, torch.float32, 1), (602, torch.float32, 0), (2304, torch.float32, 3),
+    (1, torch.float32, 1), (1, torch.bfloat16, 1), (3, torch.bfloat16, 1),
+    (130, torch.bfloat16, 0)])
+def test_merge_gather_misaligned_rows_on_card(cuda, d, dtype, row_offset):
+    """Views that start mid-allocation give rows aligned to 2, 4, 8 or 16
+    bytes; the kernel picks its vector width per row."""
+    gen = torch.Generator().manual_seed(d + row_offset)
+    m, n_hot = 1000, 97
+    big = torch.randn((m + row_offset, d), generator=gen).to(cuda, dtype)
+    base = big[row_offset:]
+    cbig = torch.randn((n_hot + row_offset, d), generator=gen).to(cuda, dtype)
+    feats = cbig[row_offset:]
+    pos = torch.randint(0, n_hot + 5, (m,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    hit = (torch.rand((m,), generator=gen) < 0.6).to(cuda)
+    got = t_search_ops.merge_gather(feats, base, pos, hit)
+    want = t_search_ops.merge_gather(feats, base, pos, hit, interpret=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cache_gather_on_card_matches_cpu(cuda):
+    from repro_torch.dist import cache_gather
+    ids, feats, q, base, _, _ = merge_case("padded")
+    cpu = cache_gather(*to_t(ids, feats, q, base))
+    card = cache_gather(*(t.to(cuda) for t in to_t(ids, feats, q, base)))
+    torch.cuda.synchronize()
+    assert torch.equal(card[0].cpu(), cpu[0])
+    assert torch.equal(card[1].cpu(), cpu[1])
+
+
+@pytest.mark.gpu
+def test_staged_epoch_on_card_matches_cpu(cuda):
+    """The tiny graph's pipelined epoch, P = 4 workers on the card: the
+    staged curve equals the fused one bit for bit and follows the CPU's
+    within the reference's tolerance; merge_gather launches."""
+    from repro_torch.core import build_schedule
+    from repro_torch.core.schedule import epoch_edge_maxima
+    from repro_torch.dist import (DeviceView, collate_device_epoch,
+                                  epoch_k_max, make_mesh,
+                                  make_pipelined_epoch, stack_caches)
+    from repro_torch.graph import KHopSampler, load_dataset, partition_graph
+    from repro_torch.models.gnn import GNNConfig, init_params
+    from repro_torch.train import AdamW
+
+    P, B = 4, 16
+    g = load_dataset("tiny", seed=0)
+    pg = partition_graph(g, P, "greedy")
+    sampler = KHopSampler(g, fanouts=[5, 5], batch_size=B)
+    es = [build_schedule(sampler, pg, worker=w, s0=7, num_epochs=1,
+                         n_hot=64).epoch(0) for w in range(P)]
+    dv = DeviceView.build(pg)
+    caches = [dv.remap_cache(e.cache_ids) for e in es]
+    m_max = max(e.m_max for e in es)
+    edge_max = [max(x) for x in zip(*(epoch_edge_maxima(e) for e in es))]
+    S = max(e.num_batches for e in es)
+    batches = collate_device_epoch(es, caches, dv, g.labels, B, m_max,
+                                   edge_max, epoch_k_max(es, caches, dv), S)
+    cids, cfeats = stack_caches(caches, dv, 64)
+    cfg = GNNConfig(kind="sage", in_dim=g.feat_dim, hidden_dim=32,
+                    num_classes=g.num_classes, num_layers=2, fanouts=(5, 5),
+                    agg_backend="kernel")
+    curves = {}
+    for device, backend in ((cuda, "staged"), (cuda, "fused"),
+                            (torch.device("cpu"), "staged")):
+        mesh = make_mesh((P,), ("data",), device=device)
+        params = init_params(cfg, torch.Generator().manual_seed(0), device)
+        opt = AdamW(lr=3e-3)
+        before = t_search_ops.MERGE_LAUNCHES.value
+        fn = make_pipelined_epoch(cfg, opt, mesh, m_max,
+                                  assemble_backend=backend)
+        _, _, losses, _ = fn(params, opt.init(params), dv.table, dv.offsets,
+                             cids, cfeats, batches)
+        curves[(device.type, backend)] = losses.cpu()
+        if device.type == "cuda" and backend == "staged":
+            assert t_search_ops.MERGE_LAUNCHES.value == before + S * P
+    assert torch.equal(curves[("cuda", "staged")], curves[("cuda", "fused")])
+    np.testing.assert_allclose(curves[("cuda", "staged")].numpy(),
+                               curves[("cpu", "staged")].numpy(), rtol=1e-4,
+                               atol=1e-5)

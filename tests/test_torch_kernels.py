@@ -128,7 +128,9 @@ def test_assemble_priority_local_over_cache():
 
 def test_assemble_backend_validation():
     with pytest.raises(ValueError):
-        t_assemble_ops.resolve_backend("staged", torch.device("cpu"))
+        t_assemble_ops.resolve_backend("pallas", torch.device("cpu"))
+    assert t_assemble_ops.resolve_backend(
+        "staged", torch.device("cpu")) == "staged"
     assert t_assemble_ops.resolve_backend(
         "auto", torch.device("cpu")) == "ref"
     assert t_assemble_ops.resolve_backend(
