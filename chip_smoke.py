@@ -60,8 +60,9 @@ Phases (any failure raises, so the exit code is non-zero):
    over S=64: each decode step's logits against ``forward``'s, within
    ``atol=1e-3``. (d) Each new kernel against its plain version on the
    card: ``flash_attention`` on a local and a global layer's own q/k/v at
-   the prefill shape (bfloat16 within one bfloat16 step, ``rtol=2^-7``;
-   the same q/k/v in float32 within ``rtol=1e-4, atol=1e-5``), and
+   the prefill shape (bfloat16, the tensor-core kernel, within one
+   bfloat16 step, ``rtol=2^-7``; the same q/k/v in float32, the CUDA-core
+   kernel, within ``rtol=1e-4, atol=1e-5``, and timed beside it), and
    ``flash_decode`` over a long cache (B=16, S=32768, ``length``/``start``
    masks, softcap 50) and the decode loop's own caches (float32
    partials, ``rtol=1e-4, atol=1e-5``), with their times beside SDPA
@@ -101,6 +102,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1283,7 +1285,11 @@ def attn_kernel_rows(torch, device, cfg, params, launches):
         if not torch.allclose(got32, want32, rtol=1e-4, atol=1e-5):
             raise RuntimeError(f"flash_attention {kind} (fp32) differs from "
                                f"its plain version: {err32}")
-        del got32, want32, q32, k32, v32
+        del got32, want32
+        # the float32 kernel (CUDA cores) on the same q/k/v
+        fp32_ms = device_ms(torch, lambda: fa_ops.flash_attention(
+            q32, k32, v32, **kw), iters=3)
+        del q32, k32, v32
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         if window:
             ip = torch.arange(S, device=device)
@@ -1313,25 +1319,31 @@ def attn_kernel_rows(torch, device, cfg, params, launches):
              "plain_ms": device_ms(torch, lambda: flash_attention_ref(
                  q, k, v, **kw), iters=3),
              "library_ms": device_ms(torch, sdpa, iters=5),
-             "library_err_no_softcap": lib_err,
+             "library_err_no_softcap": lib_err, "fp32_ms": fp32_ms,
              "shape": f"{kind} q=({B},{S},{H},{dh}) kvH={k.shape[2]} "
                       f"window={window} softcap={cap} bf16"}
+        # FLOP of the bound (4 dh a valid pair) over the kernel's time
         r["tflops"] = r["flop"] / r["ms"] / 1e9
-        log(f"flash_attention {r['shape']}: ms={r['ms']:.3f} plain_ms="
-            f"{r['plain_ms']:.3f} library_ms={r['library_ms']:.3f} (SDPA, "
-            f"no softcap) bound_ms={r['bound'][0]:.4f} "
-            f"({r['tflops']:.1f} TFLOP/s); max_abs_err {err:.3e} (bf16, "
-            f"rtol=2^-7 atol=1e-5), {err32:.3e} (fp32, rtol=1e-4 "
-            f"atol=1e-5)")
+        log(f"flash_attention {r['shape']}: ms={r['ms']:.3f} (bf16, tensor "
+            f"cores) fp32_ms={fp32_ms:.3f} (float32 q/k/v, CUDA cores) "
+            f"plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.3f} "
+            f"(SDPA, no softcap) bound_ms={r['bound'][0]:.4f} "
+            f"({r['tflops']:.1f} TFLOP/s, "
+            f"{100 * r['tflops'] * 1e12 / BF16_FLOPS_PER_S:.1f} % of the "
+            f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bound); max_abs_err "
+            f"{err:.3e} (bf16, rtol=2^-7 atol=1e-5), {err32:.3e} (fp32, "
+            f"rtol=1e-4 atol=1e-5)")
         rows.append(r)
         del got, want
-    # awkward shapes: odd S, G = 3, dh = 64 / 128, fp32, non-causal window
+    # awkward shapes: odd S, G = 1-8, dh = 48-256, fp32, non-causal window
     gen = torch.Generator(device="cpu").manual_seed(13)
     for B, S, H, kvH, dh, causal, window, softcap, dt in (
             (2, 77, 6, 2, 64, True, 0, 0.0, torch.float32),
             (1, 301, 3, 1, 128, True, 50, 30.0, torch.bfloat16),
             (1, 129, 8, 8, 256, False, 20, 50.0, torch.float32),
-            (3, 5, 4, 2, 64, True, 3, 0.0, torch.bfloat16)):
+            (3, 5, 4, 2, 64, True, 3, 0.0, torch.bfloat16),
+            (1, 1000, 8, 4, 256, True, 300, 50.0, torch.bfloat16),
+            (2, 63, 16, 2, 48, False, 0, 0.0, torch.bfloat16)):
         qq = torch.randn((B, S, H, dh), generator=gen).to(device, dt)
         kk = torch.randn((B, S, kvH, dh), generator=gen).to(device, dt)
         vv = torch.randn((B, S, kvH, dh), generator=gen).to(device, dt)
@@ -1343,13 +1355,13 @@ def attn_kernel_rows(torch, device, cfg, params, launches):
         if not torch.allclose(got, want, **tol):
             raise RuntimeError(f"flash_attention differs at S={S} G="
                                f"{H // kvH} dh={dh}")
-    log("awkward shapes: flash_attention (S 5/77/129/301, G 1-3, dh "
-        "64-256, non-causal window) equal to its plain version")
+    log("awkward shapes: flash_attention (S 5/63/77/129/301/1000, G 1-8, "
+        "dh 48-256, non-causal window) equal to its plain version")
     torch.cuda.synchronize()
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_mma.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
         "launches": launches["flash_attention"],
         "max_abs_err": max(r["err"] for r in rows),
@@ -1358,6 +1370,7 @@ def attn_kernel_rows(torch, device, cfg, params, launches):
         "bound_ms": sum(r["bound"][0] for r in rows),
         "bound_by": rows[0]["bound"][1],
         "library_ms": sum(r["library_ms"] for r in rows),
+        "fp32_ms": sum(r["fp32_ms"] for r in rows),
         "shape": " + ".join(r["shape"] for r in rows), "layers": rows}
 
 
@@ -2052,9 +2065,15 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
     for fam in _build.FAMILIES:
         text = _build.library_path(fam).with_suffix(".log").read_text()
+        fn = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {fam}: {line.strip()}")
+            entry = re.search(r"entry function '(\S+)'", line)
+            if entry:
+                name = re.search(r"([a-z][a-z_]*_kernel)I(\w+?)E",
+                                 entry.group(1))
+                fn = f"{name.group(1)}<{name.group(2)}> " if name else ""
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {fam}: {fn}{line.strip()}")
 
     counters = [search_ops.LAUNCHES, assemble_ops.LAUNCHES,
                 gather_ops.LAUNCHES]

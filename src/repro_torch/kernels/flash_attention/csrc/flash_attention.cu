@@ -1,5 +1,7 @@
 // Causal online-softmax attention forward (prefill) for Hopper (sm_90a),
-// GQA, optional sliding window, fused tanh logit softcap.
+// GQA, optional sliding window, fused tanh logit softcap: the float32
+// kernel, on the CUDA cores, and the C entry point. bfloat16 inputs go to
+// the tensor-core kernel in flash_attention_mma.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py
 // `_kernel` / `flash_attention`: a (B, kvH, S/tq, S/tk) grid whose KV axis
@@ -20,21 +22,19 @@
 // not trail the grid. Any S: ragged rows and keys are zero-filled and
 // masked, with no tile-multiple assert.
 //
-// Arithmetic follows the TPU kernel exactly, all in float32: q is cast
-// and then scaled, s = (q*scale).k, then tanh(s/softcap)*softcap, masked
-// scores NEG_INF = -1e30 with p = 0, online max/sum, and
-// out = acc / max(l, 1e-30) cast to q's dtype. It runs on the CUDA cores
-// (not the tensor cores, whose bf16/TF32 inputs would round p and q*scale),
-// so the bound is operations: 4*dh FLOP per valid (q head, key) pair at
-// the card's float32 rate. The design keeps both products register-tiled
-// (4x4 of S and 4 x dh/16 of acc per thread) over transposed shared tiles
-// (Q^T, K^T, P^T with a 68-float stride: conflict-free transposing
-// stores, broadcast row reads), so the CUDA cores and not shared memory
-// set the pace; a thread issues all its loads of a tile before its first
-// store, so a tile costs one trip to L2, not one per load. The 16
-// threads that share a row are one half-warp, so row max and row sum are
-// shuffles.
-#include <cuda_bf16.h>
+// Arithmetic follows the TPU kernel exactly, all in float32: q is scaled,
+// s = (q*scale).k, then tanh(s/softcap)*softcap, masked scores
+// NEG_INF = -1e30 with p = 0, online max/sum, and out = acc / max(l, 1e-30).
+// It runs on the CUDA cores (tensor cores would round float32 operands to
+// TF32; a 3xTF32 split is ROADMAP work), so the bound is operations:
+// 4*dh FLOP per valid (q head, key) pair. The design keeps both products
+// register-tiled (4x4 of S and 4 x dh/16 of acc per thread) over
+// transposed shared tiles (Q^T, K^T, P^T with a 68-float stride:
+// conflict-free transposing stores, broadcast row reads), so the CUDA
+// cores and not shared memory set the pace; a thread issues all its loads
+// of a tile before its first store, so a tile costs one trip to L2, not
+// one per load. The 16 threads that share a row are one half-warp, so row
+// max and row sum are shuffles.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,27 +54,14 @@ template <>
 struct Raw8<float> {
   float4 a, b;
 };
-template <>
-struct Raw8<__nv_bfloat16> {
-  uint4 u;
-};
 
 __device__ __forceinline__ void load_raw(const float* p, Raw8<float>& r) {
   r.a = __ldg(reinterpret_cast<const float4*>(p));
   r.b = __ldg(reinterpret_cast<const float4*>(p) + 1);
 }
 
-__device__ __forceinline__ void load_raw(const __nv_bfloat16* p,
-                                         Raw8<__nv_bfloat16>& r) {
-  r.u = __ldg(reinterpret_cast<const uint4*>(p));
-}
-
 __device__ __forceinline__ void zero_raw(Raw8<float>& r) {
   r.a = r.b = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ void zero_raw(Raw8<__nv_bfloat16>& r) {
-  r.u = make_uint4(0u, 0u, 0u, 0u);
 }
 
 __device__ __forceinline__ void unpack(const Raw8<float>& r, float (&x)[8]) {
@@ -82,30 +69,9 @@ __device__ __forceinline__ void unpack(const Raw8<float>& r, float (&x)[8]) {
   x[4] = r.b.x; x[5] = r.b.y; x[6] = r.b.z; x[7] = r.b.w;
 }
 
-__device__ __forceinline__ void unpack(const Raw8<__nv_bfloat16>& r,
-                                       float (&x)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r.u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 template <typename T, int DH>
@@ -370,8 +336,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// q (B,S,H,dh), k/v (B,S,kvH,dh), out like q; dtype 0 = float32,
-// 1 = bfloat16; dh % 8 == 0 and dh <= 256 (checked by the wrapper).
+// the bfloat16 kernel, flash_attention_mma.cu
+cudaError_t flash_attention_bf16_mma(const void* q, const void* k,
+                                     const void* v, void* out, int B, int S,
+                                     int H, int kvH, int dh, float scale,
+                                     float softcap, int causal, int window,
+                                     cudaStream_t st);
+
+// q (B,S,H,dh), k/v (B,S,kvH,dh), out like q; dtype 0 = float32 (CUDA
+// cores), 1 = bfloat16 (tensor cores); dh % 8 == 0 and dh <= 256 (checked
+// by the wrapper).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int dtype,
                                      int B, int S, int H, int kvH, int dh,
@@ -379,8 +353,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int window, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 1 ? dispatch<__nv_bfloat16>(q, k, v, out, B, S, H, kvH, dh,
-                                           scale, softcap, causal, window, st)
+      dtype == 1 ? flash_attention_bf16_mma(q, k, v, out, B, S, H, kvH, dh,
+                                            scale, softcap, causal, window, st)
                  : dispatch<float>(q, k, v, out, B, S, H, kvH, dh, scale,
                                    softcap, causal, window, st);
   return static_cast<int>(err);

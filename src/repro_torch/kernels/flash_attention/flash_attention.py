@@ -1,16 +1,18 @@
-"""``ctypes`` binding of the CUDA ``flash_attention`` kernel
-(``csrc/flash_attention.cu``).
+"""``ctypes`` binding of the CUDA ``flash_attention`` kernels
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_mma.cu``).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention/
 flash_attention.py`` ``_kernel`` / ``flash_attention``: a
 (B, kvH, nq, nk) grid whose innermost axis walks the KV tiles in order
 and carries (m, l, acc) in VMEM scratch. Here one block owns one
-(b, kv head) and 64 rows of the flattened (query position, group head)
-axis, so any group size G fits one tile shape; it walks its KV tiles in
-a loop, from the first key the window admits to the last the causal
-mask admits, holding (m, l, acc) in registers. All arithmetic is
-float32 on the CUDA cores (the TPU kernel's math), so the bound is the
-operations: ``4 dh`` FLOP per valid (q head, key) pair.
+(b, kv head) and a tile of rows of the flattened (query position, group
+head) axis, so any group size G fits one tile shape; it walks its KV
+tiles in a loop, from the first key the window admits to the last the
+causal mask admits, holding (m, l, acc) in registers. The C entry point
+dispatches by dtype: bfloat16 runs on the tensor cores (bf16 products
+with float32 accumulators, p split into two bf16 terms for P.V, K/V
+through a two-stage ``cp.async`` ring), float32 on the CUDA cores. The
+bound is the operations: ``4 dh`` FLOP per valid (q head, key) pair.
 """
 from __future__ import annotations
 

@@ -5,9 +5,11 @@ flash_attention.py:76``: causal online-softmax attention forward with
 GQA (q head h reads kv head h // G), an optional window
 (``kpos > qpos - window``) and a tanh logit softcap applied after the
 scale, all in float32, output in q's dtype. Unlike the TPU kernel it
-takes any S (no tile-multiple assert). Bound on the card: operations,
-``4 dh`` FLOP for each valid (q head, key) pair (the causal triangle, or
-the window's band).
+takes any S (no tile-multiple assert). bfloat16 inputs run on the tensor
+cores with float32-grade arithmetic (exact bf16 products summed in
+float32; p split into two bf16 terms for P.V), float32 inputs on the CUDA
+cores. Bound on the card: operations, ``4 dh`` FLOP for each valid
+(q head, key) pair (the causal triangle, or the window's band).
 
 CPU tensors (or ``interpret=True``) take the plain version in
 ``ref.py``; CUDA tensors launch the kernel or raise. There is no

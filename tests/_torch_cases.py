@@ -195,6 +195,22 @@ FLASH_ATTN_CASES = {
     "g2_dh64_causal_softcap_bf16": (3, 100, 4, 2, 64, True, 0, 50.0,
                                     "bfloat16"),
     "s_128_tile_multiple": (1, 128, 4, 2, 64, True, 0, 0.0, "float32"),
+    # bfloat16 (the tensor-core kernel: 128-row blocks, 16-row warp
+    # tiles, 64-key tiles in a two-stage ring, dh padded to 64/128/256)
+    "bf16_s1_g8_dh256_softcap": (1, 1, 8, 1, 256, True, 0, 50.0,
+                                 "bfloat16"),
+    "bf16_s63_dh48_g2_softcap": (2, 63, 4, 2, 48, True, 0, 50.0,
+                                 "bfloat16"),
+    "bf16_s65_g8_dh128": (1, 65, 8, 1, 128, True, 0, 0.0, "bfloat16"),
+    "bf16_s1000_g2_dh256_window_softcap": (1, 1000, 8, 4, 256, True, 300,
+                                           50.0, "bfloat16"),
+    "bf16_s1000_g8_dh48_causal": (1, 1000, 8, 1, 48, True, 0, 0.0,
+                                  "bfloat16"),
+    "bf16_window_ge_s_g6_dh64": (1, 200, 6, 1, 64, True, 256, 30.0,
+                                 "bfloat16"),
+    "bf16_noncausal_window_g2_dh256": (1, 150, 4, 2, 256, False, 40, 50.0,
+                                       "bfloat16"),
+    "bf16_noncausal_g3_dh48": (2, 90, 3, 1, 48, False, 0, 0.0, "bfloat16"),
 }
 
 
