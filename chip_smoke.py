@@ -34,19 +34,23 @@ Phases (any failure raises, so the exit code is non-zero):
    must be bit-equal to the numpy compiler's; then ``RapidGNNRunner``
    trains 2 epochs x 10 steps through the ``gather_agg`` forward and
    backward kernels, with every launch count (set to 0 before the
-   schedule build, read after the run) risen and ``gather_agg_bwd``
-   launched once a step (layer 1 only). The first 3 losses must agree
+   schedule build, read after the run) risen, ``gather_agg_bwd``
+   launched once a step (layer 1 only) and ``seg_sort`` only by the
+   schedule compiler (the backward orders its edges in its own kernel).
+   The first 3 losses must agree
    with the same steps on the CPU (plain versions) to ``rtol=1e-4,
    atol=1e-5`` and a second card run must give the same loss curve bit
    for bit. Prints build ms per epoch for each compiler, steps/s, the
    per-step prefetch stall and compute (H2D copy and step apart), the
    peak device memory and a traced split of the card's time by op.
-5. Hold ``seg_sort`` (the compiler's largest stream, keys only, and the
-   backward's by-source sort, with a payload; bit-equal) and
-   ``gather_agg_bwd`` (layer 1's shapes, and layer 0's for reference;
-   ``rtol=atol=1e-5``, and two runs bit-equal) against their plain
-   versions on the card, with their times beside ``torch.sort`` and
-   ``index_add_``.
+5. Hold ``seg_sort`` (the compiler's largest stream, keys only;
+   bit-equal) and ``gather_agg_bwd`` (layer 1's shapes, and layer 0's for
+   reference; bit-equal to the CPU plain version, which adds in edge
+   order, and to a second run, and within ``rtol=atol=1e-5`` of the card
+   plain version, whose ``index_add_`` adds in atomic order; at most 3
+   card operations a call at layer 1, counted by ``torch.profiler``)
+   against their plain versions on the card, with their times beside
+   ``torch.sort`` and ``index_add_``.
 
 6. Decode serving: gemma2-2b (``configs/gemma2_2b.py``) at its full width
    and depth in bfloat16, weights from a seeded ``torch.Generator`` on
@@ -65,8 +69,11 @@ Phases (any failure raises, so the exit code is non-zero):
    kernel, within ``rtol=1e-4, atol=1e-5``, and timed beside it), and
    ``flash_decode`` over a long cache (B=16, S=32768, ``length``/``start``
    masks, softcap 50) and the decode loop's own caches (float32
-   partials, ``rtol=1e-4, atol=1e-5``), with their times beside SDPA
-   (``enable_gqa``, the same mask, no softcap).
+   partials, ``rtol=1e-4, atol=1e-5``; one card operation a call), with
+   their times beside SDPA (``enable_gqa``, the same mask, no softcap)
+   and their byte bounds. A call of a few microseconds is also timed 20
+   to a CUDA graph, beside a trivial kernel's time both ways: one call a
+   replay is paced by the host's graph launches.
 7. The device-distributed epoch: all 4 workers of ``reddit_sim`` in one
    process on the card (``make_mesh((4,), ("data",))``) at the paper's
    GraphSAGE width (``sage("reddit_sim", 1000)``, one epoch, AdamW lr
@@ -165,6 +172,73 @@ def device_ms(torch, fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms_per_call(torch, fn, calls: int = 20, iters: int = 10) -> float:
+    """Device time of one ``fn()`` call among ``calls`` captured back to
+    back in one CUDA graph: a graph of one short call is replayed no
+    faster than the host can launch graphs, which ``launch_floor_ms``
+    shows, so a call of a few microseconds is timed this way too."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters / calls
+
+
+def launch_floor_ms(torch, device) -> dict:
+    """``device_ms`` and ``device_ms_per_call`` of one tiny elementwise
+    kernel: the first is the host's rate of graph replays, the second the
+    card's cost of one more kernel in a graph."""
+    x = torch.zeros(16, device=device)
+    return {"one_call_a_replay_ms": device_ms(torch, lambda: x.add_(1)),
+            "in_a_graph_ms": device_ms_per_call(torch, lambda: x.add_(1))}
+
+
+#: CUgraphNodeType values the card runs (cuda.h)
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def device_ops(torch, fn) -> list:
+    """The card operations (kernels, copies, memsets) one ``fn()`` call
+    runs: one call captured in a CUDA graph, its nodes counted with
+    libcuda's ``cuGraphGetNodes``. A profiler trace loses events of short
+    kernels late in a long run; a graph holds exactly what was launched."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value in _NODE_TYPES:
+            kinds.append(_NODE_TYPES[kind.value])
+    del graph
+    return kinds
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S):
@@ -805,6 +879,7 @@ def train_phase(torch, device, g, pg, counters):
     torch.cuda.reset_peak_memory_stats()
     ws, device_s, sort_input = build_device_schedule(torch, device, exp,
                                                      sampler, pg)
+    schedule_sorts = next(c.value for c in counters if c.name == "seg_sort")
     hist, metrics, wall, captured, split = train_run(
         torch, device, exp, cfg, ws, pg, capture=CPU_LOSS_STEPS)
     torch.cuda.synchronize()
@@ -825,6 +900,12 @@ def train_phase(torch, device, g, pg, counters):
     if launches["seg_sort"] == 0 or launches["gather_agg"] == 0:
         raise RuntimeError(f"training did not launch every kernel of its "
                            f"path: {launches}")
+    # the schedule compiler sorts; the backward orders its edges inside
+    # its own kernel and launches no seg_sort
+    if launches["seg_sort"] != schedule_sorts:
+        raise RuntimeError(f"seg_sort launched {launches['seg_sort']} times, "
+                           f"{schedule_sorts} of them for the schedule: the "
+                           f"backward sorted")
     # one backward launch a step: layer 1 only, never layer 0, whose
     # input (the features) needs no gradient
     if launches["gather_agg_bwd"] != steps:
@@ -917,22 +998,18 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
             f"library_ms={r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f}")
         return r
 
-    # the compiler's largest stream (layer 0 of an epoch), keys only,
-    # and the backward's by-source sort of layer 1, with a payload
-    src1, msk1 = t(cb.edge_src[1]), t(cb.edge_mask[1])
-    bwd_keys = torch.where(msk1, src1, torch.full_like(src1, sentinel))
-    bwd_ids = torch.arange(bwd_keys.shape[0], dtype=torch.int32,
-                           device=device)
+    # the compiler's largest stream (layer 0 of an epoch), keys only; the
+    # backward no longer sorts (its order is built inside its own kernel,
+    # timed in its row)
     sorts = [sort_row(sort_input["keys"], None, sort_input["num_bits"],
-                      "layer-0 stream"),
-             sort_row(bwd_keys, bwd_ids, max((m_max - 1).bit_length(), 1),
-                      "backward by-source")]
+                      "layer-0 stream")]
 
     def bwd_row(layer, d, what, tol):
-        """``tol`` (rtol = atol) bounds the kernel's distance from the
-        plain version on the card, whose ``index_add_`` sums with atomics
-        in no fixed order, and from the plain version on the CPU, which
-        sums each row in edge order as the kernel does."""
+        """The kernel must equal the plain version on the CPU bit for bit
+        (both add each row's quotients in edge order from +0) and give
+        the same bits twice; ``tol`` (rtol = atol) bounds its distance
+        from the plain version on the card, whose ``index_add_`` sums
+        with atomics in no fixed order."""
         fo = fanouts[layer]
         src, msk = t(cb.edge_src[layer]), t(cb.edge_mask[layer])
         nd = src.shape[0] // fo
@@ -945,10 +1022,13 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
         want = gather_agg_bwd_ref(g, src, msk, m_max, nd, fo)
         cpu = gather_agg_bwd_ref(g.cpu(), src.cpu(), msk.cpu(), m_max, nd,
                                  fo)
-        if not (torch.allclose(got, want, rtol=tol, atol=tol)
-                and torch.allclose(got.cpu(), cpu, rtol=tol, atol=tol)):
+        if not torch.equal(got.cpu(), cpu):
+            raise RuntimeError(
+                f"gather_agg_bwd {what} is not the CPU plain version bit for "
+                f"bit: max abs diff {(got.cpu() - cpu).abs().max().item()}")
+        if not torch.allclose(got, want, rtol=tol, atol=tol):
             raise RuntimeError(f"gather_agg_bwd {what} differs from its "
-                               f"plain version")
+                               f"plain version on the card")
         if not torch.equal(got, again):
             raise RuntimeError(f"gather_agg_bwd {what}: two runs differ")
         cnt = msk.reshape(nd, fo).sum(1).float().clamp(min=1.0)
@@ -964,22 +1044,33 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
                                "function")
         unmasked = int(msk.sum().item())
         nbytes = nd * d * 4 + src.shape[0] * 5 + m_max * d * 4
+
+        def call():
+            return gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
+                                             fanout=fo)
+        ops = device_ops(torch, call)
         r = {"what": what, "err": (got - want).abs().max().item(),
              "bound": bound_ms(nbytes, 2 * unmasked * d),
-             "ms": device_ms(torch, lambda: gather_ops.gather_agg_bwd(
-                 g, src, msk, m=m_max, nd=nd, fanout=fo)),
+             "ms": device_ms(torch, call),
+             "ms_in_a_graph": device_ms_per_call(torch, call, calls=10),
              "plain_ms": device_ms(torch, lambda: gather_agg_bwd_ref(
                  g, src, msk, m_max, nd, fo)),
              "library_ms": device_ms(torch, library),
-             "cpu_err": (got.cpu() - cpu).abs().max().item(),
+             "cpu_err": 0.0, "device_ops": len(ops), "ops": ops,
              "shape": f"g=({nd},{d}) m={m_max} fanout={fo} "
                       f"unmasked={unmasked}"}
         log(f"gather_agg_bwd {what}: {r['shape']} ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"bound_ms={r['bound'][0]:.4f} max_abs_err={r['err']:.3e} "
-            f"(CPU plain version: {r['cpu_err']:.3e})")
+            f"({r['ms_in_a_graph']:.4f} a call in a graph of 10) plain_ms="
+            f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+            f"(index_add_) bound_ms={r['bound'][0]:.4f}; {len(ops)} card "
+            f"ops a call ({', '.join(ops)}); "
+            f"max_abs_err={r['err']:.3e} against the card plain version, "
+            f"bit-equal to the CPU plain version and to a second run")
         return r
     bwd1 = bwd_row(1, cfg.hidden_dim, "layer 1 (the path)", 1e-5)
+    if bwd1["device_ops"] > 3:
+        raise RuntimeError(f"gather_agg_bwd ran {bwd1['device_ops']} card "
+                           f"operations a call at layer 1: {bwd1['ops']}")
     # layer 0's hub rows sum thousands of terms: the card's atomic order
     # moves the plain version by more than 1e-5 there
     bwd0 = bwd_row(0, cfg.in_dim, "layer 0 (for reference, not launched "
@@ -1010,9 +1101,8 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
     hub_g = torch.randn((40, 33), generator=gen).to(device)
     got = gather_ops.gather_agg_bwd(hub_g, hub_src, hub_msk, m=9, nd=40,
                                     fanout=10)
-    if not torch.allclose(got.cpu(), gather_agg_bwd_ref(
-            hub_g.cpu(), hub_src.cpu(), hub_msk.cpu(), 9, 40, 10),
-            rtol=1e-5, atol=1e-5):
+    if not torch.equal(got.cpu(), gather_agg_bwd_ref(
+            hub_g.cpu(), hub_src.cpu(), hub_msk.cpu(), 9, 40, 10)):
         raise RuntimeError("gather_agg_bwd hub row differs")
     log("awkward shapes: seg_sort (n=1, 4095, 4097, all keys equal, "
         "num_bits 1/3/20/31, sentinels between keys) and gather_agg_bwd "
@@ -1481,20 +1571,60 @@ def decode_kernel_row(torch, device, cfg, params, launches):
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 4 * dh * H * n_valid,
                                             BF16_FLOPS_PER_S)
     r["gb_per_s"] = nbytes / r["ms"] / 1e6
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    r["device_ops"] = len(device_ops(torch, lambda: fd_ops.flash_decode_batched(
+        q, k, v, length, start, softcap=cap)))
+    # the decode loop's shape: its caches filled (the time of the loop's
+    # last steps), the same mask yardstick for SDPA
     qs = torch.randn((DECODE_B, H, dh), generator=gen, device=device,
                      dtype=torch.bfloat16)
     ln = torch.full((DECODE_B,), small_shape[1], dtype=torch.int32,
                     device=device)
     kc = torch.randn(small_shape, generator=gen, device=device,
                      dtype=torch.bfloat16)
-    r["decode_shape_ms"] = device_ms(torch, lambda: fd_ops.flash_decode_batched(
-        qs, kc, kc, ln, softcap=cap))
-    r["decode_shape"] = f"cache={small_shape}"
+    vc = torch.randn(small_shape, generator=gen, device=device,
+                     dtype=torch.bfloat16)
+
+    def small():
+        return fd_ops.flash_decode_batched(qs, kc, vc, ln, softcap=cap)
+    ops = device_ops(torch, small)
+    if len(ops) != 1:
+        raise RuntimeError(f"flash_decode ran {len(ops)} card operations a "
+                           f"call at the decode loop's shape: {ops}")
+    ppos = torch.arange(small_shape[1], device=device)
+    smask = (ppos[None, :] < ln[:, None])[:, None, None, :]
+    sq, sk, sv = qs[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+
+    def small_sdpa():
+        return F.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask,
+                                              enable_gqa=True)
+    s_bytes = (kc.numel() + vc.numel()) * kc.element_size() + \
+        qs.numel() * qs.element_size() + DECODE_B * H * dh * 4
+    s_bound = bound_ms(s_bytes, 4 * dh * H * DECODE_B * small_shape[1],
+                       BF16_FLOPS_PER_S)
+    r["decode_shape"] = {
+        "cache": list(small_shape), "device_ops": len(ops),
+        "ms": device_ms(torch, small),
+        "ms_in_a_graph": device_ms_per_call(torch, small),
+        "bound_ms": s_bound[0], "bound_by": s_bound[1],
+        "library_ms": device_ms(torch, small_sdpa),
+        "library_ms_in_a_graph": device_ms_per_call(torch, small_sdpa),
+        "launch_floor": launch_floor_ms(torch, device)}
+    ds = r["decode_shape"]
     log(f"flash_decode {r['shape']}: ms={r['ms']:.4f} plain_ms="
         f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA, no "
-        f"softcap) bound_ms={r['bound_ms']:.4f} ({r['gb_per_s']:.0f} GB/s); "
-        f"max_abs_err {err:.3e} (rtol=1e-4 atol=1e-5); at the decode loop's "
-        f"{r['decode_shape']}: {r['decode_shape_ms']:.4f} ms")
+        f"softcap) bound_ms={r['bound_ms']:.4f} ({r['gb_per_s']:.0f} GB/s, "
+        f"{100 * r['share_of_bound']:.1f} % of the bound); "
+        f"{r['device_ops']} card op a call; max_abs_err {err:.3e} "
+        f"(rtol=1e-4 atol=1e-5)")
+    log(f"flash_decode at the decode loop's cache {tuple(small_shape)} "
+        f"bf16: {ds['ms_in_a_graph']:.4f} ms a call in a graph of 20 "
+        f"({ds['ms']:.4f} one call a replay; launch floor "
+        f"{ds['launch_floor']['one_call_a_replay_ms']:.4f} / "
+        f"{ds['launch_floor']['in_a_graph_ms']:.4f}), {len(ops)} card op a "
+        f"call, bound_ms={ds['bound_ms']:.5f} ({ds['bound_by']}); SDPA "
+        f"(same mask, no softcap) {ds['library_ms_in_a_graph']:.4f} ms in a "
+        f"graph ({ds['library_ms']:.4f} one call a replay)")
     torch.cuda.synchronize()
     return r
 
@@ -1703,11 +1833,11 @@ def dist_phase(torch, device, g, pg, counters):
     # first one bit for bit, and the spread of ms/step shows
     runs, launches, peaks = {}, {}, {}
     want_on = {"rapid fused": ("search", "assemble", "gather_agg",
-                               "gather_agg_bwd", "seg_sort"),
+                               "gather_agg_bwd"),
                "rapid staged": ("search", "merge_gather", "gather_agg",
-                                "gather_agg_bwd", "seg_sort"),
+                                "gather_agg_bwd"),
                "on-demand": ("search", "assemble", "gather_agg",
-                             "gather_agg_bwd", "seg_sort")}
+                             "gather_agg_bwd")}
     for _ in range(2):
         for name, kind, backend in (("rapid fused", "rapid", "fused"),
                                     ("rapid staged", "rapid", "staged"),
@@ -1728,6 +1858,10 @@ def dist_phase(torch, device, g, pg, counters):
     if launches["rapid fused"]["merge_gather"] or \
             launches["rapid staged"]["assemble"]:
         raise RuntimeError(f"a backend ran another's kernel: {launches}")
+    # the backward orders its edges in its own kernel: no seg_sort
+    if any(v["seg_sort"] for v in launches.values()):
+        raise RuntimeError(f"a distributed epoch launched seg_sort: "
+                           f"{launches}")
     fused = runs["rapid fused"][0][1]
     if not bool(torch.isfinite(fused).all()) or fused.shape != (S,):
         raise RuntimeError(f"bad loss curve {fused.tolist()}")

@@ -1,6 +1,6 @@
 // Single-token attention over a KV cache (decode) for Hopper (sm_90a):
-// (acc, m, l) partials over the valid positions start <= pos < length,
-// GQA, tanh logit softcap.
+// (acc, m, l) partials, or the normalised output, over the valid
+// positions start <= pos < length, GQA, tanh logit softcap.
 //
 // Replaces the TPU kernel repro/kernels/flash_decode/flash_decode.py
 // `_kernel` / `flash_decode`: a (kvH, S/ts) grid, one batch element per
@@ -9,26 +9,44 @@
 // block, and emitting the UNNORMALIZED (acc, m, l) so that shards of a
 // cache combine.
 //
-// On the card one launch takes the whole batch. Block (b*kvH + h, split)
-// owns one kv head's G query heads over one slice of the cache. Inside
-// it, groups of L lanes (L = dh/8 rounded up to a power of two; 32 at
-// dh = 256) each take four keys at a time, every lane 8 columns of each,
-// so each key row is one coalesced 16- or 32-byte-per-lane read and four
-// rows are in flight per group; the dot products are finished by
-// shuffles inside the group, and each group keeps its own running
-// (m, l, acc) over its keys, rescaled once per four keys. The groups' states merge in
-// shared memory at the end with the combine rule, and a second small
-// kernel combines the slices and normalises: the TPU kernel's own
-// (acc, m, l) contract, used here to spread a long cache over the card's
-// 132 multiprocessors (B*kvH alone is 32 blocks at the serving shape).
+// Bound: bytes, the valid K/V rows read once. Two things kept the first
+// design from it. At the decode loop's shape (B=8, 4 kv heads, a 48-slot
+// cache) the work is 1.6 MB and the time was fixed costs: a second
+// launch to combine and normalise, two rounds of dependent loads, an
+// 8-way merge. At a long, ragged cache the splits cut [0, S), so an
+// element with few valid positions left most of its blocks empty while
+// full-length elements' blocks did all the work. This design:
+//   - one launch. Block (b*kvH + h, split) owns one kv head's G query
+//     heads over the split-th equal part of the element's own valid
+//     range [start_b, length_b), computed here from length/start; the
+//     number of splits is a function of the shapes only (the wrapper's
+//     split_plan), so a CUDA graph replays it. With one split the block
+//     writes the partials or acc / max(l, 1e-30) itself. With more, each
+//     block writes its partials, and the last block of its (b, kv head)
+//     to finish -- known from an integer ticket, which it resets for the
+//     next launch -- combines the splits in split order 0..n-1. Which
+//     block is last changes nothing in the result.
+//   - inside the block, groups of L lanes (L = dh/8 rounded up to a power
+//     of two; 32 at dh = 256) each take kUnroll keys at a time, every
+//     lane 8 columns of each, loaded raw (16 bytes a lane for bfloat16)
+//     so that kUnroll rows are in flight per group: 64 keys a round at
+//     dh = 256 in bfloat16, so the decode loop's caches take one round.
+//     The first round's loads are issued before q is staged, and q
+//     sits in registers (up to 4 heads a group): read from shared memory
+//     once a key, each lane's 8 columns conflict on banks. The dot
+//     products are finished by shuffles inside the group; each group
+//     keeps its own running (m, l, acc), merged once in shared memory
+//     with weights computed once per (group, head). Where a group has a
+//     lane for each of a round's G x kUnroll scores, their softcap and
+//     exponentials are spread one a lane (every lane computed all sixteen
+//     at the decode shape), so they cost one tanh and one exp a lane.
 // Positions outside [start, length) are never read, which is exact: a
-// masked key leaves (m, l, acc) unchanged. Any S (no tile-multiple
-// assert); with no valid position m = -1e30, l = 0, acc = 0 and the
-// normalised output is 0, as the reference's finalize gives.
+// masked key leaves (m, l, acc) unchanged. Any S; with no valid position
+// m = -1e30, l = 0, acc = 0 and the normalised output is 0, as the
+// reference's finalize gives.
 //
 // Arithmetic is float32, as on the TPU: q is cast and then scaled,
 // s = (q*scale).k, then tanh(s/softcap)*softcap, online max and sum.
-// The bound is bytes: the valid K/V rows, read once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,44 +55,109 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;  // keys a lane group has in flight
 // the most shared memory a shape the wrapper admits needs (MAXG = 8,
 // dh = 8: 256 one-lane groups), under the card's 227 KB a block
 constexpr int kMaxSmem = 96 * 1024;
+
+// 8 consecutive elements of a row, as loaded: one 16-byte word for
+// bfloat16, two for float32
+template <typename T>
+struct Raw;
+template <>
+struct Raw<__nv_bfloat16> {
+  uint4 w;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void clear() { w = make_uint4(0, 0, 0, 0); }
+  __device__ __forceinline__ void to_float(float (&x)[8]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+};
+template <>
+struct Raw<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void clear() {
+    a = b = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ void to_float(float (&x)[8]) const {
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  }
+};
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+// keys a lane group has in flight: the raw rows of K and V stay in
+// registers, so wider groups of q heads take fewer
+template <typename T, int MAXG>
+struct Unroll {
+  static constexpr int value = (sizeof(T) == 2 && MAXG <= 4) ? 8 : 4;
+};
+
+template <typename T, int KU>
+__device__ __forceinline__ void load_round(const T* __restrict__ k,
+                                           const T* __restrict__ v,
+                                           size_t base, size_t stride, int s0,
+                                           int ngrp, int grp, int hi,
+                                           bool col_on, Raw<T> (&kr)[KU],
+                                           Raw<T> (&vr)[KU]) {
+#pragma unroll
+  for (int u = 0; u < KU; ++u) {
+    const int s = s0 + u * ngrp + grp;
+    if (s < hi && col_on) {
+      kr[u].load(k + base + static_cast<size_t>(s) * stride);
+      vr[u].load(v + base + static_cast<size_t>(s) * stride);
+    } else {
+      kr[u].clear();
+      vr[u].clear();
+    }
+  }
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
+// Write row o's results: the partials where out_acc is given, the
+// normalised acc / max(l, 1e-30) where out is.
+__device__ __forceinline__ void emit(size_t o, int j, int dh, float a,
+                                     float M, float L,
+                                     float* __restrict__ out_acc,
+                                     float* __restrict__ out_m,
+                                     float* __restrict__ out_l,
+                                     float* __restrict__ out) {
+  if (out != nullptr) out[o * dh + j] = a / fmaxf(L, 1e-30f);
+  if (out_acc != nullptr) {
+    out_acc[o * dh + j] = a;
+    if (j == 0) {
+      out_m[o] = M;
+      out_l[o] = L;
+    }
   }
 }
 
 template <typename T, int MAXG>
 __global__ void __launch_bounds__(kThreads)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v,
-                      const int32_t* __restrict__ length,
-                      const int32_t* __restrict__ start, int B, int S, int H,
-                      int kvH, int dh, int lanes_log2, int chunk, float scale,
-                      float softcap, float* __restrict__ part_acc,
-                      float* __restrict__ part_m,
-                      float* __restrict__ part_l) {
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int32_t* __restrict__ length,
+              const int32_t* __restrict__ start, int B, int S, int H,
+              int kvH, int dh, int lanes_log2, int n_split, float scale,
+              float softcap, float* __restrict__ part_acc,
+              float* __restrict__ part_m, float* __restrict__ part_l,
+              int32_t* __restrict__ tickets, float* __restrict__ out_acc,
+              float* __restrict__ out_m, float* __restrict__ out_l,
+              float* __restrict__ out) {
+  constexpr int KU = Unroll<T, MAXG>::value;
   extern __shared__ __align__(16) float smem[];
   const int G = H / kvH;
   const int b = blockIdx.x / kvH, h = blockIdx.x - b * kvH;
@@ -84,7 +167,26 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* q_s = smem;              // [G][dh]        q * scale
   float* m_s = q_s + G * dh;      // [ngrp][G]
   float* l_s = m_s + ngrp * G;    // [ngrp][G]
-  float* a_s = l_s + ngrp * G;    // [ngrp][G][dh]
+  float* w_s = l_s + ngrp * G;    // [ngrp][G]      merge weights
+  float* ml_s = w_s + ngrp * G;   // [2][G]         merged m, l
+  float* a_s = ml_s + 2 * G;      // [ngrp][G][dh]
+  __shared__ int last_s;
+
+  // this split's part of the element's own valid range
+  const int hi_b = min(length[b], S);
+  const int lo_b = start != nullptr ? max(start[b], 0) : 0;
+  const int n = max(hi_b - lo_b, 0);
+  const int chunk = (n + n_split - 1) / n_split;
+  const int lo = lo_b + min(split * chunk, n);
+  const int hi = lo_b + min((split + 1) * chunk, n);
+
+  const bool col_on = 8 * c < dh;
+  const size_t stride = static_cast<size_t>(kvH) * dh;
+  const size_t base = static_cast<size_t>(b) * S * stride +
+                      static_cast<size_t>(h) * dh + 8 * c;
+  const int step = KU * ngrp;
+  Raw<T> kr[KU], vr[KU];
+  load_round<T, KU>(k, v, base, stride, lo, ngrp, grp, hi, col_on, kr, vr);
 
   const T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) *
                         dh;
@@ -92,12 +194,18 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     q_s[i] = to_float(qb[i]) * scale;
   __syncthreads();
 
-  int lo = split * chunk;
-  int hi = min(min(lo + chunk, S), length[b]);
-  if (start != nullptr) lo = max(lo, start[b]);
-  lo = max(lo, 0);
+  // q in registers for up to 4 heads a group (read once, not once a
+  // key from shared memory, where a lane's 8 columns conflict on banks)
+  constexpr bool kQReg = MAXG <= 4;
+  float qr[kQReg ? MAXG : 1][8];
+  if constexpr (kQReg) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        qr[g][i] = (g < G && col_on) ? q_s[g * dh + 8 * c + i] : 0.f;
+  }
 
-  const bool col_on = 8 * c < dh;
   float m[MAXG], l[MAXG], acc[MAXG][8];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
@@ -106,74 +214,126 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
   }
-  const size_t stride = static_cast<size_t>(kvH) * dh;
-  const size_t base = static_cast<size_t>(b) * S * stride +
-                      static_cast<size_t>(h) * dh + 8 * c;
 
-  // lo/hi are the block's own, so every lane runs the same iterations and
-  // the group shuffles stay converged. Each group loads kUnroll keys
-  // before it uses any, so that many rows are in flight, and rescales its
-  // state once for them.
-  for (int s0 = lo; s0 < hi; s0 += kUnroll * ngrp) {
-    float kx[kUnroll][8], vx[kUnroll][8];
-    bool on[kUnroll];
+  // lo/hi are the block's own, so every lane runs the same rounds and the
+  // group shuffles stay converged
+  for (int s0 = lo; s0 < hi; s0 += step) {
+    float x[MAXG][KU];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u * ngrp + grp;
-      on[u] = s < hi;
-      if (on[u] && col_on) {
-        load8(k + base + static_cast<size_t>(s) * stride, kx[u]);
-        load8(v + base + static_cast<size_t>(s) * stride, vx[u]);
-      } else {
+    for (int u = 0; u < KU; ++u) {
+      float kx[8];
+      kr[u].to_float(kx);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) kx[u][i] = vx[u][i] = 0.f;
-      }
-    }
+      for (int g = 0; g < MAXG; ++g) {
+        float d = 0.f;
+        if (g < G && col_on) {
+          if constexpr (kQReg) {
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < G) {
-        float x[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          x[u] = 0.f;
-          if (col_on) {
+            for (int i = 0; i < 8; ++i) d = fmaf(qr[g][i], kx[i], d);
+          } else {
             const float* qg = q_s + g * dh + 8 * c;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) x[u] = fmaf(qg[i], kx[u][i], x[u]);
+            for (int i = 0; i < 8; ++i) d = fmaf(qg[i], kx[i], d);
           }
         }
-        for (int off = L >> 1; off > 0; off >>= 1) {
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u)
-            x[u] += __shfl_xor_sync(0xffffffffu, x[u], off);
-        }
-        float mn = m[g];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (softcap > 0.f) x[u] = tanhf(x[u] / softcap) * softcap;
-          if (on[u]) mn = fmaxf(mn, x[u]);
-        }
-        const float alpha = expf(m[g] - mn);
-        float p[kUnroll], psum = 0.f;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          p[u] = on[u] ? expf(x[u] - mn) : 0.f;
-          psum += p[u];
-        }
-        l[g] = l[g] * alpha + psum;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float a = acc[g][i] * alpha;
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) a = fmaf(p[u], vx[u][i], a);
-          acc[g][i] = a;
-        }
-        m[g] = mn;
+        x[g][u] = d;
       }
     }
+    for (int off = L >> 1; off > 0; off >>= 1) {
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+#pragma unroll
+        for (int u = 0; u < KU; ++u)
+          if (g < G) x[g][u] += __shfl_xor_sync(0xffffffffu, x[g][u], off);
+    }
+    bool on[KU];
+#pragma unroll
+    for (int u = 0; u < KU; ++u) on[u] = s0 + u * ngrp + grp < hi;
+    if (G * KU <= L) {
+      // one (head, key) score a lane: the softcap and exp once, not once
+      // a lane; x becomes p = exp(x - m), broadcast back to the group
+      const int pg = c / KU, pu = c - pg * KU;
+      float y = 0.f;
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+#pragma unroll
+        for (int u = 0; u < KU; ++u)
+          if (g * KU + u == c) y = x[g][u];
+      const bool pon = c < G * KU && s0 + pu * ngrp + grp < hi;
+      if (softcap > 0.f) y = tanhf(y / softcap) * softcap;
+      float ym = pon ? y : kNegInf;
+      for (int o = 1; o < KU; o <<= 1)
+        ym = fmaxf(ym, __shfl_xor_sync(0xffffffffu, ym, o, L));
+      float mn[MAXG];
+      float my_mn = kNegInf;
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        mn[g] = kNegInf;
+        if (g < G) {
+          mn[g] = fmaxf(m[g], __shfl_sync(0xffffffffu, ym, g * KU, L));
+          if (g == pg) my_mn = mn[g];
+        }
+      }
+      const float p = pon ? expf(y - my_mn) : 0.f;
+      float ps = p;
+      for (int o = 1; o < KU; o <<= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, o, L);
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        if (g < G) {
+          const float alpha = expf(m[g] - mn[g]);
+          l[g] = l[g] * alpha + __shfl_sync(0xffffffffu, ps, g * KU, L);
+          m[g] = mn[g];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[g][i] *= alpha;
+#pragma unroll
+          for (int u = 0; u < KU; ++u)
+            x[g][u] = __shfl_sync(0xffffffffu, p, g * KU + u, L);
+        }
+      }
+    } else {
+      // x becomes p = exp(x - m) in place, every lane for every score
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        if (g < G) {
+          float mn = m[g];
+#pragma unroll
+          for (int u = 0; u < KU; ++u) {
+            if (softcap > 0.f) x[g][u] = tanhf(x[g][u] / softcap) * softcap;
+            if (on[u]) mn = fmaxf(mn, x[g][u]);
+          }
+          const float alpha = expf(m[g] - mn);
+          float psum = 0.f;
+#pragma unroll
+          for (int u = 0; u < KU; ++u) {
+            x[g][u] = on[u] ? expf(x[g][u] - mn) : 0.f;
+            psum += x[g][u];
+          }
+          l[g] = l[g] * alpha + psum;
+          m[g] = mn;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[g][i] *= alpha;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < KU; ++u) {
+      float vx[8];
+      vr[u].to_float(vx);
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g)
+        if (g < G) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            acc[g][i] = fmaf(x[g][u], vx[i], acc[g][i]);
+        }
+    }
+    if (s0 + step < hi)
+      load_round<T, KU>(k, v, base, stride, s0 + step, ngrp, grp, hi, col_on,
+                        kr, vr);
   }
 
-  // merge the groups' states
+  // merge the groups' states: weights once per (group, head)
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     if (g < G) {
@@ -189,89 +349,99 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();
-  for (int i = tid; i < G * dh; i += kThreads) {
-    const int g = i / dh, j = i - g * dh;
+  // a thread a (group, head) weight, then l summed in group order
+  for (int t = tid; t < ngrp * G; t += kThreads) {
+    const int g = t % G;
     float M = kNegInf;
     for (int r = 0; r < ngrp; ++r) M = fmaxf(M, m_s[r * G + g]);
-    float a = 0.f, ll = 0.f;
-    for (int r = 0; r < ngrp; ++r) {
-      const float w = expf(m_s[r * G + g] - M);
-      a = fmaf(a_s[(r * G + g) * dh + j], w, a);
-      ll = fmaf(l_s[r * G + g], w, ll);
-    }
-    const size_t o = (static_cast<size_t>(split) * B + b) * H +
-                     static_cast<size_t>(h) * G + g;
-    part_acc[o * dh + j] = a;
-    if (j == 0) {
-      part_m[o] = M;
-      part_l[o] = ll;
-    }
+    w_s[t] = expf(m_s[t] - M);
+    if (t < G) ml_s[t] = M;
   }
-}
-
-// Combine the n_split slices of each (b, q head) row; write the partials
-// (acc, m, l) and/or the normalised acc / max(l, 1e-30).
-__global__ void decode_combine_kernel(const float* __restrict__ part_acc,
-                                      const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      int n_split, int rows, int dh,
-                                      float* __restrict__ out_acc,
-                                      float* __restrict__ out_m,
-                                      float* __restrict__ out_l,
-                                      float* __restrict__ out) {
-  const int row = blockIdx.x;
-  float M = kNegInf;
-  for (int sp = 0; sp < n_split; ++sp)
-    M = fmaxf(M, part_m[static_cast<size_t>(sp) * rows + row]);
-  for (int j = threadIdx.x; j < dh; j += blockDim.x) {
-    float a = 0.f, ll = 0.f;
-    for (int sp = 0; sp < n_split; ++sp) {
-      const size_t r = static_cast<size_t>(sp) * rows + row;
-      const float w = expf(part_m[r] - M);
-      a = fmaf(part_acc[r * dh + j], w, a);
-      ll = fmaf(part_l[r], w, ll);
-    }
-    const size_t o = static_cast<size_t>(row) * dh + j;
-    if (out != nullptr) out[o] = a / fmaxf(ll, 1e-30f);
-    if (out_acc != nullptr) {
-      out_acc[o] = a;
+  __syncthreads();
+  if (tid < G) {
+    float ll = 0.f;
+    for (int r = 0; r < ngrp; ++r)
+      ll = fmaf(l_s[r * G + tid], w_s[r * G + tid], ll);
+    ml_s[G + tid] = ll;
+  }
+  __syncthreads();
+  const size_t row0 = static_cast<size_t>(b) * H + static_cast<size_t>(h) * G;
+  const int rows = B * H;
+  for (int i = tid; i < G * dh; i += kThreads) {
+    const int g = i / dh, j = i - g * dh;
+    float a = 0.f;
+    for (int r = 0; r < ngrp; ++r)
+      a = fmaf(a_s[(r * G + g) * dh + j], w_s[r * G + g], a);
+    if (n_split == 1) {
+      emit(row0 + g, j, dh, a, ml_s[g], ml_s[G + g], out_acc, out_m, out_l,
+           out);
+    } else {
+      const size_t o = static_cast<size_t>(split) * rows + row0 + g;
+      part_acc[o * dh + j] = a;
       if (j == 0) {
-        out_m[row] = M;
-        out_l[row] = ll;
+        part_m[o] = ml_s[g];
+        part_l[o] = ml_s[G + g];
       }
     }
   }
+  if (n_split == 1) return;
+
+  // the last block of this (b, kv head) to finish combines the splits
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last_s = atomicAdd(tickets + blockIdx.x, 1) == n_split - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (int i = tid; i < G * dh; i += kThreads) {
+    const int g = i / dh, j = i - g * dh;
+    const size_t row = row0 + g;
+    float M = kNegInf;
+    for (int sp = 0; sp < n_split; ++sp)
+      M = fmaxf(M, __ldcg(part_m + static_cast<size_t>(sp) * rows + row));
+    float a = 0.f, ll = 0.f;
+    for (int sp = 0; sp < n_split; ++sp) {
+      const size_t r = static_cast<size_t>(sp) * rows + row;
+      const float w = expf(__ldcg(part_m + r) - M);
+      a = fmaf(__ldcg(part_acc + r * dh + j), w, a);
+      ll = fmaf(__ldcg(part_l + r), w, ll);
+    }
+    emit(row, j, dh, a, M, ll, out_acc, out_m, out_l, out);
+  }
+  if (tid == 0) tickets[blockIdx.x] = 0;
 }
 
 template <typename T, int MAXG>
-cudaError_t run_partial(const void* q, const void* k, const void* v,
-                        const int32_t* length, const int32_t* start, int B,
-                        int S, int H, int kvH, int dh, float scale,
-                        float softcap, int n_split, int chunk, float* pa,
-                        float* pm, float* pl, cudaStream_t st) {
+cudaError_t run(const void* q, const void* k, const void* v,
+                const int32_t* length, const int32_t* start, int B, int S,
+                int H, int kvH, int dh, float scale, float softcap,
+                int n_split, float* pa, float* pm, float* pl,
+                int32_t* tickets, float* oa, float* om, float* ol, float* out,
+                cudaStream_t st) {
   const int G = H / kvH;
   int lanes_log2 = 0;
   while ((1 << lanes_log2) < dh / 8) ++lanes_log2;
   const int ngrp = kThreads >> lanes_log2;
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(G) * dh + 2 * ngrp * G +
+      sizeof(float) * (static_cast<size_t>(G) * dh + 3 * ngrp * G + 2 * G +
                        static_cast<size_t>(ngrp) * G * dh);
   // raise the limit to the most any shape needs, once per instantiation,
   // so a CUDA-graph capture never calls it
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        decode_partial_kernel<T, MAXG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        decode_kernel<T, MAXG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
   const dim3 grid(B * kvH, n_split);
-  decode_partial_kernel<T, MAXG><<<grid, kThreads, smem, st>>>(
+  decode_kernel<T, MAXG><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), length, start, B, S, H, kvH, dh, lanes_log2,
-      chunk, scale, softcap, pa, pm, pl);
+      n_split, scale, softcap, pa, pm, pl, tickets, oa, om, ol, out);
   return cudaGetLastError();
 }
 
@@ -279,35 +449,35 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int32_t* length, const int32_t* start, int B,
                      int S, int H, int kvH, int dh, float scale,
-                     float softcap, int n_split, int chunk, float* pa,
-                     float* pm, float* pl, cudaStream_t st) {
+                     float softcap, int n_split, float* pa, float* pm,
+                     float* pl, int32_t* tickets, float* oa, float* om,
+                     float* ol, float* out, cudaStream_t st) {
   const int G = H / kvH;
-  if (G <= 1)
-    return run_partial<T, 1>(q, k, v, length, start, B, S, H, kvH, dh, scale,
-                             softcap, n_split, chunk, pa, pm, pl, st);
-  if (G <= 2)
-    return run_partial<T, 2>(q, k, v, length, start, B, S, H, kvH, dh, scale,
-                             softcap, n_split, chunk, pa, pm, pl, st);
-  if (G <= 4)
-    return run_partial<T, 4>(q, k, v, length, start, B, S, H, kvH, dh, scale,
-                             softcap, n_split, chunk, pa, pm, pl, st);
-  return run_partial<T, 8>(q, k, v, length, start, B, S, H, kvH, dh, scale,
-                           softcap, n_split, chunk, pa, pm, pl, st);
+#define REPRO_DECODE_RUN(MAXG)                                               \
+  return run<T, MAXG>(q, k, v, length, start, B, S, H, kvH, dh, scale,       \
+                      softcap, n_split, pa, pm, pl, tickets, oa, om, ol, out, \
+                      st)
+  if (G <= 1) REPRO_DECODE_RUN(1);
+  if (G <= 2) REPRO_DECODE_RUN(2);
+  if (G <= 4) REPRO_DECODE_RUN(4);
+  REPRO_DECODE_RUN(8);
+#undef REPRO_DECODE_RUN
 }
 
 }  // namespace
 
 // q (B,H,dh), k/v (B,S,kvH,dh), length/start (B,) int32 (start may be
 // null); dtype 0 = float32, 1 = bfloat16; dh % 8 == 0, dh <= 256,
-// H/kvH <= 8 (checked by the wrapper). Scratch part_* holds
-// (n_split, B, H[, dh]) float32. Writes out_acc/out_m/out_l and/or out
-// where they are not null.
+// H/kvH <= 8 (checked by the wrapper). With n_split > 1: scratch part_*
+// holds (n_split, B, H[, dh]) float32 and tickets (B*kvH,) int32 zeros,
+// which every launch leaves zero again. Writes out_acc/out_m/out_l
+// and/or out where they are not null, in one launch.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* length, const void* start,
                                   int dtype, int B, int S, int H, int kvH,
                                   int dh, float scale, float softcap,
-                                  int n_split, int chunk, void* part_acc,
-                                  void* part_m, void* part_l, void* out_acc,
+                                  int n_split, void* part_acc, void* part_m,
+                                  void* part_l, void* tickets, void* out_acc,
                                   void* out_m, void* out_l, void* out,
                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -316,20 +486,19 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
-  cudaError_t err =
+  int32_t* tk = static_cast<int32_t*>(tickets);
+  float* oa = static_cast<float*>(out_acc);
+  float* om = static_cast<float*>(out_m);
+  float* ol = static_cast<float*>(out_l);
+  float* o = static_cast<float*>(out);
+  const cudaError_t err =
       dtype == 1 ? dispatch<__nv_bfloat16>(q, k, v, len, sta, B, S, H, kvH,
-                                           dh, scale, softcap, n_split, chunk,
-                                           pa, pm, pl, st)
+                                           dh, scale, softcap, n_split, pa,
+                                           pm, pl, tk, oa, om, ol, o, st)
                  : dispatch<float>(q, k, v, len, sta, B, S, H, kvH, dh, scale,
-                                   softcap, n_split, chunk, pa, pm, pl, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = B * H;
-  const int threads = dh >= 256 ? 256 : ((dh + 31) / 32) * 32;
-  decode_combine_kernel<<<rows, threads, 0, st>>>(
-      pa, pm, pl, n_split, rows, dh, static_cast<float*>(out_acc),
-      static_cast<float*>(out_m), static_cast<float*>(out_l),
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+                                   softcap, n_split, pa, pm, pl, tk, oa, om,
+                                   ol, o, st);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -61,8 +61,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "attention on the card runs the flash_attention kernel over "
                 "one whole sequence (Sq == Skv, q_offset == 0); cross-chunk "
                 "prefill waits for ROADMAP Queue 1 item 12")
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=attn_softcap, scale=scale)
+        # a window is always causal, as the reference's ``_banded`` and
+        # the CPU path below are, whatever ``causal`` says
+        return flash_attention(q, k, v, causal=causal or window > 0,
+                               window=window, softcap=attn_softcap,
+                               scale=scale)
     if q.device.type != "cpu":
         raise ValueError(f"no attention path for device {q.device}")
     G = H // kvH

@@ -159,6 +159,14 @@ BWD_CASES = {
     "all_masked": (4, 3, 10, 5, "masked"),
     "d_602": (20, 25, 500, 602, "random"),
     "layer1_like": (100, 10, 2000, 256, "hub"),
+    # 16,390 edges: just above the one-block order's 16,384
+    "above_one_block": (1639, 10, 3000, 8, "hub"),
+}
+
+
+#: backward cases every row of which some edge reads (m = 1)
+BWD_FULL_CASES = {
+    "m_one": (4, 3, 1, 8, "random"),
 }
 
 
@@ -167,7 +175,7 @@ def bwd_case(name):
     gather_agg backward: zero-count dst rows, rows of h no edge reads,
     repeated sources, and a hub row that half the edges read."""
     rng = np.random.default_rng(zlib.crc32(name.encode()))
-    nd, fo, m, d, kind = BWD_CASES[name]
+    nd, fo, m, d, kind = {**BWD_CASES, **BWD_FULL_CASES}[name]
     g = rng.normal(size=(nd, d)).astype(np.float32)
     src = rng.integers(0, m, size=nd * fo).astype(np.int32)
     mask = rng.random(nd * fo) < 0.7

@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (ASSEMBLE_CASES, BWD_CASES, FLASH_ATTN_CASES,
+from _torch_cases import (ASSEMBLE_CASES, BWD_CASES, BWD_FULL_CASES,
+                          FLASH_ATTN_CASES,
                           FLASH_DECODE_CASES, GATHER_CASES, MERGE_CASES,
                           SEARCH_CASES, SORT_CASES, as_dtype, assemble_case,
                           bwd_case, flash_attn_case, flash_decode_case,
@@ -35,6 +36,32 @@ from repro_torch.kernels.flash_decode.ref import (combine,
 from repro_torch.kernels.gather_agg import ops as t_gather_ops
 from repro_torch.kernels.gather_agg.ref import gather_agg_ref as t_gather_ref
 from repro_torch.kernels.seg_sort import ops as t_sort_ops
+
+
+def device_kernels(torch_fn):
+    """The number of operations the card runs (kernels, memsets and
+    copies) a ``torch_fn()`` call: one call captured in a CUDA graph, its
+    nodes counted with libcuda's ``cuGraphGetNodes``."""
+    import ctypes
+    torch_fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        torch_fn()
+    torch.cuda.synchronize()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    ops = 0
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        ops += kind.value in (0, 1, 2)        # kernel, memcpy, memset
+    return ops
 
 
 @pytest.fixture
@@ -147,21 +174,26 @@ def test_seg_sort_kernel_equals_plain_on_card(cuda, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(BWD_CASES))
+@pytest.mark.parametrize("name", sorted({**BWD_CASES, **BWD_FULL_CASES}))
 def test_gather_agg_bwd_kernel_equals_plain_on_card(cuda, name):
     g, src, mask, m, nd, fo = bwd_case(name)
     tg, ts, tm = [t.to(cuda) for t in to_t(g, src, mask)]
     before = t_gather_ops.BWD_LAUNCHES.value
     got = t_gather_ops.gather_agg_bwd(tg, ts, tm, m=m, nd=nd, fanout=fo)
-    # the plain version on the CPU sums each row in edge order, as the
-    # kernel does (on the card its index_add_ sums in atomic order)
+    # the plain version on the CPU sums each row in edge order from +0,
+    # as the kernel does (on the card its index_add_ sums in atomic
+    # order): the same float32 quotients added in the same order
     want = t_gather_ops.gather_agg_bwd(*to_t(g, src, mask), m=m, nd=nd,
                                        fanout=fo)
     again = t_gather_ops.gather_agg_bwd(tg, ts, tm, m=m, nd=nd, fanout=fo)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.cpu(), want)     # bit for bit
     assert torch.equal(got, again)          # deterministic: no atomics
     assert t_gather_ops.BWD_LAUNCHES.value == before + 2
+    if name == "layer1_like":
+        n = device_kernels(lambda: t_gather_ops.gather_agg_bwd(
+            tg, ts, tm, m=m, nd=nd, fanout=fo))
+        assert 1 <= n <= 3, n
 
 
 @pytest.mark.gpu
@@ -311,6 +343,80 @@ def test_flash_decode_combine_over_shards_on_card(cuda):
     torch.testing.assert_close(m, full[1], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(finalize(acc, l), finalize(full[0], full[2]),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_decode_at_the_decode_loop_shape_on_card(cuda):
+    """gemma2-2b's decode loop: B=8, 8 q heads over 4 kv heads, dh 256, a
+    48-slot bfloat16 cache filled to lengths 16..47, softcap 50: one
+    launch and one kernel on the card a call, within the reference's
+    tolerance of the plain version (float32 outputs)."""
+    gen = torch.Generator().manual_seed(48)
+    B, H, kvH, dh, S = 8, 8, 4, 256, 48
+    for lens in torch.arange(16, 48, dtype=torch.int32).reshape(4, B):
+        q = torch.randn((B, H, dh), generator=gen).to(cuda, torch.bfloat16)
+        k, v = (torch.randn((B, S, kvH, dh), generator=gen)
+                .to(cuda, torch.bfloat16) for _ in range(2))
+        ln, st = lens.to(cuda), torch.zeros(B, dtype=torch.int32,
+                                            device=cuda)
+        before = t_fd_ops.LAUNCHES.value
+        got = t_fd_ops.flash_decode_batched(q, k, v, ln, st, softcap=50.0)
+        acc, m, l = flash_decode_batched_ref(q, k, v, ln, st, softcap=50.0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, finalize(acc, l), rtol=1e-4,
+                                   atol=1e-5)
+        assert t_fd_ops.LAUNCHES.value == before + 1
+        assert device_kernels(lambda: t_fd_ops.flash_decode_batched(
+            q, k, v, ln, st, softcap=50.0)) == 1
+
+
+@pytest.mark.gpu
+def test_flash_decode_ragged_long_cache_on_card(cuda):
+    """A long cache with ragged lengths and starts (0, 1, S, a window,
+    start == length), split over the card: one kernel a call, the same
+    bits on a second run whichever block combines, and within the
+    reference's tolerance of the plain version."""
+    gen = torch.Generator().manual_seed(7)
+    B, H, kvH, dh, S = 8, 4, 2, 128, 16384
+    q = torch.randn((B, H, dh), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, S, kvH, dh), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    ln = torch.tensor([S, 1, 0, 1000, S // 2, S, 3, S - 1],
+                      dtype=torch.int32, device=cuda)
+    st = torch.tensor([0, 0, 0, 999, S // 2 - 4096, S - 4096, 3, 1],
+                      dtype=torch.int32, device=cuda)
+    got = t_fd_ops.flash_decode_batched(q, k, v, ln, st, softcap=50.0)
+    again = t_fd_ops.flash_decode_batched(q, k, v, ln, st, softcap=50.0)
+    parts = t_fd_ops.flash_decode(q[0], k[0], v[0], ln[0], st[0],
+                                  softcap=50.0)
+    parts2 = t_fd_ops.flash_decode(q[0], k[0], v[0], ln[0], st[0],
+                                   softcap=50.0)
+    acc, m, l = flash_decode_batched_ref(q, k, v, ln, st, softcap=50.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert all(torch.equal(a, b) for a, b in zip(parts, parts2))
+    torch.testing.assert_close(got, finalize(acc, l), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(parts[1], m[0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(parts[2], l[0], rtol=1e-4, atol=1e-5)
+    assert bool((got[2] == 0).all()) and bool((got[6] == 0).all())
+    assert device_kernels(lambda: t_fd_ops.flash_decode_batched(
+        q, k, v, ln, st, softcap=50.0)) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [1, 16, 100])
+def test_noncausal_windowed_attention_on_card_equals_cpu(cuda, window):
+    """``attention(causal=False, window>0)``: a window is always causal,
+    on the card as in the reference's ``_banded`` and the CPU path."""
+    from repro_torch.models.transformer.attention import attention
+    gen = torch.Generator().manual_seed(window)
+    q = torch.randn((2, 70, 4, 64), generator=gen)
+    k, v = (torch.randn((2, 70, 2, 64), generator=gen) for _ in range(2))
+    kw = dict(causal=False, window=window, attn_softcap=50.0)
+    got = attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    want = attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), want, **_tol("float32"))
 
 
 @pytest.mark.gpu

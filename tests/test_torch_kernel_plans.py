@@ -1,0 +1,262 @@
+"""The work plans of two CUDA kernels, emulated on the CPU and held
+against the JAX package and the port's plain versions.
+
+The kernels themselves run only on the card; what is tested here is the
+arithmetic their designs commit to, so that a fault in the plan shows
+without a GPU.
+
+``gather_agg`` backward. Up to ``ONE_BLOCK_EDGES`` edges one block
+counts each source's unmasked edges, scans the counts into each row's
+run, and places each edge's (dst row, count) pair in its run at a slot
+an integer atomic hands out, so in no fixed order; above that size
+``seg_sort`` orders the edges (masked ones, key ``INT32_MAX``, last) and
+the pairs land in edge order. Either way the row sums first put each
+run in ascending dst row (a bitonic sort across a warp's lanes for a run
+of at most 32 edges, a count over dst rows for a hub row), which is edge
+order because the edges are dst-major, and then add g[i] / count[i] in
+that order from +0. The emulation below places the pairs in a random order within each
+run (two different ones), as the atomics may. The runs put in dst order
+must equal the stable sort by source with masked edges last; the row
+sums must equal ``gather_agg_bwd_ref`` on the CPU bit for bit (both add
+the same float32 quotients in edge order), whatever the placement, and
+``jax.vjp`` through the JAX ``gather_agg`` (Pallas kernel in interpret
+mode) within the reference's cross-program tolerance ``rtol=1e-4,
+atol=1e-5`` (XLA's ``segment_sum`` adds in its own order).
+
+``flash_decode``. Each element's valid range ``[start, length)`` is cut
+into ``plan_splits`` equal parts (``split_range``), each part's (acc, m,
+l) partials are taken, and the parts are combined in split order 0..n-1,
+as the kernel's last block does. The normalised output, m and l must be
+within ``rtol=1e-4, atol=1e-5`` (float32 outputs summed in another
+order) of the Pallas kernel in interpret mode and of
+``flash_decode_batched_ref``.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from _torch_cases import (BWD_CASES, BWD_FULL_CASES, FLASH_DECODE_CASES,
+                          SENTINEL, as_dtype, bwd_case, flash_decode_case,
+                          to_t)
+from repro.kernels.flash_decode.flash_decode import DEFAULT_TS
+from repro.kernels.flash_decode.ops import flash_decode as j_flash_decode
+from repro.kernels.gather_agg.ops import gather_agg as j_gather_agg
+from repro_torch.kernels.flash_decode.flash_decode import (plan_splits,
+                                                           split_range)
+from repro_torch.kernels.flash_decode.ref import (combine,
+                                                  flash_decode_batched_ref)
+from repro_torch.kernels.gather_agg.ops import (ONE_BLOCK_EDGES,
+                                                ONE_BLOCK_ROWS, one_block)
+from repro_torch.kernels.gather_agg.ref import gather_agg_bwd_ref
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+#: the H100's multiprocessors, for the split plan
+H100_SMS = 132
+
+ALL_BWD = sorted({**BWD_CASES, **BWD_FULL_CASES})
+
+
+# ---------------------------------------------------------------------------
+# gather_agg backward: the by-source order and the ordered row sums
+# ---------------------------------------------------------------------------
+
+def placed_runs(src, mask, m, fanout, seed):
+    """(begin, end) of each row and the dst rows of the placed pairs, as
+    the backward leaves them on the card: the one-block route's counting
+    placement in a random order within each run, or the seg_sort route's
+    edge order."""
+    n = src.size
+    valid = mask & (src >= 0) & (src < m)
+    counts = np.bincount(src[valid], minlength=m)
+    begin = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    if one_block(n, m):
+        rng = np.random.default_rng(seed)
+        order = np.flatnonzero(valid)[rng.permutation(int(valid.sum()))]
+        order = order[np.argsort(src[order], kind="stable")]
+    else:
+        keys = np.where(mask, src, SENTINEL).astype(np.int64)
+        order = np.argsort(keys, kind="stable")[:int(valid.sum())]
+    return begin, begin + counts, order // fanout
+
+
+def runs_in_dst_order(begin, end, dst_rows):
+    """Each run's dst rows in ascending order, as the row sums take them
+    (a bitonic sort for a short run, a count for a long one: both give
+    the sorted multiset)."""
+    return [np.sort(dst_rows[b:e], kind="stable") for b, e in zip(begin, end)]
+
+
+def ordered_row_sums(g, mask, nd, fo, runs):
+    """dh (m, d): each run summed from +0 in float32, one quotient at a
+    time in the order given, as the kernel's lanes add them."""
+    cnt = np.maximum(mask.reshape(nd, fo).sum(1), 1).astype(np.float32)
+    quot = g / cnt[:, None]                                # float32
+    dh = np.zeros((len(runs), g.shape[1]), np.float32)
+    length = np.array([r.size for r in runs])
+    if length.size == 0:
+        return dh
+    for step in range(length.max(initial=0)):
+        rows = np.flatnonzero(length > step)
+        dh[rows] = dh[rows] + quot[[runs[r][step] for r in rows]]
+    return dh
+
+
+def _jax_vjp(g, src, mask, m, nd, fo):
+    rng = np.random.default_rng(m + nd)
+    h = rng.normal(size=(m, g.shape[1])).astype(np.float32)
+    _, vjp = jax.vjp(lambda hh: j_gather_agg(
+        hh, jnp.asarray(src), jnp.asarray(mask), nd=nd, fanout=fo,
+        use_kernel=True, interpret=True), jnp.asarray(h))
+    return np.asarray(vjp(jnp.asarray(g))[0])
+
+
+@pytest.mark.parametrize("name", ALL_BWD)
+def test_backward_runs_are_the_stable_sort_by_source(name):
+    g, src, mask, m, nd, fo = bwd_case(name)
+    key = np.where(mask, src, m)
+    stable = np.argsort(key, kind="stable")
+    stable = stable[key[stable] < m]                        # masked last
+    for seed in (0, 1):
+        begin, end, dst_rows = placed_runs(src, mask, m, fo, seed)
+        runs = runs_in_dst_order(begin, end, dst_rows)
+        assert np.array_equal(np.concatenate(runs + [np.zeros(0, int)]),
+                              stable // fo)
+        assert np.array_equal(end - begin, np.bincount(src[mask],
+                                                       minlength=m))
+
+
+@pytest.mark.parametrize("name", ALL_BWD)
+def test_backward_row_sums_equal_plain_version_and_jax(name):
+    g, src, mask, m, nd, fo = bwd_case(name)
+    plain = gather_agg_bwd_ref(*to_t(g, src, mask), m, nd, fo).numpy()
+    sums = [ordered_row_sums(g, mask, nd, fo, runs_in_dst_order(
+        *placed_runs(src, mask, m, fo, seed))) for seed in (0, 1)]
+    for dh in sums:
+        np.testing.assert_array_equal(dh, plain)
+    np.testing.assert_allclose(sums[0], _jax_vjp(g, src, mask, m, nd, fo),
+                               **TOL)
+
+
+def test_backward_routes_by_size():
+    """The path's shape (10,000 edges into 21,093 rows) and every case
+    up to 16,384 edges take the one-block order; more edges, or more
+    than 32,768 rows, take seg_sort."""
+    assert one_block(10_000, 21_093)
+    assert one_block(ONE_BLOCK_EDGES, ONE_BLOCK_ROWS)
+    assert not one_block(ONE_BLOCK_EDGES + 1, 1)
+    assert not one_block(3, ONE_BLOCK_ROWS + 1)
+    for name in ALL_BWD:
+        _, _, _, m, nd, fo = bwd_case(name)
+        assert one_block(nd * fo, m) == (nd * fo <= ONE_BLOCK_EDGES)
+    hub = bwd_case("hub")
+    assert np.bincount(hub[1][hub[2]]).max() > 300           # a hub row
+    assert bwd_case("all_masked")[2].sum() == 0
+
+
+# ---------------------------------------------------------------------------
+# flash_decode: each element's own range cut into splits, combined in order
+# ---------------------------------------------------------------------------
+
+def split_partials(q, k, v, length, start, softcap, n_split):
+    """The kernel's plan on the plain version: (acc, m, l) of every split
+    of every element's valid range, combined in split order."""
+    B, S = k.shape[0], k.shape[1]
+    parts = []
+    for sp in range(n_split):
+        cut = [split_range(int(start[b]), int(length[b]), S, n_split, sp)
+               for b in range(B)]
+        lo = torch.tensor([c[0] for c in cut], dtype=torch.int32)
+        hi = torch.tensor([c[1] for c in cut], dtype=torch.int32)
+        parts.append(flash_decode_batched_ref(q, k, v, hi, lo,
+                                              softcap=softcap))
+    return combine(parts)
+
+
+def _pallas(q, k, v, length, start, softcap):
+    """The Pallas kernel in interpret mode, element by element, on a cache
+    padded with zeros to its tile (positions past ``length`` are never
+    valid, so the padding changes nothing)."""
+    B, S = k.shape[0], k.shape[1]
+    ts = min(DEFAULT_TS, S)
+    pad = -S % ts
+    kp, vp = (np.pad(np.asarray(x.float()), ((0, 0), (0, pad), (0, 0),
+                                               (0, 0))) for x in (k, v))
+    jdt = jnp.bfloat16 if q.dtype == torch.bfloat16 else jnp.float32
+    outs = [j_flash_decode(jnp.asarray(q[b].float().numpy()).astype(jdt),
+                           jnp.asarray(kp[b]).astype(jdt),
+                           jnp.asarray(vp[b]).astype(jdt),
+                           jnp.asarray(length[b], jnp.int32),
+                           jnp.asarray(start[b], jnp.int32), softcap=softcap,
+                           use_kernel=True, interpret=True)
+            for b in range(B)]
+    return [np.stack([np.asarray(o[i]) for o in outs]) for i in range(3)]
+
+
+def _normalised(acc, m, l):
+    """(acc / max(l, 1e-30), m, l) as float64 numpy."""
+    acc, m, l = (np.asarray(x, np.float64) for x in (acc, m, l))
+    return acc / np.maximum(l, 1e-30)[..., None], m, l
+
+
+def _check(q, k, v, length, start, softcap, n_splits):
+    """acc is compared normalised, as ``finalize`` gives it: it is a sum
+    of up to 20,000 terms p * v with p <= 1, so its rounding grows with
+    l, and an absolute 1e-5 on it would hold the order of a long sum, not
+    the plan (the plain version and the Pallas kernel themselves differ
+    by 2.7e-5 in acc where l is 825). m and l are compared as they are."""
+    want = flash_decode_batched_ref(q, k, v, torch.from_numpy(length),
+                                    torch.from_numpy(start), softcap=softcap)
+    refs = [_normalised(*want),
+            _normalised(*_pallas(q, k, v, length, start, softcap))]
+    for n_split in n_splits:
+        got = _normalised(*split_partials(q, k, v, length, start, softcap,
+                                          n_split))
+        for ref in refs:
+            for a, b in zip(got, ref):
+                np.testing.assert_allclose(a, b, **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_DECODE_CASES))
+def test_flash_decode_split_plan_matches_pallas_and_plain(name):
+    qn, kn, vn, length, start, cap, dtype = flash_decode_case(name)
+    q, k, v = (as_dtype(x, dtype) for x in (qn, kn, vn))
+    B, S, kvH = k.shape[0], k.shape[1], k.shape[2]
+    plan = plan_splits(B * kvH, S, H100_SMS)
+    _check(q, k, v, length, start, cap, sorted({1, plan, 7}))
+
+
+def test_flash_decode_split_plan_at_the_decode_loop_shape():
+    """gemma2-2b's decode loop: B=8, 8 q heads over 4 kv heads, dh 256,
+    a 48-slot bfloat16 cache filled to lengths 16..47 (one split)."""
+    rng = np.random.default_rng(48)
+    B, H, kvH, dh, S = 8, 8, 4, 256, 48
+    assert plan_splits(B * kvH, S, H100_SMS) == 1
+    for lens in np.arange(16, 48, dtype=np.int32).reshape(4, B):
+        q, k, v = (as_dtype(rng.normal(size=shape).astype(np.float32),
+                            "bfloat16")
+                   for shape in ((B, H, dh), (B, S, kvH, dh),
+                                 (B, S, kvH, dh)))
+        _check(q, k, v, lens, np.zeros(B, np.int32), 50.0, (1, 3))
+
+
+def test_flash_decode_split_ranges_cover_each_element_once():
+    """The splits of [start, length) are disjoint, in order, cover it,
+    and differ in size by at most one chunk's remainder; an empty or
+    inverted range gives empty splits."""
+    for start, length, S, n_split in ((0, 32768, 32768, 17),
+                                      (999, 1000, 32768, 17),
+                                      (5, 3, 8, 4), (0, 0, 1, 1),
+                                      (-3, 40, 32, 5), (28672, 32768, 32768,
+                                                        17)):
+        cuts = [split_range(start, length, S, n_split, sp)
+                for sp in range(n_split)]
+        lo_b, hi_b = max(start, 0), min(length, S)
+        covered = [p for lo, hi in cuts for p in range(lo, hi)]
+        assert covered == list(range(lo_b, max(hi_b, lo_b)))
+        sizes = [hi - lo for lo, hi in cuts]
+        assert max(sizes) == -(-max(hi_b - lo_b, 0) // n_split)
+    # the long cache of the card's check: 64 (b, kv head) pairs, 17 splits
+    assert plan_splits(64, 32768, H100_SMS) == 17
