@@ -111,6 +111,20 @@ def check(family: str, kernel: str, err: int) -> None:
                            f"error {err} ({msg})")
 
 
+_sms: Dict[int, int] = {}
+
+
+def multiprocessors(device) -> int:
+    """The streaming multiprocessors of the CUDA ``device`` (cached)."""
+    import torch
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _sms[idx]
+
+
 def stream_handle(device) -> ctypes.c_void_p:
     """PyTorch's current CUDA stream on ``device`` as a C pointer."""
     import torch

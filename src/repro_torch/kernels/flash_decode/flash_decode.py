@@ -22,7 +22,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import check, library, stream_handle
+from repro_torch.kernels._build import (check, library, multiprocessors,
+                                        stream_handle)
 
 FAMILY = "flash_decode"
 
@@ -37,7 +38,6 @@ _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
          + [ctypes.c_float, ctypes.c_float, ctypes.c_int]
          + [ctypes.c_void_p] * 9)
 
-_sms = {}
 #: the split tickets of each card: int32 zeros that every launch leaves
 #: zero again (so calls on one stream at a time, as the port makes them)
 _tickets = {}
@@ -66,12 +66,7 @@ def split_range(start: int, length: int, S: int, n_split: int,
 
 def split_plan(pairs: int, S: int, device: torch.device) -> int:
     """``plan_splits`` for the card ``device``."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _sms:
-        _sms[idx] = torch.cuda.get_device_properties(idx) \
-            .multi_processor_count
-    return plan_splits(pairs, S, _sms[idx])
+    return plan_splits(pairs, S, multiprocessors(device))
 
 
 def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:

@@ -5,9 +5,12 @@ the fan-out-regular, dst-major masked mean ``h (m, d)``,
 ``edge_src/edge_mask (nd*fanout,)`` -> ``(nd, d)``, the sum of the
 ``fanout`` rows divided by ``max(count, 1)``. Bound on the card: bytes,
 the distinct source rows the unmasked edges reference, read once, plus
-the (nd, d) output. The design reads rows as coalesced column streams,
-skips masked edges' rows and sums in order with no atomics, so the
-result is deterministic.
+the (nd, d) output and the edge lists. One launch: a warp owns a dst row
+(or a slice of its columns where the rows alone leave the card
+under-filled), loads its edge ids and mask bytes once, and sums the
+unmasked edges' rows as float4/float2/float vectors in edge order from
++0, several edges' row loads in flight ahead of their adds, with no
+atomics, so the result is deterministic and bit-equal to ``ref.py``.
 
 ``gather_agg`` is differentiable in ``h``, as the JAX kernel's custom
 VJP (``repro/kernels/gather_agg/ops.py:27``) makes it: the backward is

@@ -12,8 +12,12 @@ CPU tensors (or ``interpret=True``) take the plain version in ``ref.py``
 raise. There is no size limit and no fallback on the card: the TPU
 kernel's VMEM bound ``MAX_VMEM_N`` has no counterpart in HBM.
 
-Bound on the card: bytes, each key read and written once per 8-bit pass
-(the kernel reads it twice), and the payload likewise.
+On the card a call is ``1 + passes`` launches (``seg_sort.passes``, 3
+passes for 20-bit keys): a histogram of every pass's digits, then one
+one-sweep launch a pass, each tile finding its offsets by a decoupled
+look-back over the tiles before it. Bound: bytes, each key (and payload)
+read once and written once; the design reads the keys ``1 + passes``
+times and writes them ``passes`` times.
 """
 from __future__ import annotations
 

@@ -1,59 +1,92 @@
-"""``ctypes`` binding of the CUDA radix sort (``csrc/radix_sort.cu``).
+"""``ctypes`` binding of the CUDA one-sweep radix sort
+(``csrc/radix_sort.cu``).
 
 Replaces the TPU kernel ``repro/kernels/seg_sort/seg_sort.py``
 ``_radix_pass_kernel`` / ``radix_sort``, which keeps the whole key
 vector in VMEM (at most 2^19 keys) and runs one grid step per 4-bit
-pass. Here the keys stay in HBM: each 8-bit pass is a per-block digit
-histogram, a per-digit exclusive scan of those counts and a stable
-scatter at offsets in (digit, block) order, with no atomics and no size
-limit. Bound: bytes, the keys read
-twice and written once per pass, the payload read and written once.
+pass. Here the keys stay in HBM and a call is ``1 + passes(num_bits)``
+launches: one reads the keys once and counts every 8-bit pass's digits
+into a per-card histogram with integer atomics; then one launch a pass
+ranks each tile of ``TILE`` keys stably (``THREADS`` threads, each warp
+a contiguous run of ``32 * ROUNDS`` keys), finds the tile's offsets by
+a decoupled look-back over the earlier tiles' published digit counts
+(``LOOKBACK`` status words a step), and writes the tile in sorted
+order.
+No size limit. Bound: bytes, each key read and written once; the
+design's own floor reads the keys once more for the histograms,
+``4 * (1 + 2 * passes)`` bytes a key.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels._build import check, library, stream_handle
+from repro_torch.kernels._build import (check, library, multiprocessors,
+                                        stream_handle)
 
 FAMILY = "seg_sort"
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p]
+#: the kernel's plan (csrc/radix_sort.cu): threads a block and keys a
+#: thread (a tile), status words a look-back step reads
+THREADS = 256
+ROUNDS = 16
+TILE = THREADS * ROUNDS
+LOOKBACK = 4
+DIGIT_BITS = 8
+
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+#: per card: the global digit histogram, int32 zeros that every call
+#: leaves zero again (so calls on one stream at a time, as the port makes
+#: them)
+_hist: Dict[int, torch.Tensor] = {}
 
 
-def scratch_len(n: int) -> int:
-    """int32 entries of the digit-count scratch for ``n`` keys."""
-    fn = library(FAMILY).repro_radix_sort_scratch_len
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_longlong
-    return int(fn(n))
+def passes(num_bits: int) -> int:
+    """8-bit passes over ``num_bits``-bit keys plus the bit that ranks
+    every key at or above ``2^num_bits`` last."""
+    return -(-min(num_bits + 1, 32) // DIGIT_BITS)
+
+
+def _hist_buffer(device: torch.device) -> torch.Tensor:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _hist:
+        fn = library(FAMILY).repro_radix_sort_hist_len
+        fn.restype = ctypes.c_int
+        _hist[idx] = torch.zeros(fn(), dtype=torch.int32, device=device)
+    return _hist[idx]
 
 
 def launch_radix_sort(keys: torch.Tensor, payload: Optional[torch.Tensor],
                       keys_out: torch.Tensor,
                       payload_out: Optional[torch.Tensor],
                       num_bits: int) -> None:
-    """Enqueue the passes on the current stream; inputs pre-checked by
+    """Enqueue the launches on the current stream; inputs pre-checked by
     the wrapper (n >= 1, 1 <= num_bits <= 31, int32 contiguous, one
-    device). Scratch comes from PyTorch's allocator."""
+    device). Scratch (the look-back status words, the tile tickets and a
+    ping-pong copy of keys and payload) comes from PyTorch's allocator."""
     n = keys.shape[0]
+    lib = library(FAMILY)
+    size = lib.repro_radix_sort_scratch_bytes
+    size.argtypes = [ctypes.c_int, ctypes.c_int]
+    size.restype = ctypes.c_longlong
+    scratch = torch.empty(-(-size(n, num_bits) // 8), dtype=torch.int64,
+                          device=keys.device)
     keys_tmp = torch.empty_like(keys)
     pay_tmp = None if payload is None else torch.empty_like(payload)
-    scratch = torch.empty(scratch_len(n), dtype=torch.int32,
-                          device=keys.device)
+    hist = _hist_buffer(keys.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
-    fn = library(FAMILY).repro_radix_sort
+    fn = lib.repro_radix_sort
     fn.argtypes = _ARGS
     fn.restype = ctypes.c_int
     with torch.cuda.device(keys.device):
         err = fn(keys.data_ptr(), ptr(payload), keys_out.data_ptr(),
                  ptr(payload_out), keys_tmp.data_ptr(), ptr(pay_tmp),
-                 scratch.data_ptr(), n, num_bits,
-                 stream_handle(keys.device))
+                 scratch.data_ptr(), hist.data_ptr(), n, num_bits,
+                 multiprocessors(keys.device), stream_handle(keys.device))
     check(FAMILY, "radix_sort", err)

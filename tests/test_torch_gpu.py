@@ -112,6 +112,51 @@ def test_gather_agg_kernel_equals_plain_on_card(cuda, name):
     assert t_gather_ops.LAUNCHES.value == before + 1
 
 
+GATHER_PLAN_CASES = {
+    # name: (nd, fanout, m, d, floats h starts past an aligned address):
+    # each vector width, a row's columns split over warps (few rows) or not
+    # (many), fan-outs above 32 (loaded in rounds), one dst row
+    "d256_float4_split": (1000, 10, 3000, 256, 0),
+    "d256_float2": (1000, 10, 3000, 256, 2),
+    "d256_float": (1000, 10, 3000, 256, 1),
+    "d256_many_rows": (6000, 10, 3000, 256, 0),
+    "d602_training_layer0": (4777, 25, 21093, 602, 0),
+    "d602_float_nd1": (1, 25, 30, 602, 1),
+    "d3_fo50": (7, 50, 40, 3, 0),
+    "d130_fo33": (2, 33, 10, 130, 0),
+    "d1_fo1": (5, 1, 5, 1, 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(GATHER_PLAN_CASES))
+def test_gather_agg_plan_edges_on_card(cuda, name):
+    """The forward's plan at its edges: bit-equal to the plain version and
+    to a second run, one card operation a call."""
+    from repro_torch.kernels.gather_agg.gather_agg import vec_width
+    nd, fo, m, d, off = GATHER_PLAN_CASES[name]
+    rng = np.random.default_rng(len(name) + nd)
+    flat = torch.empty(m * d + off, device=cuda)
+    flat[off:] = torch.from_numpy(rng.normal(size=m * d).astype(np.float32))
+    th = flat[off:].view(m, d)
+    ts = torch.from_numpy(rng.integers(0, m, size=nd * fo).astype(np.int32))
+    mask = rng.random(nd * fo) < 0.7
+    mask[:fo] = False                       # a fully masked row
+    ts, tm = ts.to(cuda), torch.from_numpy(mask).to(cuda)
+    want_vec = 4 if d % 4 == 0 and off % 4 == 0 else \
+        2 if d % 2 == 0 and off % 2 == 0 else 1
+    assert vec_width(d, th.data_ptr(), 0) == want_vec
+    before = t_gather_ops.LAUNCHES.value
+    got = t_gather_ops.gather_agg(th, ts, tm, nd=nd, fanout=fo)
+    again = t_gather_ops.gather_agg(th, ts, tm, nd=nd, fanout=fo)
+    want = t_gather_ref(th, ts, tm, nd, fo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert t_gather_ops.LAUNCHES.value == before + 2
+    assert device_kernels(lambda: t_gather_ops.gather_agg(
+        th, ts, tm, nd=nd, fanout=fo)) == 1
+
+
 @pytest.mark.gpu
 def test_service_on_card_matches_oracle_and_cpu(cuda):
     """The serving slice on ``cuda`` at a small size: uncached then fresh
@@ -171,6 +216,47 @@ def test_seg_sort_kernel_equals_plain_on_card(cuda, name):
     assert torch.equal(sk, wk)
     assert (sp is None and wp is None) or torch.equal(sp, wp)
     assert t_sort_ops.LAUNCHES.value == before + (1 if keys.size else 0)
+
+
+SORT_TILE_CASES = {
+    # name: (n, num_bits, payload); a tile is 4,096 keys
+    "tile_minus_one": (4095, 20, True),
+    "tile": (4096, 20, False),
+    "tile_plus_one": (4097, 20, True),
+    "two_tiles_plus_one_bits_31": (8193, 31, True),
+    "many_tiles_bits_3": (3 * 4096 + 5, 3, True),
+    "bits_1": (5000, 1, False),
+    "all_equal": (10000, 20, True),
+    "two_to_20_plus_3": (2 ** 20 + 3, 20, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SORT_TILE_CASES))
+def test_seg_sort_tiles_on_card(cuda, name):
+    """Across tile boundaries, with sentinels between real keys: bit-equal
+    to the plain version and to a second run, payload included, in at
+    most 1 + passes card operations a call."""
+    from repro_torch.kernels.seg_sort.seg_sort import passes
+    n, num_bits, with_payload = SORT_TILE_CASES[name]
+    rng = np.random.default_rng(n + num_bits)
+    keys = rng.integers(0, 1 << num_bits, size=n).astype(np.int32)
+    if name == "all_equal":
+        keys[:] = 3
+    keys[rng.random(n) < 0.3] = 2 ** 31 - 1
+    tk = torch.from_numpy(keys).to(cuda)
+    tp = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(cuda) \
+        if with_payload else None
+    sk, sp = t_sort_ops.seg_sort(tk, tp, num_bits=num_bits)
+    ak, ap = t_sort_ops.seg_sort(tk, tp, num_bits=num_bits)
+    wk, wp = t_sort_ops.seg_sort(tk, tp, num_bits=num_bits, interpret=True)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, wk) and torch.equal(sk, ak)
+    assert (sp is None and wp is None) or (torch.equal(sp, wp)
+                                           and torch.equal(sp, ap))
+    n_ops = device_kernels(lambda: t_sort_ops.seg_sort(
+        tk, tp, num_bits=num_bits))
+    assert n_ops <= 1 + passes(num_bits), n_ops
 
 
 @pytest.mark.gpu
