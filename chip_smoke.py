@@ -106,6 +106,28 @@ Phases (any failure raises, so the exit code is non-zero):
    mixed dtypes, -1 and sentinel queries through ``cache_lookup``), all
    bit-exact, timed with CUDA-graph replays.
 
+8. The multi-epoch runner: ``DeviceRapidGNNRunner`` over 3 epochs of
+   the same 4 workers and width (``sage("reddit_sim", 1000)``, n_hot
+   4096), staging epoch e+1 on a background thread while epoch e trains
+   and swapping C_sec in at the boundary. (a) ``fused``, numpy
+   schedules, flat, twice: ``trace_count`` 1, host parity on every
+   epoch, the two curves and final weights bit-identical, the first 3
+   losses within ``rtol=1e-4, atol=1e-5`` of the same steps on the CPU.
+   (b) Lazy schedules compiled on the card (``compiler="device"``), so
+   the staging thread launches ``seg_sort``: the curve bit-equal to
+   (a), ``seg_sort`` launched. (c) ``DeviceBaselineRunner``: lanes never
+   fewer than (a)'s, the curve bit-equal. (d) (a) on topology ``2x2``:
+   the curve bit-equal, the tier lanes adding up to (a)'s and the tier
+   wire rows to the run's own. (e) (a) checkpointed after epoch 1 into a
+   run state, resumed by a fresh runner over [1, 3): the stitched curve
+   and final weights bit-equal. (f) (a) under the ``cache-loss`` fault
+   profile: epoch 1 degraded (``cache_lost``), the curve bit-equal,
+   ``trace_count`` at most 2. Launch counts are set to 0 before each
+   run and read after it. Prints per run and epoch the training ms a
+   step, wall, ``stage_s``, ``exposed_stage_s``, the boundary copy,
+   miss lanes and wire rows (and their tier split), each run's launches
+   and peak memory.
+
 Output: one ``kernel {...}`` line per kernel, the card's name and power
 limit, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -2283,6 +2305,286 @@ def merge_kernel_row(torch, device, dist_in, emb_in, launches):
                             "bound_ms": shapes[1]["bound"][0]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the multi-epoch runner (C_s/C_sec swap, staging thread, run states)
+# ---------------------------------------------------------------------------
+
+RUNNER_EPOCHS = 3
+
+
+def runner_world(torch, device, g, pg):
+    """The paper's GraphSAGE on all PARTS workers for RUNNER_EPOCHS
+    epochs: schedules from the numpy compiler, and lazy ones compiled on
+    the card (rebuilt by the runner's staging thread)."""
+    from repro_torch.configs.rapidgnn_paper import sage
+    from repro_torch.core import build_schedule
+    from repro_torch.dist import DeviceView
+    from repro_torch.graph import KHopSampler
+    from repro_torch.models.gnn import GNNConfig
+
+    exp = sage(DATASET, TRAIN_BATCH, workers=PARTS, epochs=RUNNER_EPOCHS)
+    sampler = KHopSampler(g, fanouts=list(exp.fanouts),
+                          batch_size=exp.batch_size)
+    cfg = GNNConfig(kind=exp.model, in_dim=g.feat_dim,
+                    hidden_dim=exp.hidden_dim, num_classes=g.num_classes,
+                    num_layers=exp.num_layers, fanouts=tuple(exp.fanouts),
+                    agg_backend="kernel")
+    t0 = time.perf_counter()
+    eager = [build_schedule(sampler, pg, worker=w, s0=exp.s0,
+                            num_epochs=RUNNER_EPOCHS, n_hot=exp.n_hot)
+             for w in range(PARTS)]
+    t1 = time.perf_counter()
+    lazy = [build_schedule(sampler, pg, worker=w, s0=exp.s0,
+                           num_epochs=RUNNER_EPOCHS, n_hot=exp.n_hot,
+                           compiler="device", lazy=True, device=device)
+            for w in range(PARTS)]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"runner world: {PARTS} workers x {RUNNER_EPOCHS} epochs, batch "
+        f"{exp.batch_size}, n_hot {exp.n_hot}; schedules numpy "
+        f"{t1 - t0:.2f} s, lazy on the card (metadata prepass) "
+        f"{t2 - t1:.2f} s")
+    return {"exp": exp, "cfg": cfg, "g": g, "pg": pg, "eager": eager,
+            "lazy": lazy, "dv": DeviceView.build(pg)}
+
+
+def runner_make(w, device, kind="rapid", layout="flat", lazy=False, **kw):
+    from repro_torch.dist import (DeviceBaselineRunner, DeviceRapidGNNRunner,
+                                  Topology, make_mesh)
+    from repro_torch.train import AdamW
+
+    topo = Topology.parse(layout, PARTS)
+    mesh = (topo.make_mesh(device) if topo.is_hierarchical
+            else make_mesh((PARTS,), ("data",), device=device))
+    cls = DeviceRapidGNNRunner if kind == "rapid" else DeviceBaselineRunner
+    return cls(w["lazy" if lazy else "eager"], w["dv"], w["cfg"],
+               AdamW(lr=TRAIN_LR), mesh, w["exp"].batch_size, w["g"].labels,
+               seed=w["exp"].s0, assemble_backend="fused", topology=topo,
+               **kw)
+
+
+def runner_drive(torch, runner, counters, **run_kw):
+    """One run with every launch count set to 0 just before it and read
+    just after -> (reports, launches, peak device bytes the run added to
+    what was allocated when it started)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for c in counters:
+        c.reset()
+    reports = runner.run(**run_kw)
+    torch.cuda.synchronize()
+    return (reports, {c.name: c.value for c in counters},
+            torch.cuda.max_memory_allocated() - held)
+
+
+def runner_epochs(reports):
+    """Per epoch: train ms a step (the epoch's wall less the boundary
+    copy and the exposed staging), wall, staging, copy, lanes, wires."""
+    return [{"epoch": r.epoch,
+             "train_ms_per_step": 1e3 * (r.wall_time_s - r.copy_s
+                                         - r.exposed_stage_s) / r.steps,
+             "wall_time_s": r.wall_time_s, "stage_s": r.stage_s,
+             "exposed_stage_s": r.exposed_stage_s,
+             "copy_ms": 1e3 * r.copy_s,
+             "miss_lanes": r.miss_lanes.tolist(),
+             "wire_rows": int(r.wire_rows),
+             "intra_wire_rows": int(r.intra_wire_rows),
+             "inter_wire_rows": int(r.inter_wire_rows),
+             "degraded": r.degrade_reason or None} for r in reports]
+
+
+def runner_cpu_losses(torch, w, runner):
+    """The first CPU_LOSS_STEPS steps of epoch 0, collated to the
+    runner's bounds, through the port's pipelined epoch on the CPU."""
+    from repro_torch.dist import (collate_device_epoch, make_mesh,
+                                  make_pipelined_epoch, stack_caches)
+    from repro_torch.models.gnn import init_params
+    from repro_torch.train import AdamW
+
+    cpu = torch.device("cpu")
+    dv, exp = w["dv"], w["exp"]
+    es = [ws.epoch(0) for ws in w["eager"]]
+    caches = [dv.remap_cache(e.cache_ids) for e in es]
+    batches = collate_device_epoch(es, caches, dv, w["g"].labels,
+                                   exp.batch_size, runner.m_max,
+                                   runner.edge_max, runner.k_max,
+                                   runner.num_steps)
+    cids, cfeats = stack_caches(caches, dv, runner.n_hot)
+    params = init_params(w["cfg"], torch.Generator().manual_seed(exp.s0),
+                         cpu)
+    opt = AdamW(lr=TRAIN_LR)
+    fn = make_pipelined_epoch(w["cfg"], opt,
+                              make_mesh((PARTS,), ("data",), device=cpu),
+                              runner.m_max, assemble_backend="fused")
+    return fn(params, opt.init(params), dv.table, dv.offsets, cids, cfeats,
+              first_steps(batches, CPU_LOSS_STEPS))[2].numpy()
+
+
+def _curve(reports):
+    import numpy as np
+    return np.concatenate([r.losses for r in reports])
+
+
+def runner_phase(torch, device, g, pg, counters):
+    """(a)-(f): the multi-epoch runners on the card, each run's curve
+    held against (a)'s bit for bit."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.dist import assert_host_parity
+    from repro_torch.fault import active_plan, plan_from_profile
+    from repro_torch.models.gnn import init_params
+    from repro_torch.train import latest_step, load_run_state
+
+    w = runner_world(torch, device, g, pg)
+    B = w["exp"].batch_size
+    runs, launches, peaks, counts = {}, {}, {}, {}
+
+    def drive(name, runner, **run_kw):
+        reports, launches[name], peaks[name] = runner_drive(
+            torch, runner, counters, **run_kw)
+        runs[name] = reports
+        counts[name] = {"trace_count": runner.trace_count,
+                        "stage_time_s": runner.stage_time_s,
+                        "exposed_stage_s": runner.exposed_stage_s,
+                        "recovery_wall_s": runner.recovery_wall_s,
+                        "stage_retries": runner.stage_retries,
+                        "deadline_overruns": runner.deadline_overruns,
+                        "degraded_epochs": runner.degraded_epochs}
+        idle = [k for k in ("search", "assemble", "gather_agg",
+                            "gather_agg_bwd") if launches[name][k] == 0]
+        if idle or launches[name]["merge_gather"]:
+            raise RuntimeError(f"runner {name}: launches {launches[name]}")
+        return runner, reports
+
+    # (a) rapid, numpy schedules, flat; run twice
+    first, rep_a = drive("a rapid flat", runner_make(w, device))
+    again, rep_a2 = drive("a rapid flat, again", runner_make(w, device))
+    curve = _curve(rep_a)
+    if first.trace_count != 1 or again.trace_count != 1:
+        raise RuntimeError(f"trace_count {first.trace_count}, "
+                           f"{again.trace_count}: expected 1")
+    if not np.isfinite(curve).all() or curve.shape != (
+            RUNNER_EPOCHS * first.num_steps,):
+        raise RuntimeError(f"bad runner curve {curve.tolist()}")
+    if curve.tobytes() != _curve(rep_a2).tobytes():
+        raise RuntimeError("a second runner run gave another curve")
+    for x, y in zip(first.params["layers"], again.params["layers"]):
+        for k in x:
+            if not torch.equal(x[k], y[k]):
+                raise RuntimeError("a second runner run gave other weights")
+    assert_host_parity(w["eager"], pg, B, rep_a)
+    cpu = runner_cpu_losses(torch, w, first)
+    np.testing.assert_allclose(curve[:CPU_LOSS_STEPS], cpu, rtol=1e-4,
+                               atol=1e-5)
+
+    # (b) lazy schedules compiled on the card by the staging thread
+    lazy, rep_b = drive("b rapid flat, lazy on the card",
+                        runner_make(w, device, lazy=True))
+    if _curve(rep_b).tobytes() != curve.tobytes():
+        raise RuntimeError("the lazy card schedule changed the curve")
+    if launches["b rapid flat, lazy on the card"]["seg_sort"] == 0:
+        raise RuntimeError("the staging thread launched no seg_sort")
+    if any(launches[k]["seg_sort"] for k in launches if not
+           k.startswith("b ")):
+        raise RuntimeError(f"seg_sort outside the lazy run: {launches}")
+
+    # (c) the on-demand baseline
+    _, rep_c = drive("c baseline flat", runner_make(w, device, "baseline"))
+    if _curve(rep_c).tobytes() != curve.tobytes():
+        raise RuntimeError("the baseline runner's curve is not (a)'s")
+    for r, b in zip(rep_a, rep_c):
+        if (b.miss_lanes < r.miss_lanes).any():
+            raise RuntimeError(f"epoch {r.epoch}: baseline lanes "
+                               f"{b.miss_lanes} < rapid {r.miss_lanes}")
+
+    # (d) two hosts of two
+    hier, rep_d = drive("d rapid 2x2", runner_make(w, device,
+                                                   layout="2x2"))
+    if _curve(rep_d).tobytes() != curve.tobytes() or hier.trace_count != 1:
+        raise RuntimeError("the 2x2 runner's curve is not (a)'s")
+    for r, h in zip(rep_a, rep_d):
+        if not np.array_equal(h.intra_lanes + h.inter_lanes, r.miss_lanes) \
+                or h.intra_wire_rows + h.inter_wire_rows != h.wire_rows:
+            raise RuntimeError(f"epoch {r.epoch}: tiers do not add up")
+
+    # (e) checkpoint after epoch 1, resume [1, 3) in a fresh runner
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as td:
+        _, head = drive("e head [0, 1)",
+                        runner_make(w, device, checkpoint_dir=td),
+                        stop_epoch=1)
+        tail_runner = runner_make(w, device)
+        like = init_params(w["cfg"], torch.Generator().manual_seed(1),
+                           device)
+        t0 = time.perf_counter()
+        state, step = load_run_state(td, {"params": like,
+                                          "opt": tail_runner.opt.init(like)})
+        load_s = time.perf_counter() - t0
+        if step != 1 or latest_step(td) != 1:
+            raise RuntimeError(f"run state at step {step}, expected 1")
+        _, tail = drive("e tail [1, 3)", tail_runner,
+                        params=state["params"], opt_state=state["opt"],
+                        start_epoch=step)
+    if _curve(head + tail).tobytes() != curve.tobytes():
+        raise RuntimeError("the resumed curve is not (a)'s")
+    for x, y in zip(tail_runner.params["layers"], first.params["layers"]):
+        for k in x:
+            if not torch.equal(x[k], y[k]):
+                raise RuntimeError("the resumed run gave other weights")
+
+    # (f) the cache-loss fault profile
+    plan = plan_from_profile("cache-loss", seed=3)
+    with active_plan(plan):
+        lost, rep_f = drive("f rapid flat, cache-loss",
+                            runner_make(w, device))
+    if (rep_f[1].degraded, rep_f[1].degrade_reason) != (1, "cache_lost") \
+            or sum(r.degraded for r in rep_f) != 1:
+        raise RuntimeError(f"cache-loss: epochs degraded "
+                           f"{[r.degrade_reason for r in rep_f]}")
+    if _curve(rep_f).tobytes() != curve.tobytes() or lost.trace_count > 2:
+        raise RuntimeError(f"cache-loss changed the curve (trace_count "
+                           f"{lost.trace_count})")
+
+    out = {"epochs": RUNNER_EPOCHS, "steps": first.num_steps,
+           "m_max": first.m_max, "k_max": first.k_max,
+           "k_max_2x2": [hier.k_max, hier.k_max_inter],
+           "losses": curve.tolist(), "cpu_losses": cpu.tolist(),
+           "runs": {k: runner_epochs(v) for k, v in runs.items()},
+           "runners": counts, "launches": launches, "peak_bytes": peaks,
+           "run_state_load_s": load_s}
+    log(f"runner: {PARTS} workers x {RUNNER_EPOCHS} epochs x "
+        f"{first.num_steps} steps; (a) trace_count 1, host parity on every "
+        f"epoch, run twice bit-identical, first {CPU_LOSS_STEPS} losses "
+        f"within rtol=1e-4 atol=1e-5 of the CPU port; (b) lazy card "
+        f"schedules, (c) baseline, (d) 2x2, (e) resumed from a run state "
+        f"after epoch 1, (f) cache-loss (epoch 1 degraded, trace_count "
+        f"{lost.trace_count}): every curve bit-equal to (a); losses "
+        f"{['%.6f' % v for v in curve[::first.num_steps]]} at each "
+        f"epoch's start")
+    for name, epochs in out["runs"].items():
+        for e in epochs:
+            tiers = (f" (intra {e['intra_wire_rows']} + inter "
+                     f"{e['inter_wire_rows']})"
+                     if e["inter_wire_rows"] else "")
+            log(f"runner {name} epoch {e['epoch']}: "
+                f"{e['train_ms_per_step']:.2f} ms/step, wall "
+                f"{e['wall_time_s']:.3f} s, stage_s {e['stage_s']:.3f}, "
+                f"exposed_stage_s {e['exposed_stage_s']:.3f}, copy "
+                f"{e['copy_ms']:.2f} ms, miss lanes {e['miss_lanes']}, "
+                f"wire rows {e['wire_rows']}{tiers}"
+                + (f", degraded ({e['degraded']})" if e["degraded"] else ""))
+    log("runner launches " + json.dumps(launches))
+    log("runner peak device memory MiB above each run's start " + json.dumps(
+        {k: round(v / 2 ** 20, 1) for k, v in peaks.items()}))
+    log("runner staging " + json.dumps(
+        {k: {f: round(v, 4) if isinstance(v, float) else v
+             for f, v in c.items()} for k, c in counts.items()}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2363,6 +2665,8 @@ def main() -> int:
         torch, device, dist_in, emb_in,
         dist["launches"]["rapid staged"]["merge_gather"]
         + emb["launches"]["merge_gather"]))
+    del dist_in, emb_in
+    runner = runner_phase(torch, device, g, pg, dist_counters)
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -2376,7 +2680,7 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels, "serve": phases,
                    "breakdown": split, "peak_bytes": peak,
                    "launches": launches, "train": train, "lm": lm,
-                   "dist": dist, "embedding": emb}, f,
+                   "dist": dist, "embedding": emb, "runner": runner}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,27 +1,39 @@
-"""Device-distributed RapidGNN over a flat worker mesh: the device
-relabelling of the partitioned graph, the offline pull plans, the
-all-to-all cache-first feature exchange and the pipelined and
-on-demand epoch programs (the port of ``repro.dist``, flat topology)."""
+"""Device-distributed RapidGNN over a flat ``("data",)`` or hierarchical
+``("dcn", "data")`` worker mesh: the device relabelling of the
+partitioned graph, the offline pull plans (two-tier on a hierarchical
+topology), the all-to-all cache-first feature exchange, the pipelined
+and on-demand epoch programs and the multi-epoch runners (the port of
+``repro.dist``)."""
 from repro_torch.dist.mesh import Mesh, make_mesh
+from repro_torch.dist.topology import Topology
 from repro_torch.dist.feature_a2a import (PullPlan, build_pull_plan,
                                           cache_gather, pack_pull_lanes,
-                                          pull_features, pull_shard)
+                                          pack_pull_lanes_two_tier,
+                                          pull_features,
+                                          pull_features_two_tier,
+                                          pull_shard, pull_shard_two_tier)
 from repro_torch.dist.gnn_step import (CACHE_PAD, DeviceCache, DeviceView,
                                        collate_device_epoch,
                                        collate_device_epoch_loop,
                                        empty_caches, epoch_k_max,
+                                       epoch_k_max_split,
                                        make_ondemand_epoch,
                                        make_pipelined_epoch, prefetch_stream,
                                        stack_caches)
-from repro_torch.dist.runner import host_miss_matrix
+from repro_torch.dist.runner import (DeviceBaselineRunner, DeviceEpochReport,
+                                     DeviceRapidGNNRunner, StagingError,
+                                     assert_host_parity, host_miss_matrix)
 
 __all__ = [
-    "Mesh", "make_mesh",
-    "PullPlan", "build_pull_plan", "pack_pull_lanes", "pull_shard",
-    "pull_features", "cache_gather",
+    "Mesh", "make_mesh", "Topology",
+    "PullPlan", "build_pull_plan", "pack_pull_lanes",
+    "pack_pull_lanes_two_tier", "pull_shard", "pull_shard_two_tier",
+    "pull_features", "pull_features_two_tier", "cache_gather",
     "CACHE_PAD", "DeviceCache", "DeviceView", "epoch_k_max",
+    "epoch_k_max_split",
     "collate_device_epoch", "collate_device_epoch_loop", "stack_caches",
     "make_pipelined_epoch", "make_ondemand_epoch", "empty_caches",
     "prefetch_stream",
-    "host_miss_matrix",
+    "StagingError", "DeviceEpochReport", "DeviceRapidGNNRunner",
+    "DeviceBaselineRunner", "host_miss_matrix", "assert_host_parity",
 ]

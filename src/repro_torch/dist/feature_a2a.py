@@ -24,9 +24,20 @@ Two forms of the exchange:
     process group, both legs ``all_to_all_single`` (one process per
     worker, as on a machine with one card per worker).
   * ``pull_features`` -- all P workers in one process on one device
-    (``dist.mesh.Mesh``): both legs become a transposition of the
-    (P, P, k) lane axes, with the same owner-side gather and the same
+    (``dist.mesh.Mesh``): both legs become a gather of each lane's row
+    from its owner's shard, with the same owner-side clamp and the same
     masked scatter, so the buffers are bit-equal to ``pull_shard``'s.
+
+On a hierarchical topology (``dist.topology.Topology``) the plan is
+TWO-TIER: ``pack_pull_lanes_two_tier`` splits each worker's misses by
+whether the owner shares its host -- same-host lanes address the owner
+by its LOCAL device index (the intra-host exchange spans D peers),
+cross-host lanes by its flat ordinal (the exchange over all P). The
+union of the two tiers is bit-equal to the flat plan, and both forms of
+the two-tier exchange (``pull_shard_two_tier`` over an intra-host
+subgroup and the world, ``pull_features_two_tier`` in one process)
+scatter both tiers' disjoint contributions into one zero buffer, so
+their buffers are bit-equal to the flat pull's.
 
 The scatter keeps the reference's zero-initialised scatter-add
 (``index_add_``), not a copy: padding lanes ask for owner slot 0 and add
@@ -35,15 +46,11 @@ nonzero contribution, so the sum is order-free (deterministic even with
 the card's atomics) and a ``-0.0`` feature becomes ``+0.0`` as in the
 reference. Ids, lanes and sentinels stay int32; they widen to int64 only
 to index.
-
-The two-tier (hierarchical topology) plans and exchange,
-``pack_pull_lanes_two_tier`` and ``pull_shard_two_tier``, wait for
-ROADMAP Queue 1 item 8.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -235,6 +242,54 @@ def pack_pull_lanes(ids: np.ndarray, pos: np.ndarray, group: np.ndarray,
     return send_ids, send_pos, send_mask, counts
 
 
+def pack_pull_lanes_two_tier(ids: np.ndarray, pos: np.ndarray,
+                             group: np.ndarray, owner: np.ndarray,
+                             requester: np.ndarray, num_groups: int,
+                             topo, k_max_intra: int, k_max_inter: int,
+                             assume_unique: bool = False):
+    """Topology-aware ``pack_pull_lanes``: split each request by whether
+    its owner shares the requester's host.
+
+    ``requester`` is the flat worker ordinal issuing each request,
+    aligned with ids/pos/group/owner; ``topo`` a
+    ``dist.topology.Topology``. Same-host requests pack into
+    ``(num_groups, D, k_max_intra)`` lanes addressed by the owner's
+    LOCAL device index (the intra-host exchange only spans D peers);
+    cross-host requests pack into ``(num_groups, P, k_max_inter)`` lanes
+    addressed by the owner's flat ordinal (the exchange over all P).
+    Ids stay GLOBAL in both tiers -- the serving side's slot arithmetic
+    is base-relative regardless of which wire the request rode.
+
+    -> (intra, inter): two ``pack_pull_lanes``-shaped 4-tuples
+    (send_ids, send_pos, send_mask, counts). Their union is bit-equal
+    to the flat-mesh ``pack_pull_lanes`` output (each lane appears in
+    exactly one tier, same per-(group, owner) ascending (id, pos)
+    order).
+    """
+    ids = np.asarray(ids, dtype=np.int64)
+    pos = np.asarray(pos, dtype=np.int64)
+    group = np.asarray(group, dtype=np.int64)
+    owner = np.asarray(owner, dtype=np.int64)
+    requester = np.asarray(requester, dtype=np.int64)
+    valid = ids >= 0
+    if not valid.all():
+        ids, pos, group, owner, requester = (
+            a[valid] for a in (ids, pos, group, owner, requester))
+    P_ = topo.num_workers
+    if ids.size and (owner.min() < 0 or owner.max() >= P_):
+        raise ValueError(f"owner id out of range: [{owner.min()}, "
+                         f"{owner.max()}] not in [0, {P_})")
+    same = topo.same_host(owner, requester)
+    intra = pack_pull_lanes(
+        ids[same], pos[same], group[same], topo.local_of(owner[same]),
+        num_groups, topo.devices_per_host, k_max_intra,
+        assume_unique=assume_unique)
+    inter = pack_pull_lanes(
+        ids[~same], pos[~same], group[~same], owner[~same],
+        num_groups, P_, k_max_inter, assume_unique=assume_unique)
+    return intra, inter
+
+
 def _scatter(got: torch.Tensor, send_pos: torch.Tensor,
              send_mask: torch.Tensor, rows: int,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -253,6 +308,23 @@ def _scatter(got: torch.Tensor, send_pos: torch.Tensor,
     return out.index_add_(0, pos, contrib)
 
 
+def _all_to_all(req: torch.Tensor, table: torch.Tensor, base: int,
+                group) -> torch.Tensor:
+    """Both legs over ``group``: ``req`` (G, k) ids, row g to rank g ->
+    (G, k, d) the rows the ranks served back, in ``req``'s lane order.
+    The owner clamps each asked slot into its shard (a padding lane's
+    id lands on some real row; the requester's mask drops it)."""
+    import torch.distributed as dist
+
+    asks = torch.empty_like(req)
+    dist.all_to_all_single(asks, req.contiguous(), group=group)
+    slot = (asks.long() - int(base)).clamp(0, table.shape[0] - 1)
+    rows = table[slot]                                    # (G, k, d) serve
+    got = torch.empty_like(rows)
+    dist.all_to_all_single(got, rows, group=group)        # (G, k, d) mine
+    return got
+
+
 def pull_shard(table: torch.Tensor, send_ids: torch.Tensor,
                send_pos: torch.Tensor, send_mask: torch.Tensor, base: int,
                m_max: int, group=None) -> torch.Tensor:
@@ -266,16 +338,67 @@ def pull_shard(table: torch.Tensor, send_ids: torch.Tensor,
     lanes may request owner slot 0; the requester's send_mask zeroes
     them at the scatter, so the mask never crosses the wire.
     """
-    import torch.distributed as dist
-
-    n_per, d = table.shape
-    req = torch.empty_like(send_ids)
-    dist.all_to_all_single(req, send_ids.contiguous(), group=group)
-    slot = (req.long() - int(base)).clamp(0, n_per - 1)
-    rows = table[slot]                                    # (G, k, d) serve
-    got = torch.empty_like(rows)
-    dist.all_to_all_single(got, rows, group=group)        # (G, k, d) mine
+    got = _all_to_all(send_ids, table, base, group)
     return _scatter(got, send_pos, send_mask, m_max)
+
+
+def pull_shard_two_tier(table: torch.Tensor, send: Dict[str, torch.Tensor],
+                        base: int, m_max: int, ici_group,
+                        world_group=None) -> torch.Tensor:
+    """One rank's two-tier exchange: ``send`` holds the lanes of
+    ``pack_pull_lanes_two_tier`` -- ``intra_*`` (D, k_i) exchanged over
+    ``ici_group``, the D ranks of this rank's host (lane d to its local
+    rank d), and ``inter_*`` (P, k_x) over ``world_group`` (all P ranks,
+    ``None`` for the default group). The tiers' request sets are
+    disjoint, and both tiers' rows go through one masked scatter-add
+    into one zero buffer, so the result is bit-equal to ``pull_shard``
+    on the flat plan."""
+    got = [_all_to_all(send["intra_ids"], table, base, ici_group),
+           _all_to_all(send["inter_ids"], table, base, world_group)]
+    return _scatter_tiers(got, send, m_max)
+
+
+def _scatter_tiers(got, send: Dict[str, torch.Tensor], rows: int,
+                   row_base: Optional[torch.Tensor] = None,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Both tiers' returned rows -- got[0] (..., D, k_i, d) intra,
+    got[1] (..., P, k_x, d) inter -- through one masked scatter-add.
+    ``row_base`` (..., 1) is added to ``send_pos`` (the first row of
+    each requester's buffer when the buffers are stacked)."""
+    lead, d = got[0].shape[:-3], got[0].shape[-1]
+    tiers = ("intra", "inter")
+    rows_in = torch.cat([g.reshape(*lead, -1, d) for g in got], dim=-2)
+    pos = torch.cat([send[f"{t}_pos"].reshape(*lead, -1) for t in tiers],
+                    dim=-1)
+    mask = torch.cat([send[f"{t}_mask"].reshape(*lead, -1) for t in tiers],
+                     dim=-1)
+    if row_base is not None:
+        pos = pos + row_base
+    return _scatter(rows_in, pos, mask, rows, out=out)
+
+
+def _check_mesh(mesh, table: torch.Tensor) -> None:
+    if mesh.num_workers != table.shape[0]:
+        raise ValueError(f"a {mesh.num_workers}-worker mesh and a table of "
+                         f"{table.shape[0]} shards")
+
+
+def _lane_rows(table: torch.Tensor, ids: torch.Tensor, owner: torch.Tensor,
+               offs: torch.Tensor) -> torch.Tensor:
+    """Every lane's row, served by its owner: ids (P, G, k) requests,
+    owner (P, G, 1) the owning worker of each lane row -> (P, G, k, d),
+    the rows each owner serves back along the lane (slots clamped into
+    its shard, as in ``_all_to_all``)."""
+    P_, n_per, d = table.shape
+    slot = (ids.long() - offs[owner]).clamp(0, n_per - 1)
+    return table.reshape(P_ * n_per, d)[owner * n_per + slot]
+
+
+def _row_base(P_: int, m_max: int, like: torch.Tensor) -> torch.Tensor:
+    """(P, 1): the first row of each requester's buffer in the stacked
+    (P * m_max, d) output."""
+    return (torch.arange(P_, dtype=like.dtype, device=like.device)
+            * m_max)[:, None]
 
 
 def pull_features(mesh, table: torch.Tensor, send_ids: torch.Tensor,
@@ -290,29 +413,55 @@ def pull_features(mesh, table: torch.Tensor, send_ids: torch.Tensor,
     slot of each partition. -> (P, m_max, d) per-worker scattered
     feature buffers (written into ``out`` when given).
 
-    The request leg is ``send_ids.transpose(0, 1)``: owner o's row r
-    holds what requester r asked of it. Each owner clamps the slots into
-    its shard, and the row leg transposes back; the transposition is
-    taken on the slot indices, so the rows are gathered once, already in
-    the requester's lane order -- the same rows the reference's gather
-    followed by its all-to-all delivers.
+    Both legs of the reference's all-to-all become one gather: lane
+    (r, o, j) takes row ``send_ids[r, o, j] - offsets[o]`` of owner o's
+    shard, clamped into it -- the rows owner o serves to requester r,
+    already in r's lane order.
     """
-    P_, n_per, d = table.shape
-    if mesh.num_workers != P_ or send_ids.shape[:2] != (P_, P_):
-        raise ValueError(f"a {mesh.num_workers}-worker mesh, a table of "
-                         f"{P_} shards and lanes {tuple(send_ids.shape)}")
-    offs = offsets.reshape(-1).long()
-    req = send_ids.transpose(0, 1)                        # (owner, req, k)
-    slot = (req.long() - offs[:, None, None]).clamp(0, n_per - 1)
-    row = slot + (torch.arange(P_, device=table.device) * n_per)[:, None,
-                                                                 None]
-    got = table.reshape(P_ * n_per, d)[row.transpose(0, 1)]  # (req, own, k, d)
-    flat_pos = send_pos + (torch.arange(P_, dtype=send_pos.dtype,
-                                        device=send_pos.device)
-                           * m_max)[:, None, None]
+    P_, _, d = table.shape
+    _check_mesh(mesh, table)
+    if send_ids.shape[:2] != (P_, P_):
+        raise ValueError(f"lanes {tuple(send_ids.shape)} for {P_} workers")
+    owner = torch.arange(P_, device=table.device)[None, :, None]
+    got = _lane_rows(table, send_ids, owner, offsets.reshape(-1).long())
+    flat_pos = send_pos + _row_base(P_, m_max, send_pos)[:, :, None]
     flat_out = None if out is None else out.view(P_ * m_max, d)
     return _scatter(got, flat_pos, send_mask, P_ * m_max,
                     out=flat_out).view(P_, m_max, d)
+
+
+def pull_features_two_tier(mesh, table: torch.Tensor,
+                           send: Dict[str, torch.Tensor],
+                           offsets: torch.Tensor, m_max: int, *,
+                           out: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """``pull_features`` over the two-tier lanes of
+    ``pack_pull_lanes_two_tier``, all P workers of ``mesh`` (H hosts of
+    D) in one process: ``intra_*`` (P, D, k_i), lane d of requester r
+    addressed to worker ``(r // D) * D + d``; ``inter_*`` (P, P, k_x),
+    lane o to worker o. Both tiers' rows go through one masked
+    scatter-add into one zero buffer per requester, bit-equal to
+    ``pull_features`` on the flat plan."""
+    P_, _, d = table.shape
+    _check_mesh(mesh, table)
+    D = mesh.devices_per_host
+    if send["intra_ids"].shape[:2] != (P_, D) or \
+            send["inter_ids"].shape[:2] != (P_, P_):
+        raise ValueError(
+            f"two-tier lanes {tuple(send['intra_ids'].shape)} / "
+            f"{tuple(send['inter_ids'].shape)} for {mesh.hosts} hosts of "
+            f"{D} workers")
+    offs = offsets.reshape(-1).long()
+    w = torch.arange(P_, device=table.device)
+    intra_owner = ((w // D) * D)[:, None, None] + \
+        torch.arange(D, device=table.device)[None, :, None]
+    got = [_lane_rows(table, send["intra_ids"], intra_owner, offs),
+           _lane_rows(table, send["inter_ids"], w[None, :, None], offs)]
+    flat_out = None if out is None else out.view(P_ * m_max, d)
+    return _scatter_tiers(got, send, P_ * m_max,
+                          row_base=_row_base(P_, m_max,
+                                             send["intra_pos"]),
+                          out=flat_out).view(P_, m_max, d)
 
 
 def cache_gather(cache_ids: torch.Tensor, cache_feats: torch.Tensor,

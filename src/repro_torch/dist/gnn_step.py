@@ -1,5 +1,6 @@
-"""The device-distributed RapidGNN epoch over a flat worker mesh, the
-port of ``repro/dist/gnn_step.py``.
+"""The device-distributed RapidGNN epoch over a flat ``("data",)`` or
+hierarchical ``("dcn", "data")`` worker mesh, the port of
+``repro/dist/gnn_step.py``.
 
 The reference expresses Alg. 1's prefetcher/trainer overlap inside one
 compiled program: a ``jax.lax.scan`` over the S steps of an epoch whose
@@ -12,7 +13,9 @@ while step i trains on the default stream, into the other of two
 pulled-feature buffers, with the streams ordered both ways (the side
 stream waits for the default stream's last read of the buffer it
 overwrites; the default stream waits for the pull before it reads the
-buffer). On the CPU the same order runs on one stream.
+buffer). On the CPU the same order runs on one stream. A hierarchical
+``topology`` switches the pull to the two-tier exchange
+(``feature_a2a.pull_features_two_tier``), bit-equal to the flat one.
 
 Each step assembles every worker's features (``kernels/assemble``,
 backend ``auto|fused|ref|staged``: local shard > C_s > pulled), trains
@@ -29,9 +32,9 @@ into contiguous per-worker slot ranges so ownership is ``id // n_per``;
 ``epoch_k_max`` computes the exact static lane bound;
 ``collate_device_epoch`` packs a whole epoch into (S, P, ...) arrays in
 one vectorised pass (``collate_device_epoch_loop`` is its per-(step,
-worker) oracle); ``stack_caches`` stacks the per-worker hot sets C_s.
-The hierarchical topology's two-tier plans wait for ROADMAP Queue 1
-item 8: passing a ``topology`` raises.
+worker) oracle), with two-tier lanes on a hierarchical topology
+(``epoch_k_max_split`` gives their bounds); ``stack_caches`` stacks the
+per-worker hot sets C_s.
 """
 from __future__ import annotations
 
@@ -43,15 +46,19 @@ import torch
 
 from repro_torch.core.schedule import EpochSchedule, collate
 from repro_torch.dist.feature_a2a import (build_pull_plan, pack_pull_lanes,
-                                          pull_features)
+                                          pack_pull_lanes_two_tier,
+                                          pull_features,
+                                          pull_features_two_tier)
 from repro_torch.graph.partition import PartitionedGraph
 from repro_torch.kernels.assemble.ops import assemble_features
 from repro_torch.kernels.cache_lookup.ops import to_device_ids
 from repro_torch.models.gnn import GNNConfig, loss_and_grads
 from repro_torch.train.optim import tree_map
 
-#: pull-plan keys of the collated epoch dict (flat worker axis)
+#: pull-plan keys of the collated epoch dict, per topology tier layout
 PULL_KEYS_FLAT = ("send_ids", "send_pos", "send_mask")
+PULL_KEYS_HIER = ("intra_ids", "intra_pos", "intra_mask",
+                  "inter_ids", "inter_pos", "inter_mask")
 
 #: int64 cache padding; survives the int32 cast exactly and matches the
 #: ``search`` kernel's sentinel (``kernels/cache_lookup``).
@@ -239,30 +246,67 @@ def epoch_k_max(es_list: Sequence[EpochSchedule],
     return max(1, int(np.bincount(eb * P_ + owner_miss).max()))
 
 
-def _no_topology(topology) -> None:
-    if topology is not None:
-        raise NotImplementedError(
-            "hierarchical topologies (two-tier pull plans, "
-            "pull_shard_two_tier) wait for ROADMAP Queue 1 item 8; the port "
-            "runs the flat ('data',) worker axis")
+def epoch_k_max_split(es_list: Sequence[EpochSchedule],
+                      caches: Sequence[DeviceCache], dv: DeviceView,
+                      topo) -> tuple:
+    """Exact static lane bounds for the TWO-TIER plan: ``(k_max_intra,
+    k_max_inter)`` over all (worker, step) pairs of the epoch, split by
+    whether the missed id's owner shares the requesting worker's host
+    (same vectorized bincount pass as ``epoch_k_max``, one group key
+    per tier). Both bounds floor at 1 so degenerate tiers (single-host
+    epochs, all-local epochs) still give static shapes."""
+    flat = _epoch_flat(es_list, dv)
+    if flat is None:
+        return 1, 1
+    miss, owner_miss = _classify_misses(flat, caches, dv)
+    if owner_miss.size == 0:
+        return 1, 1
+    P_ = len(es_list)
+    D = topo.devices_per_host
+    eb, _ = _miss_coords(flat, miss)
+    req = flat["worker"][eb]
+    same = topo.same_host(owner_miss, req)
+    k_i = k_x = 1
+    if same.any():
+        k_i = int(np.bincount(
+            eb[same] * D + topo.local_of(owner_miss[same])).max())
+    if (~same).any():
+        k_x = int(np.bincount(eb[~same] * P_ + owner_miss[~same]).max())
+    return max(1, k_i), max(1, k_x)
+
+
+def _hier(topology) -> bool:
+    return topology is not None and topology.is_hierarchical
 
 
 def _alloc_epoch(P_: int, S: int, batch_size: int, m_max: int,
-                 edge_max: Sequence[int], k_max: int
+                 edge_max: Sequence[int], k_max: int, topology=None,
+                 k_max_inter: Optional[int] = None
                  ) -> Dict[str, np.ndarray]:
-    """Empty (S, P, ...) device-layout epoch: every step fully masked,
-    flat send_* (S, P, P, k_max) pull lanes."""
-    return {
+    """Empty (S, P, ...) device-layout epoch: every step fully masked.
+    With a hierarchical ``topology`` the pull lanes split into the
+    two-tier layout -- intra (S, P, D, k_max) + inter (S, P, P,
+    k_max_inter) -- instead of the flat send_* (S, P, P, k_max)."""
+    out = {
         "input_nodes": np.full((S, P_, m_max), -1, np.int64),
         "labels": np.zeros((S, P_, batch_size), np.int32),
         "seed_mask": np.zeros((S, P_, batch_size), bool),
         "edge_src": [np.zeros((S, P_, e), np.int32) for e in edge_max],
         "edge_dst": [np.zeros((S, P_, e), np.int32) for e in edge_max],
         "edge_mask": [np.zeros((S, P_, e), bool) for e in edge_max],
-        "send_ids": np.zeros((S, P_, P_, k_max), np.int32),
-        "send_pos": np.zeros((S, P_, P_, k_max), np.int32),
-        "send_mask": np.zeros((S, P_, P_, k_max), bool),
     }
+    if _hier(topology):
+        D = topology.devices_per_host
+        k_x = k_max_inter if k_max_inter is not None else k_max
+        for tier, G, k in (("intra", D, k_max), ("inter", P_, k_x)):
+            out[f"{tier}_ids"] = np.zeros((S, P_, G, k), np.int32)
+            out[f"{tier}_pos"] = np.zeros((S, P_, G, k), np.int32)
+            out[f"{tier}_mask"] = np.zeros((S, P_, G, k), bool)
+    else:
+        out["send_ids"] = np.zeros((S, P_, P_, k_max), np.int32)
+        out["send_pos"] = np.zeros((S, P_, P_, k_max), np.int32)
+        out["send_mask"] = np.zeros((S, P_, P_, k_max), bool)
+    return out
 
 
 def _check_num_steps(es_list: Sequence[EpochSchedule], S: int) -> None:
@@ -278,7 +322,8 @@ def collate_device_epoch(es_list: Sequence[EpochSchedule],
                          caches: Sequence[DeviceCache], dv: DeviceView,
                          labels: np.ndarray, batch_size: int, m_max: int,
                          edge_max: Sequence[int], k_max: int,
-                         num_steps: int, topology=None
+                         num_steps: int, topology=None,
+                         k_max_inter: Optional[int] = None
                          ) -> Dict[str, np.ndarray]:
     """Pack an epoch into the (S, P, ...) device layout -- vectorised.
 
@@ -296,14 +341,18 @@ def collate_device_epoch(es_list: Sequence[EpochSchedule],
     masked empty steps for the tail: ids -1, all masks False, so it
     still takes part in every exchange but trains on nothing. Raises
     when a worker has MORE batches than ``num_steps`` (silent truncation
-    would corrupt the fetch accounting). A ``topology`` raises: the
-    two-tier lanes wait for ROADMAP Queue 1 item 8.
+    would corrupt the fetch accounting).
+
+    With a hierarchical ``topology`` the pull lanes come out two-tier
+    (``intra_*``/``inter_*`` via ``pack_pull_lanes_two_tier``, bounds
+    ``k_max``/``k_max_inter``) instead of flat ``send_*`` -- everything
+    else (batches, labels, edges) is layout-identical.
     """
-    _no_topology(topology)
     P_ = len(es_list)
     S = num_steps
     _check_num_steps(es_list, S)
-    out = _alloc_epoch(P_, S, batch_size, m_max, edge_max, k_max)
+    out = _alloc_epoch(P_, S, batch_size, m_max, edge_max, k_max,
+                       topology=topology, k_max_inter=k_max_inter)
     flat = _epoch_flat(es_list, dv)
     if flat is None:
         return out
@@ -344,6 +393,17 @@ def collate_device_epoch(es_list: Sequence[EpochSchedule],
     eb, col = _miss_coords(flat, miss)
     # assume_unique: the sampler dedupes input_nodes per batch, so no
     # (group, id, pos) duplicates can exist
+    if _hier(topology):
+        D = topology.devices_per_host
+        k_x = k_max_inter if k_max_inter is not None else k_max
+        tiers = pack_pull_lanes_two_tier(
+            dev[miss], col, row[eb], owner_miss, flat["worker"][eb],
+            S * P_, topology, k_max, k_x, assume_unique=True)
+        for tier, lanes, G, k in zip(("intra", "inter"), tiers, (D, P_),
+                                     (k_max, k_x)):
+            for key, a in zip(("ids", "pos", "mask"), lanes):
+                out[f"{tier}_{key}"] = a.reshape(S, P_, G, k)
+        return out
     sids, spos, smask, _ = pack_pull_lanes(
         dev[miss], col, row[eb], owner_miss, S * P_, P_, k_max,
         assume_unique=True)
@@ -424,9 +484,9 @@ def prefetch_stream(send: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     reference's scan, need not keep a static body); lane accounting comes
     from the un-rolled host arrays either way.
 
-    send: dict of (S, ...) tensors -- the flat ``send_*`` triplet; keys
-    ending in ``mask`` are AND-masked, the rest zeroed on the dead final
-    element.
+    send: dict of (S, ...) tensors -- the flat ``send_*`` triplet or the
+    two-tier ``intra_*``/``inter_*`` sextet; keys ending in ``mask`` are
+    AND-masked, the rest zeroed on the dead final element.
     """
     S = next(iter(send.values())).shape[0]
     out = {}
@@ -489,6 +549,29 @@ def _step_inputs(bt: Dict[str, Any], i: int) -> Dict[str, Any]:
             "edge_mask": [e[i] for e in bt["edge_mask"]]}
 
 
+def _exchange(mesh, m_max: int, topology):
+    """-> (the pull-plan keys of a collated epoch, ``pull(table,
+    offsets, plan, i, out=None)``: step i's exchange of all workers) for
+    ``topology`` -- the flat ``pull_features`` or, hierarchical, the
+    two-tier ``pull_features_two_tier`` over ``mesh``'s host split."""
+    if not _hier(topology):
+        def pull(table, offsets, plan, i, out=None):
+            return pull_features(mesh, table, plan["send_ids"][i],
+                                 plan["send_pos"][i], plan["send_mask"][i],
+                                 offsets, m_max, out=out)
+        return PULL_KEYS_FLAT, pull
+    if (mesh.hosts, mesh.num_workers) != (topology.hosts,
+                                          topology.num_workers):
+        raise ValueError(f"topology {topology.describe()} on a mesh of "
+                         f"{mesh.hosts} hosts x {mesh.devices_per_host}")
+
+    def pull_hier(table, offsets, plan, i, out=None):
+        return pull_features_two_tier(
+            mesh, table, {k: plan[k][i] for k in PULL_KEYS_HIER}, offsets,
+            m_max, out=out)
+    return PULL_KEYS_HIER, pull_hier
+
+
 def make_pipelined_epoch(cfg: GNNConfig, opt, mesh, m_max: int,
                          assemble_backend: str = "auto",
                          topology=None):
@@ -507,9 +590,10 @@ def make_pipelined_epoch(cfg: GNNConfig, opt, mesh, m_max: int,
     assembled per worker by ``assemble_backend`` (local shard > C_s >
     pulled); gradients, loss and accuracy are averaged over the
     workers. The last step's prefetch (the masked wrap of
-    ``prefetch_stream``) is not issued.
+    ``prefetch_stream``) is not issued. A hierarchical ``topology``
+    switches the pull to the two-tier exchange: bit-equal curves.
     """
-    _no_topology(topology)
+    pull_keys, exchange = _exchange(mesh, m_max, topology)
     device = mesh.device
 
     def epoch_fn(params, opt_state, table, offsets, cache_ids, cache_feats,
@@ -520,14 +604,12 @@ def make_pipelined_epoch(cfg: GNNConfig, opt, mesh, m_max: int,
         bases = [int(b) for b in offsets.reshape(-1).tolist()]
         cids32 = to_device_ids(cache_ids)           # (P, n_hot) int32
         query = to_device_ids(bt["input_nodes"])    # (S, P, m_max) int32
-        send = {k: bt[k] for k in PULL_KEYS_FLAT}
+        send = {k: bt[k] for k in pull_keys}
         nxt_send = prefetch_stream(send)
         S = query.shape[0]
 
         def pull(plan, i, out):
-            return pull_features(mesh, table, plan["send_ids"][i],
-                                 plan["send_pos"][i], plan["send_mask"][i],
-                                 offsets, m_max, out=out)
+            return exchange(table, offsets, plan, i, out=out)
 
         # two pulled-feature buffers: step i reads bufs[i % 2] while step
         # i+1's pull writes the other
@@ -574,8 +656,10 @@ def make_ondemand_epoch(cfg: GNNConfig, opt, mesh, m_max: int,
     pulled), but step i's pull feeds step i's own features, so the
     exchange sits on the trainer's critical path every step. Collate its
     batches with EMPTY caches so every remote id rides the pull lanes.
+    A hierarchical ``topology`` switches pulls to the two-tier exchange,
+    as in ``make_pipelined_epoch``.
     """
-    _no_topology(topology)
+    _, exchange = _exchange(mesh, m_max, topology)
     device = mesh.device
 
     def epoch_fn(params, opt_state, table, offsets, batches):
@@ -586,9 +670,7 @@ def make_ondemand_epoch(cfg: GNNConfig, opt, mesh, m_max: int,
         query = to_device_ids(bt["input_nodes"])
         losses, accs = [], []
         for i in range(query.shape[0]):
-            pulled = pull_features(mesh, table, bt["send_ids"][i],
-                                   bt["send_pos"][i], bt["send_mask"][i],
-                                   offsets, m_max)
+            pulled = exchange(table, offsets, bt, i)
             feats = [assemble_features(
                 table[w], bases[w], None, None, query[i, w], pulled[w],
                 backend=assemble_backend) for w in range(P_)]

@@ -13,13 +13,17 @@ point leaves either the previous checkpoint or a complete new one,
 never a torn mix under the final names. Loads validate leaf set, shapes,
 manifest agreement, and (optionally) the step, raising
 ``CheckpointCorruptError`` instead of raw numpy errors.
+``save_run_state``/``load_run_state`` layer per-step directories
+(``root/step_XXXXXXXX/``) and an atomic ``LATEST`` pointer on top for
+periodic crash-resume, in the reference's layout, so a run state written
+by either package resumes in the other.
 """
 from __future__ import annotations
 
 import json
 import os
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +42,11 @@ class CheckpointCorruptError(RuntimeError):
 
 def _flatten(tree: PyTree, prefix: str = "") -> Dict[str, Any]:
     """{path: leaf}, with the JAX key paths (dict keys sorted, list
-    indices as numbers)."""
+    indices as numbers, a NamedTuple's fields as ``.name``)."""
     if isinstance(tree, dict):
         items = ((str(k), tree[k]) for k in sorted(tree))
+    elif hasattr(tree, "_fields"):
+        items = ((f".{k}", getattr(tree, k)) for k in tree._fields)
     elif isinstance(tree, (list, tuple)):
         items = ((str(i), t) for i, t in enumerate(tree))
     else:
@@ -149,3 +155,50 @@ def load_checkpoint(path: str, like: PyTree,
 def checkpoint_step(path: str) -> int:
     with open(os.path.join(path, "manifest.json")) as f:
         return json.load(f)["step"]
+
+
+# ---------------------------------------------------------------------------
+# periodic run state: per-step dirs + atomic LATEST pointer
+# ---------------------------------------------------------------------------
+
+def _step_dir(root: str, step: int) -> str:
+    return os.path.join(root, f"step_{step:08d}")
+
+
+def save_run_state(root: str, tree: PyTree, step: int) -> str:
+    """One periodic checkpoint: ``root/step_XXXXXXXX/`` committed first,
+    then the ``LATEST`` pointer renamed in -- so a crash anywhere leaves
+    ``LATEST`` naming a COMPLETE checkpoint (possibly the previous one,
+    never a torn one)."""
+    os.makedirs(root, exist_ok=True)
+    d = _step_dir(root, step)
+    save_checkpoint(d, tree, step=step)
+    _commit_bytes(os.path.join(root, "LATEST"),
+                  lambda f: f.write(f"{step}\n".encode()))
+    return d
+
+
+def latest_step(root: str) -> Optional[int]:
+    """The step ``LATEST`` names under ``root``; None when there is no
+    pointer. A pointer that does not hold a step number raises
+    ``CheckpointCorruptError``."""
+    p = os.path.join(root, "LATEST")
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        text = f.read().strip()
+    try:
+        return int(text)
+    except ValueError as exc:
+        raise CheckpointCorruptError(
+            f"torn LATEST pointer {p}: {text!r}") from exc
+
+
+def load_run_state(root: str, like: PyTree) -> Tuple[PyTree, int]:
+    """Resume from the newest committed checkpoint under ``root``:
+    -> (the tree shaped like ``like``, its step)."""
+    step = latest_step(root)
+    if step is None:
+        raise CheckpointCorruptError(f"no LATEST pointer under {root}")
+    tree = load_checkpoint(_step_dir(root, step), like, expect_step=step)
+    return tree, step

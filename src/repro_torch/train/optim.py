@@ -9,7 +9,8 @@ parameter dtype; weight decay is decoupled (AdamW);
 parameter and state trees and leaves its inputs as they were.
 
 A tree is nested dicts (walked in sorted key order, as JAX walks them),
-lists and tuples with tensors at the leaves -- the GNN's
+lists, tuples and NamedTuples (an optimizer state) with tensors at the
+leaves -- the GNN's
 ``{"layers": [{"w_self": ..., ...}, ...]}``.
 """
 from __future__ import annotations
@@ -30,8 +31,11 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, t, *(r[i] for r in rest))
-                          for i, t in enumerate(tree))
+        mapped = (tree_map(fn, t, *(r[i] for r in rest))
+                  for i, t in enumerate(tree))
+        if hasattr(tree, "_fields"):                # a NamedTuple state
+            return type(tree)(*mapped)
+        return type(tree)(mapped)
     return fn(tree, *rest)
 
 

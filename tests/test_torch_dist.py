@@ -66,7 +66,8 @@ from repro_torch.core.schedule import epoch_edge_maxima as t_edge_maxima
 from repro_torch.data.pipeline import (enumerate_token_accesses as
                                        t_enumerate, make_batch as t_make_batch,
                                        synthetic_lm_batches as t_lm_batches)
-from repro_torch.dist import (DeviceView as TDeviceView, cache_gather,
+from repro_torch.dist import (DeviceRapidGNNRunner, Topology,
+                              DeviceView as TDeviceView, cache_gather,
                               collate_device_epoch, collate_device_epoch_loop,
                               empty_caches, epoch_k_max, host_miss_matrix,
                               make_mesh, make_ondemand_epoch,
@@ -363,19 +364,33 @@ def test_pull_shard_on_gloo_ranks_equals_pull_features(jax_ref, tmp_path):
             want[r].tobytes()
 
 
-def test_mesh_and_topology_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        make_mesh((2, 2), ("dcn", "data"), device=CPU)
+def test_mesh_and_topology_raise(worlds):
     mesh = make_mesh((P_,), ("data",), device=CPU)
     assert mesh.num_workers == P_ and mesh.device == CPU
-    cfg = TConfig(kind="sage", in_dim=4, hidden_dim=4, num_classes=2,
-                  num_layers=2)
+    assert mesh.hosts == 1 and mesh.axis_names == ("data",)
+    hier = make_mesh((2, 2), ("dcn", "data"), device=CPU)
+    assert hier.num_workers == P_ and hier.hosts == 2
+    assert hier.devices_per_host == 2 and hier.axis_names == ("dcn", "data")
+    assert Topology.parse("2x2", P_).make_mesh(CPU) == hier
+    for shape, axes in (((2, 2), ("data", "dcn")), ((4,), ("model",)),
+                        ((1, 2, 2), ("x", "dcn", "data"))):
+        with pytest.raises(NotImplementedError):
+            make_mesh(shape, axes, device=CPU)
+    for bad in ("2x3", "2x", "hosts"):
+        with pytest.raises(ValueError):
+            Topology.parse(bad, P_)
+    # a topology whose worker count disagrees with the runner's
+    g, _, ws, dv, _ = worlds["torch"]
+    cfg = TConfig(kind="sage", in_dim=g.feat_dim, hidden_dim=4,
+                  num_classes=g.num_classes, num_layers=2)
+    with pytest.raises(ValueError, match="describes 6 workers"):
+        DeviceRapidGNNRunner(ws, dv, cfg, TAdamW(lr=LR), hier, B, g.labels,
+                             topology=Topology.hierarchical(2, 3))
+    # a hierarchical epoch needs the mesh's host split
     for make in (make_pipelined_epoch, make_ondemand_epoch):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            make(cfg, TAdamW(lr=LR), mesh, 8, topology=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        collate_device_epoch([], [], None, None, 1, 1, [], 1, 0,
-                             topology=object())
+        with pytest.raises(ValueError, match="topology 2x2"):
+            make(cfg, TAdamW(lr=LR), mesh, 8,
+                 topology=Topology.hierarchical(2, 2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_mesh((P_,), ("data",))

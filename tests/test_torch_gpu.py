@@ -3,10 +3,10 @@ PyTorch version on the same inputs, the serving slice on ``cuda``
 against its own oracle and the CPU path, the training slice (the
 device-compiled schedule, the train step) against the CPU path, and the
 transformer decode-serving slice (prefill and decode) against the CPU
-path, and the device-distributed epoch (the ``merge_gather`` kernel,
-``cache_gather``, a staged epoch) against the CPU path. They import no
-JAX, so they run
-on a machine with only PyTorch:
+path, the device-distributed epoch (the ``merge_gather`` kernel,
+``cache_gather``, a staged epoch) and the multi-epoch runner (flat and
+``2x2``, and a checkpointed resume) against the CPU path. They import
+no JAX, so they run on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -663,3 +663,93 @@ def test_staged_epoch_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(curves[("cuda", "staged")].numpy(),
                                curves[("cpu", "staged")].numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+def _runner_world(epochs: int = 3):
+    from repro_torch.core import build_schedule
+    from repro_torch.dist import DeviceView
+    from repro_torch.graph import KHopSampler, load_dataset, partition_graph
+    from repro_torch.models.gnn import GNNConfig
+
+    g = load_dataset("tiny", seed=0)
+    pg = partition_graph(g, 4, "greedy")
+    sampler = KHopSampler(g, fanouts=[5, 5], batch_size=16)
+    ws = [build_schedule(sampler, pg, worker=w, s0=7, num_epochs=epochs,
+                         n_hot=64) for w in range(4)]
+    cfg = GNNConfig(kind="sage", in_dim=g.feat_dim, hidden_dim=32,
+                    num_classes=g.num_classes, num_layers=2, fanouts=(5, 5),
+                    agg_backend="kernel")
+    return g, pg, ws, DeviceView.build(pg), cfg
+
+
+def _device_runner(world, device, layout="flat", **kw):
+    from repro_torch.dist import DeviceRapidGNNRunner, Topology, make_mesh
+    from repro_torch.train import AdamW
+    g, _, ws, dv, cfg = world
+    topo = Topology.parse(layout, 4)
+    mesh = (topo.make_mesh(device) if topo.is_hierarchical
+            else make_mesh((4,), ("data",), device=device))
+    return DeviceRapidGNNRunner(ws, dv, cfg, AdamW(lr=3e-3), mesh, 16,
+                                g.labels, topology=topo, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["flat", "2x2"])
+def test_device_runner_on_card_matches_cpu(cuda, layout):
+    """Three epochs of 4 workers on the card: lanes and wire rows equal
+    the CPU port's, losses within the reference's tolerance, host
+    parity, one shape key, and the card's kernels launched."""
+    from repro_torch.dist import assert_host_parity
+    world = _runner_world()
+    before = {"search": t_search_ops.LAUNCHES.value,
+              "assemble": t_assemble_ops.LAUNCHES.value,
+              "gather_agg": t_gather_ops.LAUNCHES.value,
+              "gather_agg_bwd": t_gather_ops.BWD_LAUNCHES.value}
+    card_runner = _device_runner(world, cuda, layout)
+    card = card_runner.run()
+    torch.cuda.synchronize()
+    for name, counter in (("search", t_search_ops.LAUNCHES),
+                          ("assemble", t_assemble_ops.LAUNCHES),
+                          ("gather_agg", t_gather_ops.LAUNCHES),
+                          ("gather_agg_bwd", t_gather_ops.BWD_LAUNCHES)):
+        assert counter.value > before[name], name
+    cpu = _device_runner(world, torch.device("cpu"), layout).run()
+    assert card_runner.trace_count == 1
+    for a, b in zip(card, cpu):
+        d_a, d_b = a.to_dict(), b.to_dict()
+        for f in ("miss_lanes", "intra_lanes", "inter_lanes", "wire_rows",
+                  "intra_wire_rows", "inter_wire_rows"):
+            assert d_a[f] == d_b[f], f
+        np.testing.assert_allclose(a.losses, b.losses, rtol=1e-4, atol=1e-5)
+    _, pg, ws, _, _ = world
+    assert_host_parity(ws, pg, 16, card)
+
+
+@pytest.mark.gpu
+def test_device_runner_resume_on_card_bit_equal(cuda, tmp_path):
+    """Epoch 0 checkpointed on the card, epochs [1, 3) resumed by a fresh
+    runner: the stitched curve and final weights equal an uninterrupted
+    card run bit for bit."""
+    from repro_torch.models.gnn import init_params
+    from repro_torch.train import load_run_state
+    world = _runner_world()
+    full_runner = _device_runner(world, cuda)
+    full = full_runner.run()
+    head = _device_runner(world, cuda, checkpoint_dir=str(tmp_path)).run(
+        stop_epoch=1)
+    tail_runner = _device_runner(world, cuda)
+    like_p = init_params(tail_runner.cfg, torch.Generator().manual_seed(1),
+                         cuda)
+    state, step = load_run_state(str(tmp_path), {
+        "params": like_p, "opt": tail_runner.opt.init(like_p)})
+    assert step == 1 and state["params"]["layers"][0]["b"].is_cuda
+    tail = tail_runner.run(params=state["params"], opt_state=state["opt"],
+                           start_epoch=1)
+    stitched = np.concatenate([r.losses for r in head + tail])
+    assert stitched.tobytes() == np.concatenate(
+        [r.losses for r in full]).tobytes()
+    for a, b in zip(tail_runner.params["layers"],
+                    full_runner.params["layers"]):
+        for k in a:
+            assert torch.equal(a[k], b[k])
+    assert int(tail_runner.opt_state.step) == int(full_runner.opt_state.step)
