@@ -127,6 +127,36 @@ Phases (any failure raises, so the exit code is non-zero):
    step, wall, ``stage_s``, ``exposed_stage_s``, the boundary copy,
    miss lanes and wire rows (and their tier split), each run's launches
    and peak memory.
+9. The paper-metrics campaign (``repro_torch.eval``) and the chaos
+   sweep (``repro_torch.fault.chaos``) on the card. (a) The paper's
+   GraphSAGE at full width as a campaign built here from the port's
+   ``grid``: host-sim and device cells of ``rapidgnn`` and ``dgl-metis``
+   (``reddit_sim``, batch 1000, 4 greedy workers, n_hot 4096, 3 epochs,
+   hidden 256, fan-outs (25, 10)), and the device pair again on ``2x2``:
+   6 cells, run one at a time with the launch counts set to 0 before
+   each. Gates: ``validate_report`` finds nothing, every differential
+   check passes with every layer present (host vs device miss parity
+   and bytes, rapid vs baseline, flat vs ``2x2``, ``one_compilation``
+   with ``trace_count`` 1), each cell launched its kernels (device
+   cells ``search``, ``assemble``, ``gather_agg`` and its backward; host
+   cells the last two), and the device rapid cell's curve is phase 8's
+   (a) bit for bit, its first 3 losses within ``rtol=1e-4, atol=1e-5`` of
+   phase 8's CPU steps. (b) The same grid with every schedule compiled
+   on the card (``seg_sort`` in every cell, lazily in the device
+   runners' stage thread): every count and curve bit-equal to (a); both
+   runs' times printed side by side. (c) The fault campaign
+   (``fault_grid``, the tiny graph): every check passes, the report
+   validates, at least one degraded cell. (d) ``run_chaos(seed=0,
+   fast=True)`` on the card: ``ok``, the serve sweep's ``trace_count``
+   1, each train plan's fires and outcome equal to the same sweep on the
+   CPU. Prints per cell the step time, warm wall, fetch counters, wire
+   rows and their tiers, hit rate, trace count, staging, launches and
+   peak memory; per pair the throughput speedup, the fetch and byte
+   reductions and the modelled energy ratios; the check counts, the
+   fault rows, the chaos table and each sub-phase's wall. The reports
+   go to ``artifacts/BENCH_torch_paper.json``,
+   ``BENCH_torch_paper_device.json``, ``BENCH_torch_fault.json`` and
+   ``chaos_torch.json``.
 
 Output: one ``kernel {...}`` line per kernel, the card's name and power
 limit, one ``{"kernels": [...]}`` line, and as the last line
@@ -2585,6 +2615,257 @@ def runner_phase(torch, device, g, pg, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the paper-metrics campaign, the fault campaign, the chaos sweep
+# ---------------------------------------------------------------------------
+
+CAMPAIGN_EPOCHS = 3
+CAMPAIGN_N_HOT = 4096
+#: launches each cell must make (the schedule's seg_sort is (b)'s only)
+HOST_CELL_KERNELS = ("gather_agg", "gather_agg_bwd")
+DEVICE_CELL_KERNELS = ("search", "assemble", "gather_agg", "gather_agg_bwd")
+#: the differential layers the full-width campaign must run
+CAMPAIGN_CHECKS = ("miss_parity", "payload_bytes", "vector_pull_bytes",
+                   "fetch_not_more", "loss_agreement", "topology_miss_parity",
+                   "topology_byte_sum", "topology_loss_parity",
+                   "one_compilation")
+
+
+def campaign_spec(schedule_backend: str):
+    """The paper's GraphSAGE at full width as a campaign: rapid vs the
+    on-demand baseline on both backends, and the device pair again on
+    two hosts of two workers (6 cells)."""
+    import dataclasses
+
+    from repro_torch.eval import CampaignSpec, grid
+
+    cells = grid(backends=("host", "device"),
+                 systems=("rapidgnn", "dgl-metis"), datasets=(DATASET,),
+                 batch_sizes=(TRAIN_BATCH,), workers=(PARTS,),
+                 n_hots=(CAMPAIGN_N_HOT,), epochs=CAMPAIGN_EPOCHS, seed=42,
+                 fanouts=(25, 10), hidden=256, partition="greedy",
+                 schedule_backend=schedule_backend)
+    cells += [dataclasses.replace(c, topology="2x2")
+              for c in cells if c.backend == "device"]
+    return CampaignSpec(name=f"paper-{DATASET}-{schedule_backend}",
+                        cells=tuple(cells))
+
+
+def campaign_run(torch, device, spec, counters, out_path):
+    """Every cell through the port's cell runners, one at a time with
+    the launch counts set to 0 just before it and read just after (device
+    cells of one scenario share their schedules), then the differential
+    checks and the report, as ``run_campaign`` makes them."""
+    from repro_torch.eval import (build_report, run_device_cells,
+                                  run_host_cell, verify_cells, write_report)
+
+    cells, launches, peaks, scenarios = [], [], [], {}
+    t0 = time.perf_counter()
+    for c in spec.cells:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for k in counters:
+            k.reset()
+        if c.backend == "host":
+            cells.append(run_host_cell(c, device=device))
+        else:
+            cells.append(run_device_cells([c], device=device,
+                                          scenarios=scenarios)[0])
+        torch.cuda.synchronize()
+        launches.append({k.name: k.value for k in counters})
+        peaks.append(torch.cuda.max_memory_allocated() - held)
+        want = HOST_CELL_KERNELS if c.backend == "host" \
+            else DEVICE_CELL_KERNELS
+        idle = [k for k in want if launches[-1][k] == 0]
+        seg = launches[-1]["seg_sort"]
+        if idle or launches[-1]["merge_gather"] or (
+                (seg == 0) == (c.schedule_backend == "device")):
+            raise RuntimeError(f"campaign cell {c.label()}: launches "
+                               f"{launches[-1]}")
+    report = build_report(spec.name, cells, verify_cells(cells))
+    write_report(report, out_path)
+    return {"cells": cells, "report": report, "launches": launches,
+            "peaks": peaks, "wall_s": time.perf_counter() - t0}
+
+
+def campaign_gates(run, runner):
+    """The report validates, every check passes with every layer
+    present, each device cell traced one input shape, and the device
+    rapid cell's curve is phase 8's run (a) bit for bit: the same
+    schedules, parameters and kernels, so its first steps also agree
+    with phase 8's CPU steps."""
+    import numpy as np
+    from repro_torch.eval import validate_report
+
+    report = run["report"]
+    probs = validate_report(report)
+    fails = [c for c in report["differential"] if c["status"] == "FAIL"]
+    ran = {c["check"] for c in report["differential"]}
+    missing = [k for k in CAMPAIGN_CHECKS if k not in ran]
+    if probs or fails or missing or not report["all_checks_pass"]:
+        raise RuntimeError(f"campaign {report['campaign']}: invalid {probs}, "
+                           f"failed {fails}, layers missing {missing}")
+    traces = [c.trace_count for c in run["cells"] if c.backend == "device"]
+    if traces != [1] * 4:
+        raise RuntimeError(f"device cells traced {traces}: expected 1 each")
+    rapid = next(c for c in run["cells"] if c.backend == "device"
+                 and c.system == "rapidgnn" and c.spec["topology"] == "flat")
+    curve = np.asarray(rapid.losses, np.float32)
+    if curve.tobytes() != np.asarray(runner["losses"],
+                                     np.float32).tobytes():
+        raise RuntimeError("the campaign's device rapid cell is not phase "
+                           "8's run (a)")
+    np.testing.assert_allclose(curve[:CPU_LOSS_STEPS], runner["cpu_losses"],
+                               rtol=1e-4, atol=1e-5)
+
+
+#: the fields of a cell that no clock decides
+CELL_COUNTS = ("num_steps", "warm_steps", "rpc_count", "remote_requests",
+               "cache_hits", "cache_misses", "hit_rate", "remote_bytes",
+               "vector_pull_bytes", "payload_bytes", "miss_matrix",
+               "wire_rows", "device_cache_bytes", "request_bytes",
+               "intra_misses", "inter_misses", "intra_bytes", "inter_bytes",
+               "intra_wire_rows", "inter_wire_rows", "trace_count",
+               "degraded_epochs", "fault_events", "losses", "accs")
+
+
+def campaign_cell_lines(name, run):
+    for c, ln, pk in zip(run["cells"], run["launches"], run["peaks"]):
+        tiers = (f" (intra {c.intra_wire_rows} + inter {c.inter_wire_rows})"
+                 if c.backend == "device" else "")
+        log(f"campaign {name} {c.spec['backend']}/{c.system}/"
+            f"{c.spec['topology']}: step_time_ms {c.step_time_ms:.3f}, "
+            f"warm_wall_s {c.warm_wall_s:.3f}, rpc_count {c.rpc_count}, "
+            f"remote_bytes {c.remote_bytes}, vector_pull_bytes "
+            f"{c.vector_pull_bytes}, wire_rows {c.wire_rows}{tiers}, "
+            f"hit_rate {c.hit_rate:.4f}, trace_count {c.trace_count}, "
+            f"stage_time_s {c.stage_time_s:.3f} / exposed_stage_s "
+            f"{c.exposed_stage_s:.3f}, launches "
+            f"{json.dumps({k: v for k, v in ln.items() if v})}, peak "
+            f"{pk / 2 ** 20:.1f} MiB")
+    for p in run["report"]["pairs"]:
+        e = p["energy"]
+        log(f"campaign {name} pair {p['backend']}/"
+            f"{p['scenario']['topology']} rapid vs {p['baseline_system']}: "
+            f"throughput_speedup {p['throughput_speedup']}x, "
+            f"fetch_reduction_x {p['fetch_reduction_x']}, "
+            f"bytes_reduction_x {p['bytes_reduction_x']}; modelled energy "
+            f"(Table 3 power x measured time) cpu_ratio {e['cpu_ratio']}, "
+            f"gpu_ratio {e['gpu_ratio']}, total_ratio {e['total_ratio']}")
+    n = {s: sum(1 for c in run["report"]["differential"] if c["status"] == s)
+         for s in ("PASS", "FAIL", "SKIP")}
+    log(f"campaign {name} differential: {n['PASS']} passed, {n['FAIL']} "
+        f"failed, {n['SKIP']} skipped; wall {run['wall_s']:.2f} s")
+
+
+def chaos_lines(out, cpu):
+    for r, c in zip(out["runs"], cpu["runs"]):
+        log(f"chaos train {r['plan']}: fires {r['fires']}, {r['outcome']} "
+            f"(CPU: fires {c['fires']}, {c['outcome']})")
+    for r in out["serve"]["runs"]:
+        log(f"chaos serve {r['plan']}: fires {r['fires']}, ok {r['ok']}, "
+            f"shed {r['shed']}, typed {r['typed']}, stale {r['stale']}")
+
+
+def campaign_phase(torch, device, counters, runner):
+    """(a) the paper campaign at full width, (b) the same grid with
+    every schedule compiled on the card, (c) the fault campaign, (d) the
+    chaos sweep on the card beside the same sweep on the CPU."""
+    from repro_torch.eval import validate_fault_report
+    from repro_torch.eval.campaign import run_fault_campaign
+    from repro_torch.fault.chaos import run_chaos
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    walls = {}
+    runs = {}
+    for name, backend in (("a", "numpy"), ("b", "device")):
+        suffix = "" if backend == "numpy" else "_device"
+        runs[name] = campaign_run(
+            torch, device, campaign_spec(backend), counters,
+            os.path.join(OUT_DIR, f"BENCH_torch_paper{suffix}.json"))
+        campaign_gates(runs[name], runner)
+        walls[name] = runs[name]["wall_s"]
+    for ca, cb in zip(runs["a"]["cells"], runs["b"]["cells"]):
+        diff = [k for k in CELL_COUNTS if getattr(ca, k) != getattr(cb, k)]
+        if diff:
+            raise RuntimeError(f"{cb.spec['backend']}/{cb.system}/"
+                               f"{cb.spec['topology']}: (b) differs from (a) "
+                               f"in {diff}")
+    for name in ("a", "b"):
+        campaign_cell_lines(name, runs[name])
+    log("campaign (a) numpy schedules vs (b) schedules on the card, "
+        "step_time_ms: " + ", ".join(
+            f"{ca.spec['backend']}/{ca.system}/{ca.spec['topology']} "
+            f"{ca.step_time_ms:.3f} vs {cb.step_time_ms:.3f}"
+            for ca, cb in zip(runs["a"]["cells"], runs["b"]["cells"])))
+
+    t0 = time.perf_counter()
+    for k in counters:
+        k.reset()
+    fault = run_fault_campaign(
+        device=device, out_path=os.path.join(OUT_DIR,
+                                             "BENCH_torch_fault.json"))
+    torch.cuda.synchronize()
+    walls["c"] = time.perf_counter() - t0
+    fault_launches = {k.name: k.value for k in counters}
+    probs = validate_fault_report(fault)
+    if probs or not fault["all_checks_pass"] or not any(
+            r["degraded_epochs"] > 0 for r in fault["fault_summary"]):
+        raise RuntimeError(f"fault campaign: invalid {probs}, failed "
+                           f"{[c for c in fault['differential'] if c['status'] == 'FAIL']}")
+    for r in fault["fault_summary"]:
+        log(f"fault {r['backend']} {r['fault_profile']}: fires "
+            f"{r['fault_events']}, degraded {r['degraded_epochs']}, retries "
+            f"{r['retry_total']}, recovery_wall_s {r['recovery_wall_s']}")
+
+    t0 = time.perf_counter()
+    for k in counters:
+        k.reset()
+    chaos = run_chaos(seed=0, fast=True, device=device, log=lambda s: None)
+    torch.cuda.synchronize()
+    walls["d"] = time.perf_counter() - t0
+    chaos_launches = {k.name: k.value for k in counters}
+    t0 = time.perf_counter()
+    cpu = run_chaos(seed=0, fast=True, device=torch.device("cpu"),
+                    log=lambda s: None)
+    walls["d CPU"] = time.perf_counter() - t0
+    plans = [(r["plan"], r["fires"], r["outcome"]) for r in chaos["runs"]]
+    if not chaos["ok"] or chaos["serve"]["trace_count"] != 1 or plans != [
+            (r["plan"], r["fires"], r["outcome"]) for r in cpu["runs"]]:
+        raise RuntimeError(f"chaos: ok {chaos['ok']}, failed "
+                           f"{chaos['failed_plans']}, serve trace_count "
+                           f"{chaos['serve']['trace_count']}, plans {plans}")
+    idle = [k for k in DEVICE_CELL_KERNELS if chaos_launches[k] == 0]
+    if idle or fault_launches["gather_agg_bwd"] == 0:
+        raise RuntimeError(f"chaos launches {chaos_launches}, fault "
+                           f"launches {fault_launches}")
+    chaos_lines(chaos, cpu)
+    log(f"chaos: {len(chaos['runs'])} train plans as on the CPU, "
+        f"{len(chaos['serve']['runs'])} serve plans, serve trace_count 1, "
+        f"checkpoint drill {chaos['checkpoint_drill']}; launches "
+        + json.dumps({k: v for k, v in chaos_launches.items() if v}))
+    log("fault campaign launches " + json.dumps(
+        {k: v for k, v in fault_launches.items() if v}))
+    total = {}
+    for ln in runs["a"]["launches"]:
+        for k, v in ln.items():
+            total[k] = total.get(k, 0) + v
+    log("campaign (a) launches over its 6 cells " + json.dumps(total))
+    log("campaign walls s " + json.dumps(
+        {k: round(v, 2) for k, v in walls.items()}))
+    with open(os.path.join(OUT_DIR, "chaos_torch.json"), "w") as f:
+        json.dump({"card": chaos, "cpu": cpu}, f, indent=1)
+    return {"walls": walls, "launches_a": total,
+            "launches": {k: v["launches"] for k, v in runs.items()},
+            "peaks": {k: v["peaks"] for k, v in runs.items()},
+            "pairs": {k: v["report"]["pairs"] for k, v in runs.items()},
+            "fault_summary": fault["fault_summary"],
+            "fault_launches": fault_launches,
+            "chaos": {"train": chaos["runs"], "serve": chaos["serve"]["runs"]},
+            "chaos_launches": chaos_launches}
+
+
 def main() -> int:
     import torch
 
@@ -2667,6 +2948,7 @@ def main() -> int:
         + emb["launches"]["merge_gather"]))
     del dist_in, emb_in
     runner = runner_phase(torch, device, g, pg, dist_counters)
+    campaign = campaign_phase(torch, device, dist_counters, runner)
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -2680,7 +2962,8 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels, "serve": phases,
                    "breakdown": split, "peak_bytes": peak,
                    "launches": launches, "train": train, "lm": lm,
-                   "dist": dist, "embedding": emb, "runner": runner}, f,
+                   "dist": dist, "embedding": emb, "runner": runner,
+                   "campaign": campaign}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -150,12 +150,12 @@ class DeviceEpochReport:
                 "stage_retries": int(self.stage_retries)}
 
 
-def _shape_key(tree) -> Tuple:
+def shape_key(tree) -> Tuple:
     """The static shapes and dtypes of a staged epoch's tensors."""
     if isinstance(tree, dict):
-        return tuple((k, _shape_key(tree[k])) for k in sorted(tree))
+        return tuple((k, shape_key(tree[k])) for k in sorted(tree))
     if isinstance(tree, list):
-        return tuple(_shape_key(t) for t in tree)
+        return tuple(shape_key(t) for t in tree)
     return tuple(tree.shape), str(tree.dtype)
 
 
@@ -468,7 +468,7 @@ class _DeviceRunnerBase:
                 # background WHILE this thread dispatches epoch e
                 fut = (pool.submit(self._stage, e + 1, 0)
                        if e + 1 < stop_epoch else None)
-                self._shape_keys.add(_shape_key(x))
+                self._shape_keys.add(shape_key(x))
                 params, opt_state, losses, accs = self._run_epoch(
                     params, opt_state, table, offsets, x)
                 losses = losses.cpu().numpy()   # waits for the epoch

@@ -42,6 +42,7 @@ from repro_torch.core.fetch import ShardedFeatureStore
 from repro_torch.core.metrics import EpochMetrics, NetworkModel
 from repro_torch.device import resolve_device
 from repro_torch.dist.gnn_step import CACHE_PAD, DeviceView
+from repro_torch.dist.runner import shape_key
 from repro_torch.fault.inject import fault_point, retry_call
 from repro_torch.fault.plan import InjectedFault
 from repro_torch.graph.partition import PartitionedGraph
@@ -62,7 +63,14 @@ from repro_torch.serve.gnn.warmer import CacheWarmer, WarmSnapshot
 class ServeProgram:
     """The inference program: a plain callable that moves one
     micro-batch to the device, runs ``assemble_features`` then the
-    batched ``forward``, and returns numpy logits."""
+    batched ``forward``, and returns numpy logits.
+
+    One program can serve several services of the same static shapes
+    (the chaos sweep hands every faulted run the same program).
+    ``trace_count`` is the number of distinct static input shapes it was
+    called with, counted as the device runner counts them (the
+    reference's count of XLA traces): a static-shape service keeps it at
+    1."""
 
     def __init__(self, cfg: GNNConfig, max_requests: int, m_max: int,
                  batch_size: int, d: int, base: int, device: torch.device):
@@ -73,6 +81,17 @@ class ServeProgram:
         self.d = d
         self.base = base
         self.device = device
+        self._shape_keys: set = set()
+
+    @property
+    def key(self) -> Tuple:
+        """The static shape a service must have to share this program."""
+        return (self.cfg, self.max_requests, self.m_max, self.batch_size,
+                self.d, self.base, self.device)
+
+    @property
+    def trace_count(self) -> int:
+        return len(self._shape_keys)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -83,16 +102,20 @@ class ServeProgram:
                  edge_src: Sequence[np.ndarray],
                  edge_dst: Sequence[np.ndarray],
                  edge_mask: Sequence[np.ndarray]) -> np.ndarray:
+        x = {"cache_ids": self._dev(cache_ids),
+             "cache_feats": self._dev(cache_feats),
+             "query": self._dev(query), "pulled": self._dev(pulled),
+             "edge_src": [self._dev(e) for e in edge_src],
+             "edge_dst": [self._dev(e) for e in edge_dst],
+             "edge_mask": [self._dev(e) for e in edge_mask]}
+        self._shape_keys.add(shape_key(x))
         with torch.inference_mode():
             flat = assemble_features(
-                table, self.base, self._dev(cache_ids),
-                self._dev(cache_feats), self._dev(query).reshape(-1),
-                self._dev(pulled).reshape(-1, self.d))
+                table, self.base, x["cache_ids"], x["cache_feats"],
+                x["query"].reshape(-1), x["pulled"].reshape(-1, self.d))
             h = flat.reshape(self.max_requests, self.m_max, self.d)
-            logits = forward(self.cfg, params, h,
-                             [self._dev(e) for e in edge_src],
-                             [self._dev(e) for e in edge_dst],
-                             [self._dev(e) for e in edge_mask])
+            logits = forward(self.cfg, params, h, x["edge_src"],
+                             x["edge_dst"], x["edge_mask"])
             return logits[:, :self.batch_size].cpu().numpy()
 
 
@@ -100,7 +123,8 @@ class GNNInferenceService:
     """Admission queue -> collator -> fused assembly -> batched forward.
 
     Runs on ``device`` (default ``cuda``; raises without a card unless
-    ``device="cpu"`` is asked for)."""
+    ``device="cpu"`` is asked for). ``program`` reuses another service's
+    ``ServeProgram`` of the same static shapes."""
 
     def __init__(self, pg: PartitionedGraph, sampler: KHopSampler,
                  cfg: GNNConfig, params: Params, *, s0: int = 0,
@@ -110,7 +134,8 @@ class GNNInferenceService:
                  pressure_slack_s: float = 0.02,
                  warm_interval_s: float = 0.05,
                  net: Optional[NetworkModel] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 program: Optional[ServeProgram] = None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params_to(params, self.device)
@@ -135,7 +160,14 @@ class GNNInferenceService:
         self._empty_cache_feats = np.zeros((self.n_hot, self.store.d),
                                            np.float32)
 
-        self.program = ServeProgram(
+        expect_key = (cfg, max_batch_requests, self.collator.m_max,
+                      self.collator.batch_size, self.store.d, self._base,
+                      self.device)
+        if program is not None and program.key != expect_key:
+            raise ValueError(
+                f"shared ServeProgram key {program.key} does not match "
+                f"this service's static shape {expect_key}")
+        self.program = program if program is not None else ServeProgram(
             cfg, max_batch_requests, self.collator.m_max,
             self.collator.batch_size, self.store.d, self._base, self.device)
 
@@ -155,6 +187,10 @@ class GNNInferenceService:
         return self.program(self.params, self._table, cache_ids,
                             cache_feats, query, pulled, mb.edge_src,
                             mb.edge_dst, mb.edge_mask)
+
+    @property
+    def trace_count(self) -> int:
+        return self.program.trace_count
 
     # ------------------------------------------------------------------
     # client API
@@ -345,6 +381,7 @@ class GNNInferenceService:
             warm_generation=self.warmer.generation,
             warm_failures=self.warmer.warm_failures,
             warmer_healthy=healthy,
+            trace_count=self.trace_count,
             pull_retries=self.metrics.pull_retries,
             remote_bytes=self.metrics.remote_bytes,
             rpc_count=self.metrics.rpc_count)

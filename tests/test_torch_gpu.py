@@ -753,3 +753,29 @@ def test_device_runner_resume_on_card_bit_equal(cuda, tmp_path):
         for k in a:
             assert torch.equal(a[k], b[k])
     assert int(tail_runner.opt_state.step) == int(full_runner.opt_state.step)
+
+
+@pytest.mark.gpu
+def test_campaign_device_cell_on_card(cuda):
+    """One fast-grid device cell (the rapid runner, 4 workers on the
+    card) through the campaign's cell runner: ``search``, ``assemble``
+    and ``gather_agg`` (forward and backward) launch, the cell's integer
+    fields equal the same cell on the CPU, losses within the reference's
+    tolerance, one shape key."""
+    from repro_torch.eval import fast_grid, run_device_cells
+    spec = fast_grid().device_cells()[0]
+    assert spec.is_rapid and spec.topology == "flat"
+    counters = (t_search_ops.LAUNCHES, t_assemble_ops.LAUNCHES,
+                t_gather_ops.LAUNCHES, t_gather_ops.BWD_LAUNCHES)
+    before = [c.value for c in counters]
+    card = run_device_cells([spec], device=cuda)[0]
+    torch.cuda.synchronize()
+    for c, b in zip(counters, before):
+        assert c.value > b, c.name
+    cpu = run_device_cells([spec], device="cpu")[0]
+    assert card.trace_count == 1
+    for f in ("rpc_count", "miss_matrix", "wire_rows", "request_bytes",
+              "payload_bytes", "vector_pull_bytes", "intra_wire_rows"):
+        assert getattr(card, f) == getattr(cpu, f), f
+    np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4,
+                               atol=1e-5)

@@ -116,8 +116,8 @@ def _check_pair(jr, tr, tsvc, seeds):
 
 def _same_health(jsvc, tsvc):
     hj, ht = jsvc.health(), tsvc.health()
-    assert "trace_count" not in ht
-    assert set(ht) == set(hj) - {"trace_count"}
+    assert set(ht) == set(hj)
+    assert ht["trace_count"] == 1
     for k in COUNTERS:
         assert ht[k] == hj[k], (k, ht[k], hj[k])
 
@@ -231,3 +231,31 @@ def test_threaded_service_serves_bit_equal_to_oracle():
         svc.close()
     assert svc.pending_error() is None
     assert svc.health()["completed"] == len(streams)
+
+
+def test_services_sharing_one_program_keep_one_trace():
+    """Two services handed the same ``ServeProgram`` serve a request
+    stream through it: the program sees one static input shape, so
+    ``trace_count`` stays 1 on both, and each service's responses stay
+    bit-equal to its oracle. A program of other static shapes is
+    refused."""
+    (g, pt, st, tcfg, tp) = _worlds()[1]
+    kw = dict(s0=S0, device="cpu", n_hot=32, default_timeout_s=30.0)
+    a = TService(pt, st, tcfg, tp, **kw)
+    b = TService(pt, st, tcfg, tp, program=a.program, **kw)
+    try:
+        assert b.program is a.program and a.trace_count == 0
+        for svc, seed in ((a, 3), (b, 4), (a, 5)):
+            streams = _streams(seed, g, 6)
+            got = _drain(svc, [svc.submit(s) for s in streams], ())
+            for r, s in zip(got, streams):
+                np.testing.assert_array_equal(r.logits, svc.oracle(s, r.rid))
+            svc.warmer.warm_now()
+        assert a.trace_count == b.trace_count == 1
+        assert a.health()["trace_count"] == b.health()["trace_count"] == 1
+        with pytest.raises(ValueError, match="static shape"):
+            TService(pt, st, tcfg, tp, program=a.program,
+                     max_batch_requests=2, **kw)
+    finally:
+        a.close()
+        b.close()
