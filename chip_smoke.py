@@ -15,20 +15,27 @@ Phases (any failure raises, so the exit code is non-zero):
    request, 4 requests per micro-batch, ``agg_backend="kernel"``.
    First uncached, then ``warm_now()``, then fresh. Every response must
    be bit-equal to ``oracle()``, and every kernel's launch count (set to
-   0 just before serving, read just after) must have risen. Two
+   0 just before serving, read just after) must have risen, except
+   ``search``'s, which must stay 0: the fused assembly ranks inside its
+   own kernel, one launch a micro-batch. Two
    responses are also held against the same service run on the CPU
    through the plain PyTorch versions (``rtol=1e-4, atol=1e-5``). Then
    one fresh micro-batch is stepped synchronously and split into host
    time and program time, and traced for the card's busy share.
 3. Hold each kernel against its plain PyTorch version on the card, at
    the shapes the served micro-batch gives it and at awkward shapes
-   (all bit-exact; ``gather_agg`` also against a second run, one card
-   operation a call, at d 1 / 3 / 130 / 256 / 602, each vector width and
-   fan-outs up to 50), and time kernel, plain version and, where one
-   exists, the single PyTorch library call computing the same function
-   (``torch.searchsorted`` for ``search``, ``F.embedding_bag`` for
-   ``gather_agg``; CUDA-graph replays timed with CUDA events, one call a
-   replay and, for these short calls, 20 calls to a graph).
+   (n_hot up to 32,768, the paper grid's largest, and 70,000, beyond a
+   one-line splitter table; the fused ``assemble`` one launch and one
+   card operation a call, no ``search``, against ``assemble_ref``, its
+   time logged beside the two-launch design it replaced; ``search`` one
+   card operation a call; all bit-exact; ``gather_agg`` also against a
+   second run, one card operation a call, at d 1 / 3 / 130 / 256 / 602,
+   each vector width and fan-outs up to 50), and time kernel, plain
+   version and, where one exists, the single PyTorch library call
+   computing the same function (``torch.searchsorted`` for ``search``,
+   ``F.embedding_bag`` for ``gather_agg``; CUDA-graph replays timed with
+   CUDA events, one call a replay and, for these short calls, 20 calls
+   to a graph).
 4. Train: the paper's RapidGNN pipeline on one card at the same width
    (``sage("reddit_sim", 1000)``: batch 1000, hidden 256, fan-outs
    (25, 10), n_hot 4096, Q 4, AdamW lr 3e-3, parameters from a seed).
@@ -92,8 +99,9 @@ Phases (any failure raises, so the exit code is non-zero):
    worker: ``pull_features``' buffers equal the numpy rows at
    ``send_pos``, the staged, fused and host-gathered features are
    bit-equal, and the pull lanes equal ``host_miss_matrix``. (c) Launch
-   counts (set to 0 before each run): ``merge_gather`` only in the
-   staged runs, ``assemble`` only in the others. (d) ms/step of each run,
+   counts (set to 0 before each run): ``search`` and ``merge_gather``
+   only in the staged runs, ``assemble`` only in the others. (d) ms/step
+   of each run,
    the exchange's own ms a step (CUDA events), miss lanes of rapid and
    on-demand and their ratio, the wire bytes, peak memory and a traced
    split of the card's time. (e) The hot-token embedding lookup at
@@ -123,10 +131,11 @@ Phases (any failure raises, so the exit code is non-zero):
    and final weights bit-equal. (f) (a) under the ``cache-loss`` fault
    profile: epoch 1 degraded (``cache_lost``), the curve bit-equal,
    ``trace_count`` at most 2. Launch counts are set to 0 before each
-   run and read after it. Prints per run and epoch the training ms a
-   step, wall, ``stage_s``, ``exposed_stage_s``, the boundary copy,
-   miss lanes and wire rows (and their tier split), each run's launches
-   and peak memory.
+   run and read after it: ``assemble`` and ``gather_agg`` in every run,
+   ``search`` and ``merge_gather`` in none. Prints per run and epoch the
+   training ms a step, wall, ``stage_s``, ``exposed_stage_s``, the
+   boundary copy, miss lanes and wire rows (and their tier split), each
+   run's launches and peak memory.
 9. The paper-metrics campaign (``repro_torch.eval``) and the chaos
    sweep (``repro_torch.fault.chaos``) on the card. (a) The paper's
    GraphSAGE at full width as a campaign built here from the port's
@@ -138,8 +147,9 @@ Phases (any failure raises, so the exit code is non-zero):
    check passes with every layer present (host vs device miss parity
    and bytes, rapid vs baseline, flat vs ``2x2``, ``one_compilation``
    with ``trace_count`` 1), each cell launched its kernels (device
-   cells ``search``, ``assemble``, ``gather_agg`` and its backward; host
-   cells the last two), and the device rapid cell's curve is phase 8's
+   cells ``assemble``, ``gather_agg`` and its backward; host cells the
+   last two; no cell ``search``), and the device rapid cell's curve is
+   phase 8's
    (a) bit for bit, its first 3 losses within ``rtol=1e-4, atol=1e-5`` of
    phase 8's CPU steps. (b) The same grid with every schedule compiled
    on the card (``seg_sort`` in every cell, lazily in the device
@@ -183,6 +193,12 @@ OUT_DIR = os.path.join(HERE, "artifacts")
 MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+
+#: the two-launch design the fused kernel replaced (search, then select)
+#: at the serving shape, one call a replay (PERF.md section 6 rows 1 and
+#: 2), logged beside the fused kernel
+TWO_LAUNCH_SEARCH_MS = 0.0101
+TWO_LAUNCH_SELECT_MS = 0.1262
 
 DATASET = "reddit_sim"
 PARTS = 4
@@ -393,9 +409,10 @@ def serve(torch, device, exp, g, pg, sampler, cfg, params, counters):
     if err is not None:
         raise RuntimeError(f"dispatcher failed: {err!r}")
     for name, n in launches.items():
-        if n == 0:
-            raise RuntimeError(f"kernel {name} was not launched while "
-                               f"serving")
+        # the fused assembly ranks inside its own kernel: no search
+        if (n == 0) != (name == "search"):
+            raise RuntimeError(f"kernel {name} was launched {n} times "
+                               f"while serving")
     # correctness: finite logits of the expected shape, bit-equal to the
     # clean single-request oracle
     for r in responses:
@@ -613,6 +630,32 @@ def awkward_cases(torch, device):
     return out
 
 
+def big_cache_cases(torch, device):
+    """The awkward cases' form at the paper grid's largest hot set (n_hot
+    32,768, ``repro/eval/spec.py``) and beyond a one-line splitter table
+    (70,000 ids: 64-id segments, a fourth 32-ary level), d 602."""
+    gen = torch.Generator(device="cpu").manual_seed(23)
+    sentinel = 2 ** 31 - 1
+    out = []
+    for n_hot in (32768, 70000):
+        m, d, n_per, base = 4096, 602, 200, 4 * n_hot
+        ids = torch.randperm(4 * n_hot, generator=gen)[:n_hot - 3].sort() \
+            .values.to(torch.int32)
+        ids = torch.cat([ids, torch.full((3,), sentinel, dtype=torch.int32)])
+        q = torch.randint(0, 4 * n_hot + n_per, (m,), generator=gen)
+        q[::3] = ids[torch.randint(0, n_hot - 3, (q[::3].shape[0],),
+                                   generator=gen)]
+        q[::5] = -1
+        q[1::7] = sentinel
+        q[:2] = torch.stack([ids[0], ids[n_hot - 4]])
+        out.append((f"n_hot_{n_hot}", ids.to(device),
+                    torch.randn((n_hot, d), generator=gen).to(device),
+                    torch.randn((n_per, d), generator=gen).to(device), base,
+                    q.to(torch.int32).to(device),
+                    torch.randn((m, d), generator=gen).to(device)))
+    return out
+
+
 def gather_agg_row(torch, h, src, msk, nd: int, fo: int, what: str):
     """The ``gather_agg`` forward at one shape: bit-equal to its plain
     version on the card (both sum each row's unmasked rows in edge order
@@ -698,7 +741,7 @@ def gather_awkward(torch, device):
 
 def kernel_phase(torch, device, x, launches):
     from repro_torch.kernels.assemble import ops as assemble_ops
-    from repro_torch.kernels.assemble.ref import assemble_ref, select_ref
+    from repro_torch.kernels.assemble.ref import assemble_ref
     from repro_torch.kernels.cache_lookup import ops as search_ops
     from repro_torch.kernels.cache_lookup.ref import search_ref
     from repro_torch.kernels.gather_agg import ops as gather_ops
@@ -715,6 +758,8 @@ def kernel_phase(torch, device, x, launches):
     pos, hit = search_ops.search(ids, q)
     err = _equal(torch, pos, search_ref(ids, q)[0])
     _equal(torch, hit, search_ref(ids, q)[1])
+    if device_ops(torch, lambda: search_ops.search(ids, q)) != ["kernel"]:
+        raise RuntimeError("search: more than its one kernel a call")
     nbytes = M * 4 + n_hot * 4 + M * 4 + M * 1
     ops = M * max(1, n_hot.bit_length())
     b, by = bound_ms(nbytes, ops)
@@ -743,24 +788,44 @@ def kernel_phase(torch, device, x, launches):
         f"{r['library_ms']:.4f} ({r['library_ms_in_a_graph']:.4f} in a "
         f"graph; torch.searchsorted) bound_ms={r['bound_ms']:.6f}")
 
-    # -- assemble (the select pass over the search outputs) ----------------
-    out = assemble_ops.select(table, base, feats, q, pos, hit, pulled)
-    err = _equal(torch, out, select_ref(table, base, feats, q, pos, hit,
-                                        pulled))
-    _equal(torch, out, assemble_ref(table, base, ids, feats, q, pulled))
-    nbytes = 2 * M * d * 4 + M * (4 + 4 + 1)
+    # -- assemble: rank, classify and copy in one launch --------------------
+    def fused():
+        return assemble_ops.assemble_features(table, base, ids, feats, q,
+                                              pulled, backend="fused")
+
+    def plain():
+        return assemble_ref(table, base, ids, feats, q, pulled)
+    before = (assemble_ops.LAUNCHES.value, search_ops.LAUNCHES.value)
+    out = fused()
+    if (assemble_ops.LAUNCHES.value - before[0],
+            search_ops.LAUNCHES.value - before[1]) != (1, 0):
+        raise RuntimeError("the fused assembly launched other than its one "
+                           "kernel")
+    err = _equal(torch, out, plain())
+    ops = device_ops(torch, fused)
+    if ops != ["kernel"]:
+        raise RuntimeError(f"fused assembly: card operations {ops}, one "
+                           f"kernel expected")
+    nbytes = 2 * M * d * 4 + M * 4 + n_hot * 4
     b, by = bound_ms(nbytes, 0)
     results.append({
         "name": "assemble", "route": "cuda",
         "source": "src/repro_torch/kernels/assemble/csrc/assemble.cu",
         "replaces": "src/repro/kernels/assemble/assemble.py:56",
         "launches": launches["assemble"], "max_abs_err": err,
-        "ms": device_ms(torch, lambda: assemble_ops.select(
-            table, base, feats, q, pos, hit, pulled)),
-        "plain_ms": device_ms(torch, lambda: select_ref(
-            table, base, feats, q, pos, hit, pulled)),
+        "ms": device_ms(torch, fused), "plain_ms": device_ms(torch, plain),
         "bound_ms": b, "bound_by": by, "library_ms": None,
+        "ms_in_a_graph": device_ms_per_call(torch, fused),
         "shape": f"rows={M} d={d} n_hot={n_hot} n_per={table.shape[0]}"})
+    r = results[-1]
+    log(f"assemble (fused): {r['shape']} ms={r['ms']:.4f} "
+        f"({r['ms_in_a_graph']:.4f} a call in a graph of 20) plain_ms="
+        f"{r['plain_ms']:.4f} bound_ms={r['bound_ms']:.6f} ({nbytes / 1e6:.1f}"
+        f" MB; {100 * r['bound_ms'] / r['ms']:.1f} % of the bound); 1 launch,"
+        f" 1 card op, no search; bit-equal to assemble_ref. The replaced two"
+        f" launches at this shape: {TWO_LAUNCH_SEARCH_MS} (search) + "
+        f"{TWO_LAUNCH_SELECT_MS} (select) ms (PERF.md section 6, NVIDIA H100 "
+        f"80GB HBM3, 700 W)")
 
     # -- gather_agg, layer 0 then layer 1 of the served forward ------------
     layers = []
@@ -801,7 +866,9 @@ def kernel_phase(torch, device, x, launches):
 
     # -- awkward shapes ------------------------------------------------------
     gather_awkward(torch, device)
-    for name, cids, cfeats, tab, b0, qq, pp in awkward_cases(torch, device):
+    for name, cids, cfeats, tab, b0, qq, pp in (awkward_cases(torch, device)
+                                                + big_cache_cases(torch,
+                                                                  device)):
         got = assemble_ops.assemble_features(tab, b0, cids, cfeats, qq, pp,
                                              backend="fused")
         _equal(torch, got, assemble_ref(tab, b0, cids, cfeats, qq, pp))
@@ -817,7 +884,7 @@ def kernel_phase(torch, device, x, launches):
         ga = gather_ops.gather_agg(pp, gsrc, gmsk, nd=nd_, fanout=fo_)
         _equal(torch, ga, gather_agg_ref(pp, gsrc, gmsk, nd_, fo_))
     log("awkward shapes: search, assemble and gather_agg equal to their "
-        "plain versions")
+        "plain versions (n_hot 0/8/16/32/64/32768/70000)")
     torch.cuda.synchronize()
     return results
 
@@ -2004,12 +2071,10 @@ def dist_phase(torch, device, g, pg, counters):
     # two rounds of the three runs, in turns: every curve must be the
     # first one bit for bit, and the spread of ms/step shows
     runs, launches, peaks = {}, {}, {}
-    want_on = {"rapid fused": ("search", "assemble", "gather_agg",
-                               "gather_agg_bwd"),
+    want_on = {"rapid fused": ("assemble", "gather_agg", "gather_agg_bwd"),
                "rapid staged": ("search", "merge_gather", "gather_agg",
                                 "gather_agg_bwd"),
-               "on-demand": ("search", "assemble", "gather_agg",
-                             "gather_agg_bwd")}
+               "on-demand": ("assemble", "gather_agg", "gather_agg_bwd")}
     for _ in range(2):
         for name, kind, backend in (("rapid fused", "rapid", "fused"),
                                     ("rapid staged", "rapid", "staged"),
@@ -2027,8 +2092,12 @@ def dist_phase(torch, device, g, pg, counters):
             if idle:
                 raise RuntimeError(f"{name} epoch did not launch {idle}: "
                                    f"{launches[name]}")
+    # the fused assembly (the on-demand epoch's too) ranks inside its own
+    # kernel: search only in the staged chain
     if launches["rapid fused"]["merge_gather"] or \
-            launches["rapid staged"]["assemble"]:
+            launches["rapid staged"]["assemble"] or \
+            launches["rapid fused"]["search"] or \
+            launches["on-demand"]["search"]:
         raise RuntimeError(f"a backend ran another's kernel: {launches}")
     # the backward orders its edges in its own kernel: no seg_sort
     if any(v["seg_sort"] for v in launches.values()):
@@ -2483,9 +2552,10 @@ def runner_phase(torch, device, g, pg, counters):
                         "stage_retries": runner.stage_retries,
                         "deadline_overruns": runner.deadline_overruns,
                         "degraded_epochs": runner.degraded_epochs}
-        idle = [k for k in ("search", "assemble", "gather_agg",
-                            "gather_agg_bwd") if launches[name][k] == 0]
-        if idle or launches[name]["merge_gather"]:
+        idle = [k for k in ("assemble", "gather_agg", "gather_agg_bwd")
+                if launches[name][k] == 0]
+        if idle or launches[name]["merge_gather"] or \
+                launches[name]["search"]:
             raise RuntimeError(f"runner {name}: launches {launches[name]}")
         return runner, reports
 
@@ -2621,9 +2691,11 @@ def runner_phase(torch, device, g, pg, counters):
 
 CAMPAIGN_EPOCHS = 3
 CAMPAIGN_N_HOT = 4096
-#: launches each cell must make (the schedule's seg_sort is (b)'s only)
+#: launches each cell must make (the schedule's seg_sort is (b)'s only);
+#: no cell launches search or merge_gather (the fused assembly ranks
+#: inside its own kernel)
 HOST_CELL_KERNELS = ("gather_agg", "gather_agg_bwd")
-DEVICE_CELL_KERNELS = ("search", "assemble", "gather_agg", "gather_agg_bwd")
+DEVICE_CELL_KERNELS = ("assemble", "gather_agg", "gather_agg_bwd")
 #: the differential layers the full-width campaign must run
 CAMPAIGN_CHECKS = ("miss_parity", "payload_bytes", "vector_pull_bytes",
                    "fetch_not_more", "loss_agreement", "topology_miss_parity",
@@ -2679,8 +2751,8 @@ def campaign_run(torch, device, spec, counters, out_path):
             else DEVICE_CELL_KERNELS
         idle = [k for k in want if launches[-1][k] == 0]
         seg = launches[-1]["seg_sort"]
-        if idle or launches[-1]["merge_gather"] or (
-                (seg == 0) == (c.schedule_backend == "device")):
+        if idle or launches[-1]["merge_gather"] or launches[-1]["search"] \
+                or ((seg == 0) == (c.schedule_backend == "device")):
             raise RuntimeError(f"campaign cell {c.label()}: launches "
                                f"{launches[-1]}")
     report = build_report(spec.name, cells, verify_cells(cells))
@@ -2837,7 +2909,8 @@ def campaign_phase(torch, device, counters, runner):
                            f"{chaos['failed_plans']}, serve trace_count "
                            f"{chaos['serve']['trace_count']}, plans {plans}")
     idle = [k for k in DEVICE_CELL_KERNELS if chaos_launches[k] == 0]
-    if idle or fault_launches["gather_agg_bwd"] == 0:
+    if idle or fault_launches["gather_agg_bwd"] == 0 or \
+            chaos_launches["search"] or fault_launches["search"]:
         raise RuntimeError(f"chaos launches {chaos_launches}, fault "
                            f"launches {fault_launches}")
     chaos_lines(chaos, cpu)
@@ -2946,6 +3019,11 @@ def main() -> int:
         torch, device, dist_in, emb_in,
         dist["launches"]["rapid staged"]["merge_gather"]
         + emb["launches"]["merge_gather"]))
+    # serving's fused assembly ranks inside its own kernel: the standalone
+    # search runs on the staged chain and the embedding lookup
+    next(k for k in kernels if k["name"] == "search")["launches"] = (
+        dist["launches"]["rapid staged"]["search"]
+        + emb["launches"]["search"])
     del dist_in, emb_in
     runner = runner_phase(torch, device, g, pg, dist_counters)
     campaign = campaign_phase(torch, device, dist_counters, runner)

@@ -2,18 +2,20 @@
 
 Replaces the TPU path ``repro/kernels/assemble/assemble.py``
 (``classify`` over the ``search`` kernel, then ``_select_kernel``). On
-CUDA tensors the fused backend launches two hand-written kernels: the
-``search`` kernel (``kernels/cache_lookup``) for (pos, hit), then the
-select kernel, which does the classify arithmetic inline and copies
-each row once from its winning source. Bound on the card: bytes, one
-(m, d) read of the winning rows plus one (m, d) write; the design
-touches no losing row. CPU tensors (or ``interpret=True``) take the
-plain versions in ``ref.py``; CUDA tensors never fall back.
+CUDA tensors the fused backend launches one hand-written kernel
+(``csrc/assemble.cu``): a warp per output row ranks the row's query over
+the sorted hot-set ids with a warp-cooperative 32-ary search, does the
+classify arithmetic inline and copies the row once from its winning
+source. Bound on the card: bytes, one (m, d) read of the winning rows
+plus one (m, d) write, the queries and the ids once
+(``2*m*d*4 + m*4 + n_hot*4``); the design touches no losing row and
+writes no rank. CPU tensors (or ``interpret=True``) take the plain
+version, ``assemble_ref``; CUDA tensors never fall back.
 
 Backends, bit-identical on the same inputs (every output row is a copy
 of exactly one source row):
 
-  * ``"fused"``  -- ``search`` + select, as above.
+  * ``"fused"``  -- the one kernel above.
   * ``"ref"``    -- the plain where-chain oracle.
   * ``"staged"`` -- the reference's legacy three-stage chain: the C_s
     merge (``cache_lookup``: the ``search`` and ``merge_gather`` kernels
@@ -22,8 +24,8 @@ of exactly one source row):
     overlay is plain jnp, not a Pallas kernel).
   * ``"auto"``   -- ``"fused"`` on CUDA tensors, ``"ref"`` on the CPU.
 
-``cache_ids=None`` assembles cache-less: local shard over pulled
-residuals only.
+``cache_ids=None`` (or an empty cache) assembles cache-less: local shard
+over pulled residuals only.
 """
 from __future__ import annotations
 
@@ -32,10 +34,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import LaunchCount, expect, use_plain
-from repro_torch.kernels.assemble.assemble import launch_select
-from repro_torch.kernels.assemble.ref import assemble_ref, select_ref
-from repro_torch.kernels.cache_lookup.ops import cache_lookup, search
-from repro_torch.kernels.cache_lookup.ref import SENTINEL
+from repro_torch.kernels.assemble.assemble import launch_assemble
+from repro_torch.kernels.assemble.ref import assemble_ref
+from repro_torch.kernels.cache_lookup.ops import cache_lookup
 
 BACKENDS = ("auto", "fused", "ref", "staged")
 
@@ -73,34 +74,29 @@ def _staged(table, base, cache_ids, cache_feats, query, pulled,
     return local_merge(table, base, query, merged)
 
 
-def select(table: torch.Tensor, base: int, cache_feats: torch.Tensor,
-           query: torch.Tensor, pos: torch.Tensor, hit: torch.Tensor,
-           pulled: torch.Tensor, *, interpret: bool = False
-           ) -> torch.Tensor:
-    """The select pass over ``search`` outputs: table (n_per, d);
-    cache_feats (n_hot >= 1, d); query/pos (m,) int32; hit (m,) bool;
-    pulled (m, d) -> (m, d)."""
+def _fused(table, base, cache_ids, cache_feats, query, pulled, interpret):
+    """The fused kernel on CUDA tensors, its plain version on the CPU."""
     for t, name in ((table, "table"), (cache_feats, "cache_feats"),
                     (pulled, "pulled")):
         expect(t, name, torch.float32, 2)
+    expect(cache_ids, "cache_ids", torch.int32, 1)
     expect(query, "query", torch.int32, 1)
-    expect(pos, "pos", torch.int32, 1)
-    expect(hit, "hit", torch.bool, 1)
     m, d = pulled.shape
     if table.shape[1] != d or cache_feats.shape[1] != d:
         raise ValueError(f"feature widths differ: table {table.shape[1]}, "
                          f"cache {cache_feats.shape[1]}, pulled {d}")
-    if not query.shape[0] == pos.shape[0] == hit.shape[0] == m:
-        raise ValueError("query/pos/hit/pulled row counts differ")
-    if table.shape[0] == 0 or cache_feats.shape[0] == 0:
-        raise ValueError("select needs a non-empty table and cache "
-                         "(an empty cache is one sentinel row)")
-    if use_plain(interpret, table, cache_feats, query, pos, hit, pulled):
-        return select_ref(table, base, cache_feats, query, pos, hit, pulled)
+    if query.shape[0] != m or cache_ids.shape[0] != cache_feats.shape[0]:
+        raise ValueError("query/pulled or cache_ids/cache_feats row counts "
+                         "differ")
+    if table.shape[0] == 0:
+        raise ValueError("assembly needs a non-empty shard table")
+    if use_plain(interpret, table, cache_ids, cache_feats, query, pulled):
+        return assemble_ref(table, base, cache_ids, cache_feats, query,
+                            pulled)
     out = torch.empty((m, d), dtype=torch.float32, device=pulled.device)
     if m == 0 or d == 0:
         return out
-    launch_select(table, base, cache_feats, pulled, query, pos, hit, out)
+    launch_assemble(table, base, cache_ids, cache_feats, pulled, query, out)
     LAUNCHES.bump()
     return out
 
@@ -124,14 +120,11 @@ def assemble_features(table: torch.Tensor, base: int,
         return _staged(table, base, cache_ids, cache_feats, query, pulled,
                        interpret)
     if cache_ids is None or cache_ids.shape[0] == 0:
-        # sentinel row: never hit, but keeps row 0 addressable
-        cache_ids = torch.full((1,), SENTINEL, dtype=torch.int32,
-                               device=query.device)
-        cache_feats = torch.zeros((1, pulled.shape[1]), dtype=pulled.dtype,
-                                  device=pulled.device)
+        # nothing can hit: empty stand-ins (an allocation, no fill kernel)
+        cache_ids = query.new_empty((0,))
+        cache_feats = pulled.new_empty((0, pulled.shape[1]))
     if backend == "ref":
         return assemble_ref(table, base, cache_ids, cache_feats, query,
                             pulled)
-    pos, hit = search(cache_ids, query, interpret=interpret)
-    return select(table, base, cache_feats, query, pos, hit, pulled,
-                  interpret=interpret)
+    return _fused(table, base, cache_ids, cache_feats, query, pulled,
+                  interpret)

@@ -10,18 +10,15 @@ Semantics of one assembled row (priority order, as the JAX package's
   3. PULLED  -- otherwise keep the pre-scattered residual row
                 (``pulled[i]``; zeros for padding ids).
 
-``assemble_ref`` is the where-chain oracle (the ``"ref"`` backend);
-``select_ref`` is the plain version of the CUDA select kernel, taking
-the ``search`` outputs exactly as the kernel does.
+``assemble_ref`` is the where-chain oracle: the ``"ref"`` backend and
+the plain version of the fused CUDA kernel, which ranks, classifies and
+copies in one pass.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.cache_lookup.ref import SENTINEL
-
-#: per-row source selector values
-SRC_PULLED, SRC_CACHE, SRC_LOCAL = 0, 1, 2
 
 
 def assemble_ref(table: torch.Tensor, base: int, cache_ids: torch.Tensor,
@@ -45,27 +42,3 @@ def assemble_ref(table: torch.Tensor, base: int, cache_ids: torch.Tensor,
     return torch.where(local[:, None], rows_local,
                        torch.where(hit[:, None], rows_cache, pulled))
 
-
-def classify(query: torch.Tensor, pos: torch.Tensor, hit: torch.Tensor,
-             base: int, n_per: int, n_hot: int):
-    """-> (src (m,) selector, cpos (m,) cache row, lslot (m,) shard slot);
-    gather indices are clamped in range so every row stays addressable
-    (its selector never picks the clamped source)."""
-    slot = query.long() - base
-    local = (slot >= 0) & (slot < n_per)
-    src = torch.where(local, SRC_LOCAL,
-                      torch.where(hit, SRC_CACHE, SRC_PULLED))
-    cpos = pos.long().clamp(max=max(n_hot - 1, 0))
-    lslot = slot.clamp(0, n_per - 1)
-    return src, cpos, lslot
-
-
-def select_ref(table: torch.Tensor, base: int, cache_feats: torch.Tensor,
-               query: torch.Tensor, pos: torch.Tensor, hit: torch.Tensor,
-               pulled: torch.Tensor) -> torch.Tensor:
-    """The select pass: every output row is a copy of its winning row."""
-    src, cpos, lslot = classify(query, pos, hit, base, table.shape[0],
-                                cache_feats.shape[0])
-    return torch.where(
-        (src == SRC_LOCAL)[:, None], table[lslot],
-        torch.where((src == SRC_CACHE)[:, None], cache_feats[cpos], pulled))

@@ -3,11 +3,15 @@
 
 ``search`` replaces the TPU kernel
 ``repro/kernels/cache_lookup/cache_lookup.py`` ``_search_kernel`` /
-``search`` (a comparison-mask sum over (Tq x Tc) tiles). On Hopper one
-thread per query runs a lower-bound binary search over the sorted ids,
-which stay in L1/L2; the bound is the few hundred KB of query/pos/hit
-bytes, so the design keeps the grid wide (one thread per query) and
-reads each query once.
+``search`` (a comparison-mask sum over (Tq x Tc) tiles). On Hopper each
+block of a persistent grid (at most 2 a multiprocessor) copies a
+splitter table into shared memory, the last id of every segment of
+``seg`` ids (one 128-byte line of 32 ids up to n_hot 65,536, at most
+2,048 words); each thread binary-searches the table,
+then takes its query's lower bound inside that one segment (one line,
+one L1/L2 miss). The bound is the few hundred KB of query/pos/hit
+bytes, below one launch's cost: on the main path the rank is folded
+into the fused assembly kernel instead.
 
 ``merge_gather`` replaces ``_merge_kernel`` / ``merge_gather`` of the
 same file (one cache row per grid step, merged over the pre-filled base).

@@ -10,9 +10,12 @@ sentinel ``CACHE_PAD`` to INT32_MAX, and queries use -1 for padding.
 (``repro/kernels/cache_lookup/cache_lookup.py:65``): an empty cache
 becomes one INT32_MAX sentinel row, queries pad with -1, and a sentinel
 query never hits. Bound on the card: bytes -- the query, pos and hit
-vectors (9 bytes a query) plus the sorted ids once; the design (one
-thread per query, a binary search over ids that stay in L1/L2) reads
-each of them once.
+vectors (9 bytes a query) plus the sorted ids once; the design (a
+shared-memory splitter table a block, then a lower bound inside one
+32-id line a query) reads each query once and one line of ids a query
+after the shared level. The
+fused assembly (``kernels/assemble``) ranks inside its own kernel and
+never launches this one.
 
 ``merge_gather`` keeps the contract of ``cache_lookup.py:111``: ``pos``
 clamps to ``n_hot - 1``, a hit takes the cached row cast to ``base``'s

@@ -4,9 +4,10 @@ One process, one worker's view of the partitioned graph, one static
 layout: requests admitted past the bounded queue are collated into a
 static ``(R, m_max)`` micro-batch, features are assembled by the fused
 assembly the trainer uses -- local shard > hot cache > pulled residuals,
-flattened to one ``assemble_features`` call (the ``search`` and select
-kernels on CUDA) -- and a batched ``forward`` (the ``gather_agg`` kernel
-per layer under ``agg_backend="kernel"``) produces per-request logits.
+flattened to one ``assemble_features`` call (one fused kernel on CUDA,
+which ranks each row over the hot set itself) -- and a batched
+``forward`` (the ``gather_agg`` kernel per layer under
+``agg_backend="kernel"``) produces per-request logits.
 
 Robustness ladder (every failure is typed or degrades, never silent):
 

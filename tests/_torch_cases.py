@@ -306,3 +306,59 @@ def as_dtype(a, dtype_name):
     nearest even, as JAX's astype does)."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(
         getattr(torch, dtype_name))
+
+
+#: hot-set sizes of the rank plans: the sentinel alone, one line and its
+#: edges, a 32-ary level's edges, the serving cache, the paper grid's
+#: largest (spec.py) and one beyond a one-line splitter table (65,536)
+PLAN_N_HOTS = (1, 31, 32, 33, 1023, 1024, 1025, 4096, 32768, 70000)
+PLAN_KINDS = ("mixed", "all_hit", "all_miss")
+
+
+def plan_case(n_hot, kind, m=256):
+    """-> (cache_ids (n_hot,) sorted int32, query (m,) int32). n_hot 1 is
+    the one INT32_MAX sentinel row of an empty cache; above 32 the ids end
+    in a padded INT32_MAX tail. ``mixed`` queries hold -1 padding,
+    INT32_MAX, hits (the smallest and largest id among them), misses, and
+    ids below the smallest and above the largest; ``all_hit`` draws from
+    the real ids (none for the sentinel cache), ``all_miss`` from the
+    gaps."""
+    rng = np.random.default_rng(zlib.crc32(f"{n_hot}-{kind}".encode()))
+    pad = 3 if n_hot > 32 else 0
+    lo, hi = 100, 100 + 4 * n_hot + 10
+    if n_hot == 1:
+        real = np.zeros(0, np.int32)
+    else:
+        real = np.sort(rng.choice(np.arange(lo, hi), size=n_hot - pad,
+                                  replace=False)).astype(np.int32)
+    ids = np.full(n_hot, SENTINEL, np.int32)
+    ids[:real.size] = real
+    gaps = np.setdiff1d(np.arange(0, hi + 100), real)
+    if kind == "all_hit" and real.size:
+        q = rng.choice(real, size=m)
+    elif kind == "all_miss":
+        q = rng.choice(gaps, size=m)
+    else:
+        q = rng.integers(0, hi + 100, size=m)
+        if real.size:
+            q[2::3] = rng.choice(real, size=q[2::3].shape[0])
+            q[5], q[6] = real[0], real[-1]
+        q[::5] = -1
+        q[1::7] = SENTINEL
+        q[3::11] = rng.integers(0, lo, size=q[3::11].shape[0])
+        q[4::13] = rng.integers(hi, hi + 100, size=q[4::13].shape[0])
+    return ids, q.astype(np.int32)
+
+
+def plan_assemble_case(n_hot, kind, m=96, d=5):
+    """-> (table, base, cache_ids, cache_feats, query, pulled): the rank
+    plan's cache and queries, with a shard of 40 rows just above the ids
+    and some of its ids among the queries (local rows win)."""
+    ids, q = plan_case(n_hot, kind, m)
+    rng = np.random.default_rng(zlib.crc32(f"asm-{n_hot}-{kind}".encode()))
+    n_per, base = 40, 100 + 4 * n_hot + 10
+    q[7::9] = rng.integers(base, base + n_per, size=q[7::9].shape[0])
+    table = rng.normal(size=(n_per, d)).astype(np.float32)
+    feats = rng.normal(size=(n_hot, d)).astype(np.float32)
+    pulled = rng.normal(size=(m, d)).astype(np.float32)
+    return table, base, ids, feats, q, pulled

@@ -20,10 +20,11 @@ import torch
 from _torch_cases import (ASSEMBLE_CASES, BWD_CASES, BWD_FULL_CASES,
                           FLASH_ATTN_CASES,
                           FLASH_DECODE_CASES, GATHER_CASES, MERGE_CASES,
-                          SEARCH_CASES, SORT_CASES, as_dtype, assemble_case,
-                          bwd_case, flash_attn_case, flash_decode_case,
-                          gather_case, merge_case, search_case, sort_case,
-                          to_t)
+                          PLAN_KINDS, PLAN_N_HOTS, SEARCH_CASES, SORT_CASES,
+                          as_dtype, assemble_case, bwd_case,
+                          flash_attn_case, flash_decode_case, gather_case,
+                          merge_case, plan_assemble_case, plan_case,
+                          search_case, sort_case, to_t)
 from repro_torch.kernels.assemble import ops as t_assemble_ops
 from repro_torch.kernels.assemble.ops import assemble_features as t_assemble
 from repro_torch.kernels.cache_lookup import ops as t_search_ops
@@ -84,18 +85,67 @@ def test_search_kernel_equals_plain_on_card(cuda, name):
     assert t_search_ops.LAUNCHES.value == before + 1
 
 
+PLAN_CASES = [(n, k) for n in PLAN_N_HOTS for k in PLAN_KINDS]
+PLAN_IDS = [f"n{n}-{k}" for n, k in PLAN_CASES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_hot,kind", PLAN_CASES, ids=PLAN_IDS)
+def test_search_kernel_at_plan_sizes_on_card(cuda, n_hot, kind):
+    """The splitter-table kernel from one line of ids to beyond a
+    one-line table (70,000): bit-equal to its plain version, one launch
+    and one card operation a call."""
+    ids, q = [t.to(cuda) for t in to_t(*plan_case(n_hot, kind, m=4096))]
+    before = t_search_ops.LAUNCHES.value
+    pos, hit = t_search_ops.search(ids, q)
+    want_pos, want_hit = t_search_ops.search(ids, q, interpret=True)
+    torch.cuda.synchronize()
+    assert torch.equal(pos, want_pos) and torch.equal(hit, want_hit)
+    assert t_search_ops.LAUNCHES.value == before + 1
+    assert device_kernels(lambda: t_search_ops.search(ids, q)) == 1
+
+
+def _fused_one_launch(tt, base, ti, tf, tq, tp):
+    """Fused assembly on the card: bit-equal to the plain version, one
+    ``assemble`` launch, no ``search`` launch, one card operation."""
+    before = (t_assemble_ops.LAUNCHES.value, t_search_ops.LAUNCHES.value)
+    got = t_assemble(tt, base, ti, tf, tq, tp, backend="fused")
+    want = t_assemble(tt, base, ti, tf, tq, tp, backend="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (t_assemble_ops.LAUNCHES.value,
+            t_search_ops.LAUNCHES.value) == (before[0] + 1, before[1])
+    assert device_kernels(lambda: t_assemble(tt, base, ti, tf, tq, tp,
+                                             backend="fused")) == 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(ASSEMBLE_CASES))
 def test_assemble_kernel_equals_plain_on_card(cuda, name):
     table, base, ids, feats, q, pulled = assemble_case(name)
     tt, ti, tf, tq, tp = [t.to(cuda) for t in to_t(table, ids, feats, q,
                                                   pulled)]
-    before = t_assemble_ops.LAUNCHES.value
-    got = t_assemble(tt, base, ti, tf, tq, tp, backend="fused")
-    want = t_assemble(tt, base, ti, tf, tq, tp, backend="ref")
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    assert t_assemble_ops.LAUNCHES.value == before + 1
+    _fused_one_launch(tt, base, ti, tf, tq, tp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_hot,kind", PLAN_CASES, ids=PLAN_IDS)
+def test_fused_assemble_at_plan_sizes_on_card(cuda, n_hot, kind):
+    """The warp's 32-ary rank from one line of ids to 70,000 (4 levels),
+    with local, hit, missed, -1 and sentinel rows."""
+    table, base, ids, feats, q, pulled = plan_assemble_case(
+        n_hot, kind, m=2048, d=602)
+    _fused_one_launch(*[t.to(cuda) if torch.is_tensor(t) else t for t in (
+        *to_t(table), base, *to_t(ids, feats, q, pulled))])
+
+
+@pytest.mark.gpu
+def test_fused_assemble_cacheless_on_card(cuda):
+    """No cache (the on-demand epoch's call): still one launch, no fill
+    kernel for a stand-in cache, no search."""
+    table, base, _, _, q, pulled = assemble_case("mixed")
+    tt, tq, tp = [t.to(cuda) for t in to_t(table, q, pulled)]
+    _fused_one_launch(tt, base, None, None, tq, tp)
 
 
 @pytest.mark.gpu
@@ -161,8 +211,9 @@ def test_gather_agg_plan_edges_on_card(cuda, name):
 def test_service_on_card_matches_oracle_and_cpu(cuda):
     """The serving slice on ``cuda`` at a small size: uncached then fresh
     responses bit-equal to the card's own oracle and within the
-    reference's cross-program tolerance of the CPU path, with every
-    kernel launched while serving."""
+    reference's cross-program tolerance of the CPU path, with the
+    assembly and ``gather_agg`` kernels launched while serving and no
+    ``search`` (the fused assembly ranks inside its own kernel)."""
     from repro_torch.graph import KHopSampler, load_dataset, partition_graph
     from repro_torch.graph.sampler import rng_from
     from repro_torch.models.gnn import GNNConfig, init_params
@@ -175,9 +226,9 @@ def test_service_on_card_matches_oracle_and_cpu(cuda):
                     num_classes=g.num_classes, num_layers=2, fanouts=(3, 3),
                     agg_backend="kernel")
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    counters = (t_search_ops.LAUNCHES, t_assemble_ops.LAUNCHES,
-                t_gather_ops.LAUNCHES)
+    counters = (t_assemble_ops.LAUNCHES, t_gather_ops.LAUNCHES)
     before = [c.value for c in counters]
+    searched = t_search_ops.LAUNCHES.value
     rng = rng_from(4, 0x7E57)
     streams = [rng.integers(0, g.num_nodes, size=4) for _ in range(8)]
     svc = GNNInferenceService(pg, sampler, cfg, params, s0=7, n_hot=32,
@@ -201,6 +252,8 @@ def test_service_on_card_matches_oracle_and_cpu(cuda):
     assert svc.health()["served_uncached"] == 4
     assert svc.health()["served_fresh"] == 4
     assert all(c.value > b for c, b in zip(counters, before))
+    # the fused assembly ranks inside its own kernel
+    assert t_search_ops.LAUNCHES.value == searched
 
 
 @pytest.mark.gpu
@@ -708,11 +761,12 @@ def test_device_runner_on_card_matches_cpu(cuda, layout):
     card_runner = _device_runner(world, cuda, layout)
     card = card_runner.run()
     torch.cuda.synchronize()
-    for name, counter in (("search", t_search_ops.LAUNCHES),
-                          ("assemble", t_assemble_ops.LAUNCHES),
+    for name, counter in (("assemble", t_assemble_ops.LAUNCHES),
                           ("gather_agg", t_gather_ops.LAUNCHES),
                           ("gather_agg_bwd", t_gather_ops.BWD_LAUNCHES)):
         assert counter.value > before[name], name
+    # the fused assembly ranks inside its own kernel
+    assert t_search_ops.LAUNCHES.value == before["search"]
     cpu = _device_runner(world, torch.device("cpu"), layout).run()
     assert card_runner.trace_count == 1
     for a, b in zip(card, cpu):
@@ -758,20 +812,23 @@ def test_device_runner_resume_on_card_bit_equal(cuda, tmp_path):
 @pytest.mark.gpu
 def test_campaign_device_cell_on_card(cuda):
     """One fast-grid device cell (the rapid runner, 4 workers on the
-    card) through the campaign's cell runner: ``search``, ``assemble``
-    and ``gather_agg`` (forward and backward) launch, the cell's integer
+    card) through the campaign's cell runner: ``assemble`` and
+    ``gather_agg`` (forward and backward) launch, ``search`` does not (the
+    fused assembly ranks inside its own kernel), the cell's integer
     fields equal the same cell on the CPU, losses within the reference's
     tolerance, one shape key."""
     from repro_torch.eval import fast_grid, run_device_cells
     spec = fast_grid().device_cells()[0]
     assert spec.is_rapid and spec.topology == "flat"
-    counters = (t_search_ops.LAUNCHES, t_assemble_ops.LAUNCHES,
-                t_gather_ops.LAUNCHES, t_gather_ops.BWD_LAUNCHES)
+    counters = (t_assemble_ops.LAUNCHES, t_gather_ops.LAUNCHES,
+                t_gather_ops.BWD_LAUNCHES)
     before = [c.value for c in counters]
+    searched = t_search_ops.LAUNCHES.value
     card = run_device_cells([spec], device=cuda)[0]
     torch.cuda.synchronize()
     for c, b in zip(counters, before):
         assert c.value > b, c.name
+    assert t_search_ops.LAUNCHES.value == searched
     cpu = run_device_cells([spec], device="cpu")[0]
     assert card.trace_count == 1
     for f in ("rpc_count", "miss_matrix", "wire_rows", "request_bytes",
