@@ -167,6 +167,25 @@ Phases (any failure raises, so the exit code is non-zero):
    go to ``artifacts/BENCH_torch_paper.json``,
    ``BENCH_torch_paper_device.json``, ``BENCH_torch_fault.json`` and
    ``chaos_torch.json``.
+10. LM training (``lm_loss`` and ``make_train_step`` through autograd,
+   the launcher's ``AdamW(lr=3e-4, weight_decay=0.01,
+   max_grad_norm=1.0)``), after phase 6's parameters are freed. (a)
+   granite-3-2b (``configs/granite_3_2b.py``) at its full width and
+   depth in bfloat16, parameters from a seeded generator on the card,
+   B=1, S=4096 (``train_4k``'s sequence, its global batch cut to one
+   card), 5 steps: the attention takes the chunked path under
+   ``torch.utils.checkpoint``, so ``flash_attention`` and
+   ``flash_decode`` must launch 0 times (counts set to 0 just before
+   the steps, read just after); the last loss below the first; a second
+   fresh run's loss curve bit-equal. Prints ms a step, tokens/s, the
+   6·N·T model TFLOP/s, peak device memory and a ``torch.profiler``
+   split of one more step's card time by op beside its wall; the token
+   embedding's backward (an accumulating index backward over 4096 Zipf
+   tokens) twice, bit-equal, with the card kernels it ran. (b) The
+   reduced smollm-360m, gemma2-2b, granite-3-2b and qwen1.5-32b in
+   float32, 3 steps of the launcher's batch (8 x 128) on the card and on
+   the CPU from the same parameters: losses within ``rtol=1e-4,
+   atol=1e-5``, a second card run bit-equal, no kernel launched.
 
 Output: one ``kernel {...}`` line per kernel, the card's name and power
 limit, one ``{"kernels": [...]}`` line, and as the last line
@@ -177,6 +196,7 @@ no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -222,6 +242,15 @@ LONG_B, LONG_S = 16, 32768
 DIST_EPOCHS = 1
 EMB_WORKERS, EMB_BATCH, EMB_SEQ = 8, 16, 256
 EMB_N_HOT, EMB_STEPS, EMB_S0 = 32768, 100, 7
+LM_TRAIN_ARCH = "granite-3-2b"
+#: 8 steps: without warm-up the launcher's AdamW lifts granite-3-2b's loss
+#: for its first steps (11.27 to 18.27 at step 3) and brings it below the
+#: first from step 6 (PERF.md, LM training)
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_STEPS = 1, 4096, 8
+LM_TRAIN_REDUCED = ("smollm-360m", "gemma2-2b", "granite-3-2b",
+                    "qwen1.5-32b")
+LM_REDUCED_B, LM_REDUCED_S, LM_REDUCED_STEPS = 8, 128, 3
+EMB_BWD_CALLS = 10
 
 
 def log(msg: str) -> None:
@@ -1382,14 +1411,16 @@ def lm_tokens(cfg, shape, field: int):
     return zipf_tokens(rng_from(LM_SEED, field), cfg.vocab_size, shape)
 
 
-def card_time_by_op(torch, fn, top: int = 8):
+def card_time_by_op(torch, fn, top: int = 8, host: bool = True):
     """Run ``fn`` once under ``torch.profiler``: (wall s, card busy ms,
-    the ``top`` card ops by self time in ms)."""
+    the ``top`` card ops by self time in ms). ``host=False`` records the
+    card's activity alone, for a call of some 10^5 kernels, whose host
+    events take minutes to gather."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1552,14 +1583,14 @@ def layer_qkv(torch, cfg, params, toks):
     from repro_torch.models.transformer.blocks import (_project_qkv,
                                                        block_apply)
     from repro_torch.models.transformer.common import rms_norm
-    from repro_torch.models.transformer.model import _embed, block_params
+    from repro_torch.models.transformer.model import _embed, _unstack
 
     pos = torch.arange(toks.shape[1], device=toks.device)[None, :]
     out = []
     with torch.inference_mode():
         x = _embed(cfg, params, toks)
         for i, kind in enumerate(cfg.pattern[:2]):
-            p = block_params(params, i, 0)
+            p = _unstack(params["blocks"][i])[0]
             h = rms_norm(x, p["ln1"], cfg.norm_eps)
             q, k, v = _project_qkv(cfg, p["attn"], h, pos)
             out.append((kind, cfg.window if kind == "local" else 0,
@@ -2939,6 +2970,242 @@ def campaign_phase(torch, device, counters, runner):
             "chaos_launches": chaos_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: LM training
+# ---------------------------------------------------------------------------
+
+def lm_train_run(torch, device, cfg, batch: int, seq: int, steps: int,
+                 gen_device, counters=(), trace: bool = False):
+    """``make_train_step`` with the launcher's AdamW from parameters drawn
+    by a seeded generator on ``gen_device``, over ``synthetic_lm_batches``
+    on ``device``: the loss curve, each step's ms (host clock; the loss
+    read synchronises), launches (counts set to 0 just before the steps,
+    read just after), peak device memory, and with ``trace`` one more
+    step under ``torch.profiler``."""
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.models.transformer import init_params, make_train_step
+    from repro_torch.train import AdamW
+
+    batches = [{k: v.to(device) for k, v in b.items()}
+               for b in synthetic_lm_batches(cfg, batch=batch, seq=seq,
+                                             steps=steps, s0=LM_SEED)]
+    params = init_params(cfg, torch.Generator(device=gen_device).manual_seed(
+        LM_SEED), device)
+    opt = AdamW(lr=3e-4, weight_decay=0.01, max_grad_norm=1.0)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, state, aux = step(params, state, b)
+        losses.append(aux["loss"].item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    out = {"losses": losses, "step_ms": ms,
+           "launches": {c.name: c.value for c in counters},
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "parameters": sum(t.numel() for t in _leaves(params))}
+    if trace:
+        out["split_ms"] = step_split(torch, cfg, opt, params, state,
+                                     batches[0])
+        wall, busy, ops = card_time_by_op(
+            torch, lambda: step(params, state, batches[0]), top=10,
+            host=False)
+        out.update(traced_ms=1e3 * wall, card_busy_ms=busy,
+                   card_ms_by_op=ops)
+    return out
+
+
+def step_split(torch, cfg, opt, params, state, batch):
+    """One more step of ``make_train_step``'s body, its three parts timed
+    with CUDA events: the loss (forward), the gradient (the backward, each
+    repeat's forward run again inside it) and the in-place update."""
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.train.optim import tree_leaves, tree_map
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = lm_loss(cfg, p, batch)
+    ev[1].record()
+    it = iter(torch.autograd.grad(loss, tree_leaves(p)))
+    ev[2].record()
+    grads = tree_map(lambda _: next(it), params)
+    opt.update(grads, state, params, inplace=True)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {part: ev[i].elapsed_time(ev[i + 1]) for i, part in
+            enumerate(("forward", "backward", "update"))}
+
+
+def attention_share(torch, device, cfg, seq: int):
+    """One layer's chunked attention at the training shape, under autograd
+    as a step runs it: the forward and the backward timed with CUDA events
+    (median of 3), and what ``num_layers`` x (2 forwards, one of them the
+    rematerialisation, + 1 backward) come to."""
+    from repro_torch.models.transformer.attention import attention
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+
+    def rand(h):
+        return torch.randn((1, seq, h, cfg.head_dim), generator=gen,
+                           device=device).to(torch.bfloat16)
+    q = rand(cfg.num_heads).requires_grad_()
+    k, v = (rand(cfg.num_kv_heads).requires_grad_() for _ in range(2))
+    g = rand(cfg.num_heads)
+    kw = dict(attn_softcap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk,
+              kv_chunk=cfg.attn_kv_chunk)
+    times = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        o = attention(q, k, v, **kw)
+        ev[1].record()
+        torch.autograd.grad(o, (q, k, v), g)
+        ev[2].record()
+        torch.cuda.synchronize()
+        times.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    fwd, bwd = sorted(times)[1]
+    return {"forward_ms": fwd, "backward_ms": bwd,
+            "step_ms": cfg.num_layers * (2 * fwd + bwd)}
+
+
+def embedding_backward(torch, device, cfg, tokens):
+    """The token embedding's backward, which sums the rows of repeated
+    tokens, twice on the same inputs, two ways: the model's ``_embed``
+    (``F.embedding``; must be bit-equal) and ``table[tokens]`` (an
+    accumulating ``index_put_``; recorded). Each with the card kernels it
+    runs by name, ms a call over ``EMB_BWD_CALLS`` calls traced (a trace
+    of one short call loses kernels at its edges)."""
+    from repro_torch.models.transformer.model import _embed
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
+                        device=device).to(torch.bfloat16).requires_grad_()
+    g = torch.randn((*tokens.shape, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    out = {"tokens": tokens.numel(),
+           "unique": int(torch.unique(tokens).numel())}
+    for name, fwd in (("embedding", lambda: _embed(cfg, {"embed": table},
+                                                    tokens)),
+                      ("index", lambda: table[tokens.long()])):
+        def run():
+            return torch.autograd.grad(fwd(), table, g)[0]
+        equal = torch.equal(run(), run())
+        _, busy, ops = card_time_by_op(
+            torch, lambda: [run() for _ in range(EMB_BWD_CALLS)], top=4)
+        out[name] = {"bit_equal": equal,
+                     "card_busy_ms": busy / EMB_BWD_CALLS,
+                     "card_ms_by_op": {k: v / EMB_BWD_CALLS
+                                       for k, v in ops.items()}}
+    if not out["embedding"]["bit_equal"]:
+        raise RuntimeError("the model's embedding backward differs between "
+                           "two runs on the same inputs")
+    return out
+
+
+def _close(a, b, rtol=1e-4, atol=1e-5) -> bool:
+    return all(abs(x - y) <= atol + rtol * abs(y) for x, y in zip(a, b))
+
+
+def lm_train_phase(torch, device, counters):
+    import dataclasses
+    from repro_torch.configs import get_arch, get_reduced
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = get_arch(LM_TRAIN_ARCH) if LM_FULL else get_reduced(LM_TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    tokens = LM_TRAIN_B * LM_TRAIN_S
+    runs = [lm_train_run(torch, device, cfg, LM_TRAIN_B, LM_TRAIN_S,
+                         LM_TRAIN_STEPS, device, counters, trace)
+            for trace in (True, False)]
+    a, b = runs
+    losses = a["losses"]
+    if any(n for n in a["launches"].values()):
+        raise RuntimeError(f"LM training launched {a['launches']}: the "
+                           f"gradient path must not call the kernels")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise RuntimeError(f"{cfg.name} losses {losses}: not finite or not "
+                           f"falling")
+    if b["losses"] != losses:
+        raise RuntimeError(f"a second fresh run gave another curve: "
+                           f"{b['losses']} against {losses}")
+    steady = a["step_ms"][1:]
+    ms = sum(steady) / len(steady)
+    flops = 6 * a["parameters"] * tokens
+    out = {"arch": cfg.name, "batch": LM_TRAIN_B, "seq": LM_TRAIN_S,
+           "held_at_start_bytes": held, "runs": runs, "ms": ms,
+           "tokens_per_s": tokens / (ms / 1e3),
+           "model_tflops_per_s": flops / (ms / 1e3) / 1e12}
+    log(f"lm train {cfg.name}: {'full' if LM_FULL else 'reduced'} "
+        f"{cfg.num_layers} layers d={cfg.d_model} H={cfg.num_heads} "
+        f"kvH={cfg.num_kv_heads} dh={cfg.head_dim} {cfg.dtype}, "
+        f"{a['parameters'] / 1e9:.3f} B parameters, B={LM_TRAIN_B} "
+        f"S={LM_TRAIN_S}; {held / 2**30:.2f} GiB held at the start")
+    log(f"lm train: {LM_TRAIN_STEPS} steps, losses {losses}; ms a step "
+        f"{[round(x, 2) for x in a['step_ms']]} (first includes warm-up), "
+        f"{ms:.2f} after it ({out['tokens_per_s']:.0f} tok/s, "
+        f"{out['model_tflops_per_s']:.1f} TFLOP/s of 6*N*T, "
+        f"{100 * out['model_tflops_per_s'] * 1e12 / BF16_FLOPS_PER_S:.1f} % "
+        f"of 989); peak device memory {a['peak_bytes'] / 2**30:.2f} GiB; "
+        f"launches {json.dumps(a['launches'])}; last loss below the first; "
+        f"second fresh run bit-equal (its ms a step "
+        f"{[round(x, 2) for x in b['step_ms']]})")
+    split = a["split_ms"]
+    attn = attention_share(torch, device, cfg, LM_TRAIN_S)
+    out["attention"] = attn
+    log(f"lm train step split (CUDA events): forward {split['forward']:.1f} "
+        f"ms, backward with the rematerialised forwards "
+        f"{split['backward']:.1f} ms, AdamW in place {split['update']:.1f} "
+        f"ms; one layer's chunked attention (1, {LM_TRAIN_S}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads}, {cfg.head_dim}) bf16: forward "
+        f"{attn['forward_ms']:.2f} ms, backward {attn['backward_ms']:.2f} "
+        f"ms, x {cfg.num_layers} layers x (2 forwards + 1 backward) = "
+        f"{attn['step_ms']:.1f} ms, {100 * attn['step_ms'] / ms:.1f} % of "
+        f"the step")
+    log(f"lm train traced step (card activity only): wall "
+        f"{a['traced_ms']:.2f} ms, card busy {a['card_busy_ms']:.2f} ms; "
+        f"card ms by op {json.dumps(a['card_ms_by_op'])}")
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    toks = next(synthetic_lm_batches(cfg, batch=LM_TRAIN_B, seq=LM_TRAIN_S,
+                                     steps=1, s0=LM_SEED))["tokens"]
+    emb = embedding_backward(torch, device, cfg, toks.to(device))
+    out["embedding_backward"] = emb
+    for name in ("embedding", "index"):
+        log(f"lm train embedding backward ({name}): {emb['tokens']} tokens "
+            f"({emb['unique']} distinct) into ({cfg.padded_vocab}, "
+            f"{cfg.d_model}) bf16, two runs bit-equal: "
+            f"{emb[name]['bit_equal']}; card ms a call by op "
+            f"{json.dumps(emb[name]['card_ms_by_op'])}")
+
+    cpu = torch.device("cpu")
+    out["reduced"] = {}
+    for arch in LM_TRAIN_REDUCED:
+        rcfg = get_reduced(arch)
+        args = (rcfg, LM_REDUCED_B, LM_REDUCED_S, LM_REDUCED_STEPS, cpu)
+        card = lm_train_run(torch, device, *args, counters)
+        again = lm_train_run(torch, device, *args)
+        host = lm_train_run(torch, cpu, *args)
+        if any(n for n in card["launches"].values()):
+            raise RuntimeError(f"{arch} training launched {card['launches']}")
+        if not _close(card["losses"], host["losses"]):
+            raise RuntimeError(f"{arch}: card losses {card['losses']} vs CPU "
+                               f"{host['losses']}")
+        if again["losses"] != card["losses"]:
+            raise RuntimeError(f"{arch}: a second card run gave "
+                               f"{again['losses']}, not {card['losses']}")
+        out["reduced"][arch] = {"card": card["losses"],
+                                "cpu": host["losses"],
+                                "card_step_ms": card["step_ms"]}
+        log(f"lm train {arch} (reduced, float32, {LM_REDUCED_B}x"
+            f"{LM_REDUCED_S}): card {card['losses']} within rtol=1e-4 "
+            f"atol=1e-5 of the CPU {host['losses']}; second card run "
+            f"bit-equal; launches {json.dumps(card['launches'])}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3027,6 +3294,8 @@ def main() -> int:
     del dist_in, emb_in
     runner = runner_phase(torch, device, g, pg, dist_counters)
     campaign = campaign_phase(torch, device, dist_counters, runner)
+    lm_train = lm_train_phase(torch, device,
+                              [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -3041,7 +3310,7 @@ def main() -> int:
                    "breakdown": split, "peak_bytes": peak,
                    "launches": launches, "train": train, "lm": lm,
                    "dist": dist, "embedding": emb, "runner": runner,
-                   "campaign": campaign}, f,
+                   "campaign": campaign, "lm_train": lm_train}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

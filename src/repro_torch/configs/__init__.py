@@ -15,6 +15,8 @@ from repro_torch.configs.rapidgnn_paper import GNNExperimentConfig, gcn, sage
 _MODULES = {
     "smollm-360m": "repro_torch.configs.smollm_360m",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
 }
 
 ARCH_NAMES = list(_MODULES)
@@ -25,7 +27,7 @@ def _module(name: str):
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (the port runs "
             f"{ARCH_NAMES}; MoE, SSM, RG-LRU, enc-dec and M-RoPE wait "
-            f"for ROADMAP Queue 1 item 12)")
+            f"for ROADMAP Queue 1 item 3)")
     return importlib.import_module(_MODULES[name])
 
 

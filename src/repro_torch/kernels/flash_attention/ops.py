@@ -69,8 +69,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError(
-            "flash_attention has no backward kernel yet (LM training: "
-            "ROADMAP Queue 1 item 12)")
+            "flash_attention has no backward kernel: training takes the "
+            "chunked attention of models/transformer/attention.py, which "
+            "dispatches on requires_grad (a backward kernel is ROADMAP "
+            "Queue 2 item 7)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

@@ -8,13 +8,18 @@ graph, with the paper's GraphSAGE (hidden 256, 2 layers, fan-outs
 backward (``agg_backend="kernel"``). The schedule is compiled on the
 device (``--schedule-backend device``, the ``seg_sort`` kernel) or by
 the numpy compiler (``numpy``); both give the same schedule bit for
-bit. ``--device`` defaults to ``cuda`` and raises without a card.
-``--workload lm`` waits for the transformer substrate.
+bit. ``--workload lm --arch <id>`` trains the reduced variant of a
+ported architecture on synthetic token data (``synthetic_lm_batches``)
+with AdamW, through ``lm_loss`` under autograd (the chunked attention,
+each repeat rematerialised). ``--device`` defaults to ``cuda`` and
+raises without a card.
 
   PYTHONPATH=src python -m repro_torch.launch.train --workload gnn \\
       --dataset reddit_sim --system rapidgnn --epochs 5
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --dataset tiny --epochs 2 --batch-size 64
+  PYTHONPATH=src python -m repro_torch.launch.train --workload lm \\
+      --arch smollm-360m --steps 50 --device cpu
 """
 from __future__ import annotations
 
@@ -96,9 +101,36 @@ def run_gnn(args) -> None:
 
 
 def run_lm(args) -> None:
-    raise NotImplementedError(
-        "--workload lm needs the transformer substrate, which the port "
-        "does not have yet (ROADMAP.md Queue 1 item 12)")
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.models.transformer import init_params, make_train_step
+    from repro_torch.train import AdamW, save_checkpoint
+
+    device = resolve_device(args.device)
+    cfg = get_reduced(args.arch)
+    params = init_params(cfg, torch.Generator().manual_seed(args.seed),
+                         device)
+    opt = AdamW(lr=3e-4, weight_decay=0.01, max_grad_norm=1.0)
+    opt_state = opt.init(params)
+    step = make_train_step(cfg, opt)
+
+    t0 = time.perf_counter()
+    losses = []
+    for i, batch in enumerate(synthetic_lm_batches(
+            cfg, batch=args.batch_size, seq=args.seq, steps=args.steps,
+            s0=args.seed)):
+        batch = {k: v.to(device) for k, v in batch.items()}
+        params, opt_state, aux = step(params, opt_state, batch)
+        losses.append(float(aux["loss"]))
+        if i % 10 == 0:
+            print(f"step {i:4d}  loss {losses[-1]:.4f}")
+    print(f"\n== lm {args.arch} (reduced) on {device} == {args.steps} "
+          f"steps in {time.perf_counter() - t0:.1f}s; loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}")
+    assert losses[-1] < losses[0], "training must reduce loss"
+    if args.ckpt:
+        save_checkpoint(args.ckpt, params, step=args.steps)
+        print("checkpoint saved to", args.ckpt)
 
 
 def main(argv=None) -> None:
@@ -120,6 +152,10 @@ def main(argv=None) -> None:
                     default="device",
                     help="where the schedule compiler sorts (the schedule "
                          "is the same either way)")
+    # lm
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=128)
     # common
     ap.add_argument("--batch-size", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=42)
@@ -130,6 +166,8 @@ def main(argv=None) -> None:
     if args.workload == "gnn":
         run_gnn(args)
     else:
+        if args.batch_size == 1000:
+            args.batch_size = 8
         run_lm(args)
 
 

@@ -1,10 +1,11 @@
-"""The transformer substrate's dense decoder (prefill and decode), the
-port's ``repro.models.transformer``."""
+"""The transformer substrate's dense decoder (prefill, training and
+decode), the port's ``repro.models.transformer``."""
 from repro_torch.models.transformer.common import ArchConfig
 from repro_torch.models.transformer.model import (forward, init_decode_state,
-                                                  init_params,
+                                                  init_params, lm_loss,
+                                                  make_train_step,
                                                   params_from_numpy,
                                                   serve_step)
 
 __all__ = ["ArchConfig", "init_params", "params_from_numpy", "forward",
-           "init_decode_state", "serve_step"]
+           "lm_loss", "make_train_step", "init_decode_state", "serve_step"]

@@ -1,13 +1,14 @@
 """Prefill and decode attention of the transformer substrate.
 
-The port's ``repro/models/transformer/attention.py``. On a CUDA tensor
-``attention`` is the hand-written ``flash_attention`` kernel (its whole
-self-attention shape, ``Sq == Skv`` and ``q_offset == 0``; anything
-else raises), and ``decode_attention`` is one ``flash_decode`` launch
-for the whole batch. On the CPU ``attention`` is the reference's chunked
-online-softmax attention written out in PyTorch (``_banded`` for
-sliding-window layers), and ``decode_attention`` the ``flash_decode``
-plain version.
+The port's ``repro/models/transformer/attention.py``. ``attention`` is
+the reference's chunked online-softmax attention written out in PyTorch
+(``_banded`` for sliding-window layers) on the CPU, and on the card
+whenever a gradient is needed: the reference trains through that
+algorithm, and the kernel has no backward. Otherwise a CUDA tensor goes
+to the hand-written ``flash_attention`` kernel (its whole self-attention
+shape, ``Sq == Skv`` and ``q_offset == 0``; anything else raises).
+``decode_attention`` is one ``flash_decode`` launch for the whole batch
+on the card, its plain version on the CPU.
 
 One difference in bfloat16: this chunked version, like the reference,
 scales q in its input dtype before the float32 cast; the kernel (like
@@ -51,23 +52,27 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``q_offset`` is the absolute position of q[0] (cross-chunk prefill).
     ``window > 0`` restricts attention to the last `window` positions
-    (inclusive of self) and switches to banded compute on the CPU.
+    (inclusive of self) and switches to banded compute on the chunked
+    path. The chunked path runs when any of q/k/v needs a gradient.
     """
     B, Sq, H, dh = q.shape
     _, Skv, kvH, _ = k.shape
-    if q.device.type == "cuda":
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if q.device.type == "cuda" and not needs_grad:
         if Sq != Skv or q_offset != 0:
             raise NotImplementedError(
                 "attention on the card runs the flash_attention kernel over "
                 "one whole sequence (Sq == Skv, q_offset == 0); cross-chunk "
-                "prefill waits for ROADMAP Queue 1 item 12")
+                "prefill and cross-attention wait for ROADMAP Queue 1 item 3")
         # a window is always causal, as the reference's ``_banded`` and
         # the CPU path below are, whatever ``causal`` says
         return flash_attention(q, k, v, causal=causal or window > 0,
                                window=window, softcap=attn_softcap,
                                scale=scale)
-    if q.device.type != "cpu":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention path for device {q.device}")
+    dev = q.device
     G = H // kvH
     scale = scale if scale is not None else dh ** -0.5
     qg = (q * scale).reshape(B, Sq, kvH, G, dh)
@@ -88,17 +93,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     blocks = []
     for i in range(nq):
         qb = qg[:, i * q_chunk:(i + 1) * q_chunk].permute(0, 2, 3, 1, 4)
-        qpos = q_offset + i * q_chunk + torch.arange(q_chunk)
-        carry = (torch.full((B, kvH, G, q_chunk), NEG_INF),
-                 torch.zeros((B, kvH, G, q_chunk)),
-                 torch.zeros((B, kvH, G, q_chunk, dh)))
+        qpos = q_offset + i * q_chunk + torch.arange(q_chunk, device=dev)
+        carry = (torch.full((B, kvH, G, q_chunk), NEG_INF, device=dev),
+                 torch.zeros((B, kvH, G, q_chunk), device=dev),
+                 torch.zeros((B, kvH, G, q_chunk, dh), device=dev))
         for j in range(nk):
             kb = k[:, j * kv_chunk:(j + 1) * kv_chunk]
             vb = v[:, j * kv_chunk:(j + 1) * kv_chunk]
             s = torch.einsum("bhgqd,bkhd->bhgqk", qb.float(), kb.float())
             s = _softcap(s, attn_softcap)
-            kpos = j * kv_chunk + torch.arange(kv_chunk)
-            valid = torch.ones((q_chunk, kv_chunk), dtype=torch.bool)
+            kpos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
+            valid = torch.ones((q_chunk, kv_chunk), dtype=torch.bool,
+                               device=dev)
             if causal:
                 valid = kpos[None, :] <= qpos[:, None]
             carry = _online_update(carry, s, vb.float(), valid)
@@ -113,19 +119,20 @@ def _banded(qg, k, v, *, window, attn_softcap, q_chunk, q_offset):
     """Sliding-window attention over a sliced KV band."""
     B, Sq, kvH, G, dh = qg.shape
     Skv = k.shape[1]
+    dev = qg.device
     band = min(window + q_chunk, Skv)  # covers all positions a chunk needs
     nq = Sq // q_chunk
     blocks = []
     for i in range(nq):
         qb = qg[:, i * q_chunk:(i + 1) * q_chunk].permute(0, 2, 3, 1, 4)
-        qpos = q_offset + i * q_chunk + torch.arange(q_chunk)
+        qpos = q_offset + i * q_chunk + torch.arange(q_chunk, device=dev)
         start = min(max(q_offset + i * q_chunk + q_chunk - band, 0),
                     Skv - band)
         kb = k[:, start:start + band]
         vb = v[:, start:start + band]
         s = torch.einsum("bhgqd,bkhd->bhgqk", qb.float(), kb.float())
         s = _softcap(s, attn_softcap)
-        kpos = start + torch.arange(band)
+        kpos = start + torch.arange(band, device=dev)
         valid = ((kpos[None, :] <= qpos[:, None])
                  & (kpos[None, :] > qpos[:, None] - window))
         s = torch.where(valid, s, NEG_INF)

@@ -4,7 +4,7 @@
 Each block = attention mixer + FFN, pre-norm residual (+ optional gemma2
 sandwich post-norms). Parameters for one *pattern position* are stacked
 over the repeat dimension R in ``model.py``. The ``ssm`` and ``rglru``
-kinds raise until they are ported (ROADMAP Queue 1 item 12); so do the
+kinds raise until they are ported (ROADMAP Queue 1 item 3); so do the
 config options no ported config sets (``model.check_supported``).
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ ATTN_KINDS = ("attn", "local")
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP Queue 1 item 12")
+        f"{what} is not ported yet: ROADMAP Queue 1 item 3")
 
 
 def _check_kind(kind: str) -> None:
@@ -38,12 +38,21 @@ def _check_kind(kind: str) -> None:
 def init_attn_params(cfg: ArchConfig, generator: torch.Generator, dtype,
                      device=None) -> Dict[str, Any]:
     d = cfg.d_model
-    return {
+    p = {
         "wq": dense_init(generator, (d, cfg.q_dim), 0, dtype, device),
         "wk": dense_init(generator, (d, cfg.kv_dim), 0, dtype, device),
         "wv": dense_init(generator, (d, cfg.kv_dim), 0, dtype, device),
         "wo": dense_init(generator, (cfg.q_dim, d), 0, dtype, device),
     }
+    zeros = dict(dtype=dtype, device=device or generator.device)
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.q_dim,), **zeros)
+        p["bk"] = torch.zeros((cfg.kv_dim,), **zeros)
+        p["bv"] = torch.zeros((cfg.kv_dim,), **zeros)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((cfg.head_dim,), **zeros)
+        p["k_norm"] = torch.zeros((cfg.head_dim,), **zeros)
+    return p
 
 
 def init_ffn_params(cfg: ArchConfig, generator: torch.Generator, dtype,
@@ -75,11 +84,18 @@ def init_block_params(cfg: ArchConfig, kind: str,
 
 def _project_qkv(cfg: ArchConfig, p, h, positions):
     B, S, _ = h.shape
-    q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (h @ p["wk"].to(h.dtype)).reshape(B, S, cfg.num_kv_heads,
-                                          cfg.head_dim)
-    v = (h @ p["wv"].to(h.dtype)).reshape(B, S, cfg.num_kv_heads,
-                                          cfg.head_dim)
+    q = h @ p["wq"].to(h.dtype)
+    k = h @ p["wk"].to(h.dtype)
+    v = h @ p["wv"].to(h.dtype)
+    if "bq" in p:
+        q, k, v = (q + p["bq"].to(h.dtype), k + p["bk"].to(h.dtype),
+                   v + p["bv"].to(h.dtype))
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

@@ -1,4 +1,5 @@
-"""Model assembly: the decoder-only LM's prefill (``forward``) and decode
+"""Model assembly: the decoder-only LM's prefill (``forward``), loss and
+train step (``lm_loss``, ``make_train_step``) and decode
 (``init_decode_state``, ``serve_step``): the port's
 ``repro/models/transformer/model.py``.
 
@@ -7,24 +8,30 @@ The parameter tree has the reference's layout: ``embed``,
 dict per pattern position, every leaf stacked over the repeat dimension
 R) and ``tail_blocks``. Where the reference scans over R, the port loops
 in Python, applying the pattern positions in the same order inside each
-repeat. The LM loss and train step, the encoder and the enc-dec, MoE,
-SSM, RG-LRU and M-RoPE paths wait for ROADMAP Queue 1 item 12; a config
-that needs one raises (``check_supported``).
+repeat; when a gradient is needed each repeat's body runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so only
+the residual stream between repeats is kept for the backward. The
+encoder and the enc-dec, MoE, SSM, RG-LRU and M-RoPE paths wait for
+ROADMAP Queue 1 item 3; a config that needs one raises
+(``check_supported``).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.transformer.blocks import (block_apply,
                                                    block_decode,
                                                    init_block_params,
                                                    not_ported)
 from repro_torch.models.transformer.common import (ArchConfig, dense_init,
-                                                   rms_norm)
+                                                   rms_norm, softcap)
+from repro_torch.train.optim import tree_leaves, tree_map
 
 
 def _dtype(cfg: ArchConfig):
@@ -35,9 +42,7 @@ def check_supported(cfg: ArchConfig) -> None:
     """Raise for what the port's transformer does not run yet."""
     for flag, what in ((cfg.kind == "encdec", "the enc-dec model"),
                        (cfg.moe, "MoE"), (cfg.mrope_sections, "M-RoPE"),
-                       (cfg.frontend, f"the {cfg.frontend!r} frontend"),
-                       (cfg.qkv_bias, "qkv bias"),
-                       (cfg.qk_norm, "per-head q/k norm")):
+                       (cfg.frontend, f"the {cfg.frontend!r} frontend")):
         if flag:
             raise not_ported(what)
     for kind in cfg.pattern + cfg.tail:
@@ -60,9 +65,15 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def block_params(params, i: int, r: int):
-    """The parameters of pattern position ``i`` in repeat ``r``."""
-    return _map(lambda a: a[r], params["blocks"][i])
+def _unstack(tree):
+    """A pattern position's stacked tree -> one tree of views a repeat,
+    from one ``unbind`` a leaf: its backward is one stack, where R
+    ``a[r]`` selects would each write a whole-stack gradient."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v) for k, v in tree.items()}
+        R = len(next(iter(per.values())))
+        return [{k: v[r] for k, v in per.items()} for r in range(R)]
+    return tree.unbind(0)
 
 
 # ------------------------------------------------------------- init ------
@@ -106,8 +117,12 @@ def params_from_numpy(tree, device=None):
 # ---------------------------------------------------------- forward ------
 
 def _embed(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token rows, through ``F.embedding``: its backward sums each
+    row's repeated tokens in a fixed order on the CPU and on the card,
+    where the backward of ``embed[tokens]`` (an accumulating
+    ``index_put_``) adds them in a thread-dependent order on the CPU."""
     dt = _dtype(cfg)
-    x = params["embed"][tokens.long()].to(dt)
+    x = F.embedding(tokens.long(), params["embed"]).to(dt)
     if cfg.embed_scale:
         # sqrt(d) rounded to the model's dtype, as the reference does
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float64
@@ -123,6 +138,8 @@ def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"]).to(_dtype(cfg))
     logits = (x @ head)[..., :cfg.vocab_size].float()
+    if logits.requires_grad:
+        return softcap(logits, cfg.final_softcap)
     if cfg.final_softcap > 0.0:
         logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
     return logits
@@ -130,20 +147,64 @@ def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B,S) -> logits (B,S,V) float32 (the prefill). On the card
-    every attention layer is one ``flash_attention`` launch."""
+    """tokens (B,S) -> logits (B,S,V) float32. Without a gradient (the
+    prefill) every attention layer on the card is one ``flash_attention``
+    launch; with one, the chunked attention, each repeat rematerialised
+    in the backward."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
-    for r in range(cfg.num_repeats):
+    layers = [_unstack(b) for b in params["blocks"]]
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
+
+    def body(h, r):
         for i, kind in enumerate(cfg.pattern):
-            x = block_apply(cfg, kind, block_params(params, i, r), x,
-                            positions=positions)
+            h = block_apply(cfg, kind, layers[i][r], h, positions=positions)
+        return h
+
+    for r in range(cfg.num_repeats):
+        x = checkpoint(body, x, r, use_reentrant=False) if remat \
+            else body(x, r)
     for i, kind in enumerate(cfg.tail):
         x = block_apply(cfg, kind, params["tail_blocks"][i], x,
                         positions=positions)
     return _logits(cfg, params, x)
+
+
+def lm_loss(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token NLL over ``loss_mask`` (all ones when absent) from
+    float32 logits: ``batch`` holds ``tokens``, ``labels`` (B,S) on the
+    parameters' device."""
+    logits = forward(cfg, params, batch["tokens"])
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else mask
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss, {"loss": loss}
+
+
+def make_train_step(cfg: ArchConfig, optimizer):
+    """-> step(params, opt_state, batch) -> (params, opt_state, aux): the
+    reference's ``value_and_grad(lm_loss)`` and optimizer update, through
+    ``torch.autograd``. The parameters and the optimizer's moments are
+    overwritten in place and returned (the reference returns new trees),
+    so at full width one copy of each lives on the card."""
+
+    def step(params, opt_state, batch):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, _ = lm_loss(cfg, p, batch)
+        it = iter(torch.autograd.grad(loss, tree_leaves(p)))
+        grads = tree_map(lambda _: next(it), params)
+        params, opt_state = optimizer.update(grads, opt_state, params,
+                                             inplace=True)
+        return params, opt_state, {"loss": loss.detach()}
+
+    return step
 
 
 # ----------------------------------------------------------- decode ------
@@ -176,11 +237,12 @@ def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     positions = pos[:, None]
+    layers = [_unstack(b) for b in params["blocks"]]
     for r in range(cfg.num_repeats):
         for i, kind in enumerate(cfg.pattern):
             st = _map(lambda a: a[r], states["scan"][i])
-            x, _ = block_decode(cfg, kind, block_params(params, i, r), x,
-                                st, pos=pos, positions=positions)
+            x, _ = block_decode(cfg, kind, layers[i][r], x, st, pos=pos,
+                                positions=positions)
     for i, kind in enumerate(cfg.tail):
         x, _ = block_decode(cfg, kind, params["tail_blocks"][i], x,
                             states["tail"][i], pos=pos, positions=positions)

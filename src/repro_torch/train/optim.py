@@ -5,8 +5,11 @@ torch (not ``torch.optim``), so a step of either package gives the same
 parameters to float32 rounding. Moments are kept in fp32 regardless of
 parameter dtype; weight decay is decoupled (AdamW);
 ``clip_by_global_norm`` is applied inside ``update`` when
-``max_grad_norm`` is set. ``update`` is functional: it returns new
-parameter and state trees and leaves its inputs as they were.
+``max_grad_norm`` is set, in float32 as the reference's promotion does
+it. ``update`` is functional: it returns new parameter and state trees
+and leaves its inputs as they were. ``AdamW.update(..., inplace=True)``
+overwrites the parameters and moments leaf by leaf instead, with the
+same arithmetic, so one copy of each is alive at a time.
 
 A tree is nested dicts (walked in sorted key order, as JAX walks them),
 lists, tuples and NamedTuples (an optimizer state) with tensors at the
@@ -71,31 +74,42 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: PyTree, state: AdamWState, params: PyTree,
-               lr_scale: float = 1.0):
+               lr_scale: float = 1.0, inplace: bool = False):
+        scale = None
         if self.max_grad_norm is not None:
             gnorm = global_norm(grads)
             scale = torch.clamp(self.max_grad_norm / (gnorm + 1e-9),
                                 max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
         step = state.step + 1
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
-                      state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(
-            g.float()), state.nu, grads)
         bc1 = 1 - b1 ** step.float()
         bc2 = 1 - b2 ** step.float()
         lr = self.lr * lr_scale
 
-        def upd(p, m, v):
+        def leaf(p, m, v, g):
+            g = g.float() if scale is None else g.float() * scale
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * torch.square(g)
             mhat = m / bc1
             vhat = v / bc2
             delta = mhat / (torch.sqrt(vhat) + self.eps)
             if self.weight_decay:
                 delta = delta + self.weight_decay * p.float()
-            return (p.float() - lr * delta).to(p.dtype)
+            return (p.float() - lr * delta).to(p.dtype), m, v
 
-        new_params = tree_map(upd, params, mu, nu)
+        out = []
+        for old in zip(*map(tree_leaves, (params, state.mu, state.nu,
+                                           grads))):
+            new = leaf(*old)
+            if inplace:
+                for o, n in zip(old, new):
+                    o.copy_(n)
+                new = old[:3]
+            out.append(new)
+        its = [iter(col) for col in zip(*out)]
+        new_params, mu, nu = (tree_map(lambda _: next(it), tree)
+                              for it, tree in zip(its, (params, state.mu,
+                                                        state.nu)))
         return new_params, AdamWState(step=step, mu=mu, nu=nu)
 
 

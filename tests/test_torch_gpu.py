@@ -4,8 +4,10 @@ against its own oracle and the CPU path, the training slice (the
 device-compiled schedule, the train step) against the CPU path, and the
 transformer decode-serving slice (prefill and decode) against the CPU
 path, the device-distributed epoch (the ``merge_gather`` kernel,
-``cache_gather``, a staged epoch) and the multi-epoch runner (flat and
-``2x2``, and a checkpointed resume) against the CPU path. They import
+``cache_gather``, a staged epoch), the multi-epoch runner (flat and
+``2x2``, and a checkpointed resume) and LM training (reduced configs)
+against the CPU path, and LM training at granite-3-2b's width run twice
+bit-equal. They import
 no JAX, so they run on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -836,3 +838,59 @@ def test_campaign_device_cell_on_card(cuda):
         assert getattr(card, f) == getattr(cpu, f), f
     np.testing.assert_allclose(card.losses, cpu.losses, rtol=1e-4,
                                atol=1e-5)
+
+
+def _lm_train(cfg, device, gen_device, batch, seq, steps=3):
+    """The launcher's AdamW and batches through ``make_train_step``: the
+    loss curve, and the kernels' launches over the steps."""
+    from repro_torch.data.pipeline import synthetic_lm_batches
+    from repro_torch.models.transformer import init_params, make_train_step
+    from repro_torch.train import AdamW
+
+    params = init_params(cfg, torch.Generator(device=gen_device).manual_seed(
+        0), device)
+    opt = AdamW(lr=3e-4, weight_decay=0.01, max_grad_norm=1.0)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt)
+    before = (t_fa_ops.LAUNCHES.value, t_fd_ops.LAUNCHES.value)
+    losses = []
+    for b in synthetic_lm_batches(cfg, batch=batch, seq=seq, steps=steps,
+                                  s0=0):
+        params, state, aux = step(params, state,
+                                  {k: v.to(device) for k, v in b.items()})
+        losses.append(aux["loss"].item())
+    launched = (t_fa_ops.LAUNCHES.value - before[0],
+                t_fd_ops.LAUNCHES.value - before[1])
+    return losses, launched
+
+
+@pytest.mark.gpu
+def test_lm_training_at_granite_width_bit_equal_on_card(cuda):
+    """granite-3-2b's full width in bfloat16 at 2 layers, B=1, S=4096:
+    the gradient path launches no attention kernel, and two fresh runs
+    give the same loss curve bit for bit (the embedding's backward sums
+    repeated Zipf tokens)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("granite-3-2b"), num_layers=2)
+    a, launched = _lm_train(cfg, cuda, cuda, 1, 4096)
+    b, _ = _lm_train(cfg, cuda, cuda, 1, 4096)
+    assert launched == (0, 0)
+    assert all(np.isfinite(a)) and a == b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b", "granite-3-2b",
+                                  "qwen1.5-32b"])
+def test_lm_training_reduced_on_card_matches_cpu(cuda, arch):
+    """3 steps of the launcher's run in float32 from the same parameters:
+    the card's losses within the reference's tolerance of the CPU's, a
+    second card run bit-equal, no kernel launched."""
+    from repro_torch.configs import get_reduced
+    cfg = get_reduced(arch)
+    cpu = torch.device("cpu")
+    card, launched = _lm_train(cfg, cuda, cpu, 8, 128)
+    again, _ = _lm_train(cfg, cuda, cpu, 8, 128)
+    host, _ = _lm_train(cfg, cpu, cpu, 8, 128)
+    assert launched == (0, 0) and card == again
+    np.testing.assert_allclose(card, host, rtol=1e-4, atol=1e-5)

@@ -345,9 +345,12 @@ def test_launcher_trains_on_cpu():
     assert p.returncode == 0, p.stdout + p.stderr
     assert "final loss" in p.stdout and "rpc_count" in p.stdout
     assert "hit_rate" in p.stdout
-    from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        main(["--workload", "lm", "--device", "cpu"])
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
+         "--workload", "lm", "--steps", "12", "--seq", "32"],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "== lm smollm-360m (reduced) on cpu == 12 steps" in p.stdout
 
 
 def test_checkpoints_load_in_either_package(tmp_path):

@@ -460,12 +460,12 @@ def test_init_params_layout_and_law():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         get_reduced("qwen3-moe-30b-a3b")
-    for kw in (dict(pattern=("attn", "ssm")), dict(qkv_bias=True),
+    for kw in (dict(pattern=("attn", "ssm")), dict(mrope_sections=(8, 8, 8)),
                dict(moe=True)):
         cfg = dataclasses.replace(get_reduced("smollm-360m"), **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             init_params(cfg, torch.Generator().manual_seed(0))
 
 
