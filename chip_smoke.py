@@ -186,8 +186,41 @@ Phases (any failure raises, so the exit code is non-zero):
    float32, 3 steps of the launcher's batch (8 x 128) on the card and on
    the CPU from the same parameters: losses within ``rtol=1e-4,
    atol=1e-5``, a second card run bit-equal, no kernel launched.
+11. Decode serving of the MoE, SSD and RG-LRU blocks, last, after
+   phase 10's parameters are freed, each model freed before the next;
+   bfloat16, parameters from a seeded generator on the card; the same
+   prefill and decode as phase 6 (``forward`` at B=1; the launcher's
+   greedy loop at B=8, prompt 16, gen 32, a second run bit-equal in
+   tokens and every step's logits; launch counts set to 0 just before
+   and read just after: one ``flash_attention`` an attention layer a
+   prefill, one ``flash_decode`` an attention layer a step), with peak
+   memory, ms a step, tokens/s and the card's time by op (a prefill, and
+   8 decode steps from a one-token prompt). (a)
+   mamba2-1.3b (``configs/mamba2_1_3b.py``), 48 ``ssm`` layers, S=8192,
+   no kernel launched. (b) recurrentgemma-9b, 38 layers (12 x (rglru,
+   rglru, local) + 2 rglru), S=8192: 12 and 564 launches; then
+   ``flash_attention`` at 16 q heads a kv head on its first local
+   layer's own q/k/v (window 2048, bf16, within one bfloat16 step of the
+   plain version) and ``flash_decode`` at 16 q heads a kv head over a
+   full 2048-slot window cache and the decode loop's 48-slot one (full
+   and ragged lengths; float32 outputs, ``rtol=1e-4, atol=1e-5``, one
+   card operation a call), timed
+   beside their plain versions, SDPA (``enable_gqa``) and their bounds.
+   (c) qwen3-moe-30b-a3b, 48 MoE layers (128 experts, top-8), 30.53 B
+   parameters, S=4096 (the weights take 61 GB): 48 and 2,256 launches;
+   then the same two kernels at its 8 q heads a kv head, dh 128: on its
+   first layer's own q/k/v, and over a 4096-position cache and the
+   decode loop's 48-slot one (full and ragged lengths).
+   (d) the reduced qwen3-moe-30b-a3b, mamba2-1.3b, recurrentgemma-9b and
+   arctic-480b in float32: prefill logits over 8 x 48 tokens and the 47
+   decode steps of the same tokens on the card within ``rtol=1e-4,
+   atol=1e-4`` of the same code on the CPU, a second card run bit-equal.
+   Each sub-phase prints its wall.
 
-Output: one ``kernel {...}`` line per kernel, the card's name and power
+Output: one ``kernel {...}`` line per kernel row (phase 11 adds
+``flash_attention_g16``/``flash_decode_g16`` and ``flash_attention_g8``/
+``flash_decode_g8``, the same two kernels at recurrentgemma-9b's 16 and
+qwen3-moe-30b-a3b's 8 q heads a kv head), the card's name and power
 limit, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -1433,12 +1466,22 @@ def card_time_by_op(torch, fn, top: int = 8, host: bool = True):
     return wall, busy_us / 1e3, ops
 
 
-def prefill_phase(torch, device, cfg, params, counters):
-    """(a) ``forward`` at B=1, S=PREFILL_S: launches (counts set to 0
-    just before, read just after), time, peak memory, card time by op."""
+def attn_layers(cfg) -> int:
+    """The attention layers of a config (one kernel launch each a
+    prefill or a decode step)."""
+    def n(kinds):
+        return sum(k in ("attn", "local") for k in kinds)
+    return n(cfg.pattern) * cfg.num_repeats + n(cfg.tail)
+
+
+def prefill_phase(torch, device, cfg, params, counters, seq=None):
+    """(a) ``forward`` at B=1, S=``seq`` (PREFILL_S): launches (counts set
+    to 0 just before, read just after; one ``flash_attention`` an
+    attention layer), time, peak memory, card time by op."""
     from repro_torch.models.transformer import forward
 
-    toks = torch.from_numpy(lm_tokens(cfg, (1, PREFILL_S), 0x5046)).to(
+    seq = seq or PREFILL_S
+    toks = torch.from_numpy(lm_tokens(cfg, (1, seq), 0x5046)).to(
         device)
 
     def run():
@@ -1454,7 +1497,7 @@ def prefill_phase(torch, device, cfg, params, counters):
     first_s = time.perf_counter() - t0
     launches = {c.name: c.value for c in counters}
     peak = torch.cuda.max_memory_allocated()
-    if tuple(logits.shape) != (1, PREFILL_S, cfg.vocab_size) or \
+    if tuple(logits.shape) != (1, seq, cfg.vocab_size) or \
             logits.dtype != torch.float32 or \
             not bool(torch.isfinite(logits).all()):
         raise RuntimeError(f"prefill logits {tuple(logits.shape)} "
@@ -1463,10 +1506,10 @@ def prefill_phase(torch, device, cfg, params, counters):
         raise RuntimeError("prefill logits exceed the final softcap")
     last = logits[0, -1].clone()
     del logits
-    if launches["flash_attention"] != cfg.num_layers or \
+    if launches["flash_attention"] != attn_layers(cfg) or \
             launches["flash_decode"] != 0:
         raise RuntimeError(f"prefill launched {launches}, expected "
-                           f"{cfg.num_layers} flash_attention")
+                           f"{attn_layers(cfg)} flash_attention")
     times = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1478,12 +1521,12 @@ def prefill_phase(torch, device, cfg, params, counters):
         if not same:
             raise RuntimeError("a second prefill gave other logits")
     traced_s, busy_ms, ops = card_time_by_op(torch, run)
-    out = {"tokens": PREFILL_S, "first_ms": 1e3 * first_s,
-           "ms": 1e3 * min(times), "tokens_per_s": PREFILL_S / min(times),
+    out = {"tokens": seq, "first_ms": 1e3 * first_s,
+           "ms": 1e3 * min(times), "tokens_per_s": seq / min(times),
            "peak_bytes": peak, "launches": launches,
            "traced_ms": 1e3 * traced_s, "card_busy_ms": busy_ms,
            "card_ms_by_op": ops}
-    log(f"prefill {cfg.name}: B=1 S={PREFILL_S} in {out['ms']:.2f} ms "
+    log(f"prefill {cfg.name}: B=1 S={seq} in {out['ms']:.2f} ms "
         f"({out['tokens_per_s']:.0f} tok/s; first call {out['first_ms']:.2f}"
         f" ms), peak device memory {peak / 2**30:.2f} GiB, launches "
         f"{json.dumps(launches)}; logits finite, second run bit-identical")
@@ -1492,53 +1535,68 @@ def prefill_phase(torch, device, cfg, params, counters):
     return out
 
 
-def decode_phase(torch, device, cfg, params, counters):
+def decode_phase(torch, device, cfg, params, counters, host=True,
+                 trace_steps=None):
     """(b) the ``serve_decode`` launcher's greedy loop: launches (counts
-    set to 0 just before, read just after), ms/step, tokens/s, a second
-    run bit-identical, card time by op."""
+    set to 0 just before, read just after; one ``flash_decode`` an
+    attention layer a step), ms/step, tokens/s, peak memory, a second run
+    bit-identical (tokens and every step's logits), card time by op a
+    step over the whole loop, or over ``trace_steps`` steps from a
+    one-token prompt (``host=False``: the card's activity alone)."""
     import numpy as np
     from repro_torch.launch.serve_decode import greedy_decode
 
     prompts = lm_tokens(cfg, (DECODE_B, DECODE_PROMPT), 0x4443)
     steps = DECODE_PROMPT + DECODE_GEN - 1
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.reset()
     toks, first_s, logits = greedy_decode(cfg, params, prompts, DECODE_GEN,
                                           device)
     launches = {c.name: c.value for c in counters}
-    if launches["flash_decode"] != steps * cfg.num_layers or \
+    peak = torch.cuda.max_memory_allocated()
+    if launches["flash_decode"] != steps * attn_layers(cfg) or \
             launches["flash_attention"] != 0:
         raise RuntimeError(f"decode launched {launches}, expected "
-                           f"{cfg.num_layers} flash_decode a step")
+                           f"{attn_layers(cfg)} flash_decode a step")
     if toks.shape != (DECODE_B, DECODE_PROMPT + DECODE_GEN) or \
             not np.array_equal(toks[:, :DECODE_PROMPT], prompts) or \
             toks.min() < 0 or toks.max() >= cfg.vocab_size or \
             not all(bool(torch.isfinite(x).all()) for x in logits):
         raise RuntimeError("decode gave bad tokens or logits")
-    again, second_s, _ = greedy_decode(cfg, params, prompts, DECODE_GEN,
-                                       device)
-    if not np.array_equal(again, toks):
-        raise RuntimeError("a second decode run gave other tokens")
+    again, second_s, logits2 = greedy_decode(cfg, params, prompts,
+                                             DECODE_GEN, device)
+    if not np.array_equal(again, toks) or not all(
+            torch.equal(a, b) for a, b in zip(logits, logits2)):
+        raise RuntimeError("a second decode run gave other tokens or "
+                           "logits")
+    del logits, logits2
+    traced = steps if trace_steps is None else trace_steps
     traced_s, busy_ms, ops = card_time_by_op(
-        torch, lambda: greedy_decode(cfg, params, prompts, DECODE_GEN,
-                                     device))
+        torch, lambda: greedy_decode(
+            cfg, params, prompts if trace_steps is None else prompts[:, :1],
+            DECODE_GEN if trace_steps is None else trace_steps, device),
+        host=host)
     out = {"batch": DECODE_B, "prompt": DECODE_PROMPT, "gen": DECODE_GEN,
            "steps": steps, "first_ms_per_step": 1e3 * first_s / steps,
            "ms_per_step": 1e3 * second_s / steps,
            "tokens_per_s": DECODE_B * steps / second_s,
-           "launches": launches, "traced_ms_per_step": 1e3 * traced_s / steps,
-           "card_busy_ms_per_step": busy_ms / steps,
+           "launches": launches, "peak_bytes": peak,
+           "traced_steps": traced,
+           "traced_ms_per_step": 1e3 * traced_s / traced,
+           "card_busy_ms_per_step": busy_ms / traced,
            "card_busy_share": busy_ms / 1e3 / traced_s,
-           "card_ms_by_op_per_step": {k: v / steps for k, v in ops.items()},
+           "card_ms_by_op_per_step": {k: v / traced for k, v in ops.items()},
            "sample": toks[0, DECODE_PROMPT:DECODE_PROMPT + 10].tolist()}
     log(f"decode {cfg.name}: B={DECODE_B} prompt {DECODE_PROMPT} gen "
         f"{DECODE_GEN}: {steps} steps, {out['ms_per_step']:.2f} ms/step, "
         f"{out['tokens_per_s']:.1f} tok/s (first run "
-        f"{out['first_ms_per_step']:.2f} ms/step); launches "
-        f"{json.dumps(launches)}; second run bit-identical; sample "
-        f"{out['sample']}")
-    log(f"decode traced: {out['traced_ms_per_step']:.2f} ms/step, card busy "
+        f"{out['first_ms_per_step']:.2f} ms/step); peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {json.dumps(launches)}; second "
+        f"run bit-identical; sample {out['sample']}")
+    log(f"decode traced ({traced} steps): {out['traced_ms_per_step']:.2f} "
+        f"ms/step, card busy "
         f"{out['card_busy_ms_per_step']:.3f} ms/step "
         f"({100 * out['card_busy_share']:.2f} %); card ms a step by op "
         f"{json.dumps(out['card_ms_by_op_per_step'])}")
@@ -3206,6 +3264,348 @@ def lm_train_phase(torch, device, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: decode serving of the MoE, SSD and RG-LRU blocks
+# ---------------------------------------------------------------------------
+
+#: (architecture, prefill S, why S): each served at its full width and
+#: depth in bfloat16. The repo's ``prefill_32k`` (S=32768, global batch
+#: 32) is cut to B=1: S=8192 as phase 6, and S=4096 for qwen3-moe, whose
+#: weights take 61 GB of the card's 80
+MIXER_SERVE = (
+    ("mamba2-1.3b", 8192, "prefill_32k cut to B=1 S=8192, as phase 6"),
+    ("recurrentgemma-9b", 8192, "prefill_32k cut to B=1 S=8192, as "
+     "phase 6; past the 2048 window"),
+    ("qwen3-moe-30b-a3b", 4096, "prefill_32k cut to B=1 S=4096: the "
+     "weights take 61 GB of the card's 80"))
+MIXER_FULL = True
+MIXER_REDUCED = ("qwen3-moe-30b-a3b", "mamba2-1.3b", "recurrentgemma-9b",
+                 "arctic-480b")
+#: the reduced configs' check: prefill over 8 x 48 tokens, and the 47
+#: decode steps of the same tokens (the 16-slot local ring wraps)
+MIXER_REDUCED_B, MIXER_REDUCED_S = 8, 48
+#: the full cache of each attention model's ``flash_decode`` row (the
+#: row's numbers; the decode loop's own cache is checked and timed
+#: beside it): recurrentgemma-9b's 2048-slot local window, and a cache as
+#: long as qwen3-moe-30b-a3b's 4096-token prefill
+MIXER_DECODE_CACHE = {"recurrentgemma-9b": 2048, "qwen3-moe-30b-a3b": 4096}
+#: decode steps traced for the card's time by op (from a one-token
+#: prompt), not the whole 47-step loop: at some 5,000 kernels a step
+#: (qwen3-moe-30b-a3b) its events are slow to gather
+MIXER_TRACE_STEPS = 8
+
+
+def mixer_serve(torch, device, name, seq, cut, counters):
+    """(a)-(c) one architecture at full width and depth: parameters from
+    a seeded generator on the card, ``prefill_phase`` at B=1, S=``seq``
+    and ``decode_phase``'s greedy loop (card activity traced alone)."""
+    import dataclasses
+    from repro_torch.configs import get_arch, get_reduced
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_arch(name) if MIXER_FULL else get_reduced(name)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        LM_SEED), device)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    kinds = "/".join(sorted(set(cfg.pattern + cfg.tail)))
+    log(f"mixer {name}: {'full' if MIXER_FULL else 'reduced'} "
+        f"{cfg.num_layers} layers ({kinds}; {attn_layers(cfg)} attention) "
+        f"d={cfg.d_model} H={cfg.num_heads} kvH={cfg.num_kv_heads} "
+        f"dh={cfg.head_dim} window={cfg.window}"
+        f"{f' experts {cfg.num_experts} top-{cfg.top_k}' if cfg.moe else ''}"
+        f" {cfg.dtype}: {n / 1e9:.3f} B parameters "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) "
+        f"from seed {LM_SEED} in {time.perf_counter() - t0:.2f} s; {cut}")
+    prefill = prefill_phase(torch, device, cfg, params, counters, seq=seq)
+    decode = decode_phase(torch, device, cfg, params, counters, host=False,
+                          trace_steps=MIXER_TRACE_STEPS)
+    return cfg, params, {"parameters": n, "prefill": prefill,
+                         "decode": decode, "cut": cut}
+
+
+def mixer_attention_row(torch, device, cfg, params, seq, launches):
+    """``flash_attention`` on the model's first attention layer's own
+    q/k/v at the prefill shape (bfloat16; recurrentgemma-9b's local layer
+    at G=16 with window 2048, qwen3-moe-30b-a3b's global layer at G=8
+    after q/k-norm), against its plain version, with its time beside the
+    plain version's, SDPA's (the same mask, no softcap) and its FLOP
+    bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.transformer.blocks import (_project_qkv,
+                                                       block_apply)
+    from repro_torch.models.transformer.common import rms_norm
+    from repro_torch.models.transformer.model import _embed, _unstack
+
+    toks = torch.from_numpy(lm_tokens(cfg, (1, seq), 0x5046)).to(device)
+    pos = torch.arange(seq, device=device)[None, :]
+    with torch.inference_mode():
+        x = _embed(cfg, params, toks)
+        for i, kind in enumerate(cfg.pattern):
+            p = _unstack(params["blocks"][i])[0]
+            if kind in ("attn", "local"):
+                h = rms_norm(x, p["ln1"], cfg.norm_eps)
+                q, k, v = (t.contiguous() for t in _project_qkv(
+                    cfg, p["attn"], h, pos))
+                break
+            x = block_apply(cfg, kind, p, x, positions=pos)
+    del x, h
+    B, S, H, dh = q.shape
+    G = H // k.shape[2]
+    window = cfg.window if kind == "local" else 0
+    kw = dict(causal=True, window=window, softcap=cfg.attn_softcap)
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), rtol=2 ** -7,
+                          atol=1e-5):
+        raise RuntimeError(f"flash_attention G={G} ({cfg.name}) differs "
+                           f"from its plain version: {err}")
+    del got, want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window:
+        ip = torch.arange(S, device=device)
+        band = (ip[None, :] <= ip[:, None]) & (ip[None, :] > ip[:, None]
+                                               - window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                  enable_gqa=True)
+    else:
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    lib_err = float((sdpa().transpose(1, 2).float() - flash_attention_ref(
+        q, k, v, causal=True, window=window).float()).abs().max())
+    if lib_err > 0.05:
+        raise RuntimeError(f"SDPA yardstick (G={G}) computes another "
+                           f"function: {lib_err}")
+    flop = 4 * dh * H * B * causal_pairs(S, window)
+    nbytes = B * S * (2 * H + 2 * k.shape[2]) * dh * q.element_size()
+    r = {"name": f"flash_attention_g{G}", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_mma.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
+         "launches": launches, "max_abs_err": err,
+         "ms": device_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw),
+                         iters=5),
+         "plain_ms": device_ms(torch, lambda: flash_attention_ref(
+             q, k, v, **kw), iters=3),
+         "library_ms": device_ms(torch, sdpa, iters=5),
+         "library_err_no_softcap": lib_err, "flop": flop,
+         "shape": f"{cfg.name} {kind} q=({B},{S},{H},{dh}) kvH={k.shape[2]} "
+                  f"window={window} softcap={cfg.attn_softcap} bf16 (G={G})"}
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flop, BF16_FLOPS_PER_S)
+    r["tflops"] = flop / r["ms"] / 1e9
+    log(f"flash_attention {r['shape']}: ms={r['ms']:.4f} plain_ms="
+        f"{r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} (SDPA, "
+        f"{'band mask' if window else 'is_causal'}, enable_gqa) bound_ms="
+        f"{r['bound_ms']:.4f} ({r['bound_by']}, {flop:.4g} FLOP; "
+        f"{r['tflops']:.1f} TFLOP/s, {100 * r['bound_ms'] / r['ms']:.1f} % "
+        f"of the bound); max_abs_err {err:.3e} (rtol=2^-7 atol=1e-5); "
+        f"launches {launches} in the prefill")
+    return r
+
+
+def mixer_decode_row(torch, device, cfg, launches):
+    """``flash_decode`` at the model's heads, B=DECODE_B, bfloat16, over
+    a full ``MIXER_DECODE_CACHE`` cache (the row's numbers) and the
+    decode loop's own cache from ``init_decode_state``: full lengths
+    (timed) and ragged ones from 0 to S, against the plain version
+    (float32 outputs, ``rtol=1e-4, atol=1e-5``), with the time beside
+    the plain version's, SDPA's (``enable_gqa``, the same mask) and the
+    byte bound; one card operation a call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import (flash_decode_batched_ref,
+                                                      finalize)
+    from repro_torch.models.transformer import init_decode_state
+
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 4)
+    B, H, kvH, dh = DECODE_B, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // kvH
+    cap = cfg.attn_softcap
+    loop = init_decode_state(cfg, B, DECODE_PROMPT + DECODE_GEN,
+                             device=device)
+    loop_s = next(st["k"] for st in loop["scan"] if "k" in st).shape[2]
+    del loop
+    full_s = MIXER_DECODE_CACHE[cfg.name]
+    shapes = {}
+    for S in (full_s, loop_s):
+        q = torch.randn((B, H, dh), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((B, S, kvH, dh), generator=gen, device=device,
+                            dtype=torch.bfloat16) for _ in range(2))
+        ln = torch.full((B,), S, dtype=torch.int32, device=device)
+        ragged = torch.arange(B, dtype=torch.int32, device=device) * 7 % \
+            (S + 1)
+
+        def kern():
+            return fd_ops.flash_decode_batched(q, k, v, ln, softcap=cap)
+
+        def plain():
+            return flash_decode_batched_ref(q, k, v, ln, softcap=cap)
+        err = 0.0
+        for lens in (ln, ragged):
+            got = fd_ops.flash_decode_batched(q, k, v, lens, softcap=cap)
+            acc, m, l = flash_decode_batched_ref(q, k, v, lens, softcap=cap)
+            err = max(err, float((got - finalize(acc, l)).abs().max()))
+            if not torch.allclose(got, finalize(acc, l), rtol=1e-4,
+                                  atol=1e-5):
+                raise RuntimeError(f"flash_decode G={G} ({cfg.name}) "
+                                   f"differs from its plain version at "
+                                   f"S={S}: {err}")
+        acc, m, l = plain()
+        parts = fd_ops.flash_decode(q[1], k[1], v[1], ln[1], softcap=cap)
+        for g_, w_ in zip(parts, (acc[1], m[1], l[1])):
+            if not torch.allclose(g_, w_, rtol=1e-4, atol=1e-5):
+                raise RuntimeError(f"flash_decode G={G} partials differ")
+        ops = device_ops(torch, kern)
+        if len(ops) != 1:
+            raise RuntimeError(f"flash_decode G={G} ran {len(ops)} card "
+                               f"operations a call: {ops}")
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
+        lib_err = float((sdpa()[:, :, 0].float() - finalize(
+            *flash_decode_batched_ref(q, k, v, ln)[::2])).abs().max())
+        if lib_err > 0.05:
+            raise RuntimeError(f"SDPA yardstick (decode G={G}) computes "
+                               f"another function: {lib_err}")
+        nbytes = (k.numel() + v.numel()) * k.element_size() + \
+            q.numel() * q.element_size() + B * H * dh * 4
+        bound = bound_ms(nbytes, 4 * dh * H * B * S, BF16_FLOPS_PER_S)
+        shapes[S] = {
+            "cache": [B, S, kvH, dh], "max_abs_err": err,
+            "device_ops": len(ops), "ms": device_ms(torch, kern),
+            "ms_in_a_graph": device_ms_per_call(torch, kern),
+            "plain_ms": device_ms(torch, plain, iters=5),
+            "library_ms": device_ms(torch, sdpa),
+            "library_ms_in_a_graph": device_ms_per_call(torch, sdpa),
+            "library_err_no_softcap": lib_err, "bytes": nbytes,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+        sh = shapes[S]
+        log(f"flash_decode {cfg.name} q=({B},{H},{dh}) cache=({B},{S},{kvH},"
+            f"{dh}) bf16 (G={G}{', the loop' if S == loop_s else ''}): "
+            f"ms={sh['ms']:.4f} ({sh['ms_in_a_graph']:.4f} a call in a graph "
+            f"of 20) plain_ms={sh['plain_ms']:.4f} library_ms="
+            f"{sh['library_ms']:.4f} ({sh['library_ms_in_a_graph']:.4f} in "
+            f"a graph; SDPA enable_gqa, no softcap) bound_ms="
+            f"{sh['bound_ms']:.5f} ({sh['bound_by']}, {nbytes / 1e6:.1f} "
+            f"MB); {len(ops)} card op a call; max_abs_err {err:.3e} over "
+            f"full and ragged lengths (rtol=1e-4 atol=1e-5)")
+        del q, k, v
+    full = shapes[full_s]
+    return {"name": f"flash_decode_g{G}", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_decode/csrc/"
+                      "flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
+            "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
+            "ms": full["ms"], "plain_ms": full["plain_ms"],
+            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+            "library_ms": full["library_ms"],
+            "shape": f"{cfg.name} q=({B},{H},{dh}) cache=({B},{full_s},"
+                     f"{kvH},{dh}) bf16 (G={G}), full",
+            "shapes": {str(k_): v_ for k_, v_ in shapes.items()}}
+
+
+def mixer_reduced(torch, device, counters):
+    """(d) the reduced configs in float32, the same port code on the card
+    and on the CPU from the same parameters: ``forward`` over
+    MIXER_REDUCED_B x MIXER_REDUCED_S tokens and the ``serve_step`` loop
+    over the same tokens, logits within ``rtol=1e-4, atol=1e-4``; a
+    second card run bit-equal; one kernel launch an attention layer."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import (forward, init_decode_state,
+                                                init_params, serve_step)
+    from repro_torch.train.optim import tree_map
+
+    cpu = torch.device("cpu")
+    B, S = MIXER_REDUCED_B, MIXER_REDUCED_S
+    out = {}
+    for name in MIXER_REDUCED:
+        cfg = get_reduced(name)
+        host_p = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
+        card_p = tree_map(lambda t: t.to(device), host_p)
+        toks = lm_tokens(cfg, (B, S), 0x4D58)
+
+        def run(dev, params):
+            t = torch.from_numpy(toks).to(dev)
+            with torch.inference_mode():
+                full = forward(cfg, params, t)
+                st = init_decode_state(cfg, B, S, device=dev)
+                steps = []
+                for i in range(S - 1):
+                    lg, st = serve_step(
+                        cfg, params, st, t[:, i:i + 1],
+                        torch.full((B,), i, dtype=torch.int32, device=dev))
+                    steps.append(lg[:, 0])
+            return full.cpu(), torch.stack(steps, 1).cpu()
+        for c in counters:
+            c.reset()
+        card = run(device, card_p)
+        launches = {c.name: c.value for c in counters}
+        again = run(device, card_p)
+        host = run(cpu, host_p)
+        n_attn = attn_layers(cfg)
+        if launches != {"flash_attention": n_attn,
+                        "flash_decode": (S - 1) * n_attn}:
+            raise RuntimeError(f"{name} (reduced) launched {launches}")
+        errs = [float((a - b).abs().max()) for a, b in zip(card, host)]
+        if not all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                   for a, b in zip(card, host)):
+            raise RuntimeError(f"{name} (reduced): card logits differ from "
+                               f"the CPU's by {errs}")
+        if not all(torch.equal(a, b) for a, b in zip(card, again)):
+            raise RuntimeError(f"{name} (reduced): a second card run gave "
+                               f"other logits")
+        out[name] = {"prefill_max_abs_err": errs[0],
+                     "decode_max_abs_err": errs[1], "launches": launches}
+        log(f"mixer {name} (reduced, float32, {B}x{S}): prefill and "
+            f"{S - 1} decode steps on the card within rtol=1e-4 atol=1e-4 "
+            f"of the CPU (max abs err {errs[0]:.3e} / {errs[1]:.3e}); "
+            f"second card run bit-equal; launches {json.dumps(launches)}")
+    return out
+
+
+def mixer_phase(torch, device, counters):
+    """Phase 11: (a) mamba2-1.3b, (b) recurrentgemma-9b with the G=16
+    kernel rows, (c) qwen3-moe-30b-a3b with the G=8 ones, each at full
+    width and depth and freed before the next, then (d) the reduced
+    configs."""
+    torch.cuda.empty_cache()
+    out = {"held_at_start_bytes": torch.cuda.memory_allocated()}
+    rows = []
+    for name, seq, cut in MIXER_SERVE:
+        t0 = time.perf_counter()
+        cfg, params, res = mixer_serve(torch, device, name, seq, cut,
+                                       counters)
+        if attn_layers(cfg):
+            rows.append(mixer_attention_row(
+                torch, device, cfg, params, seq,
+                res["prefill"]["launches"]["flash_attention"]))
+            rows.append(mixer_decode_row(
+                torch, device, cfg, res["decode"]["launches"]["flash_decode"]))
+        del params
+        torch.cuda.empty_cache()
+        res["wall_s"] = time.perf_counter() - t0
+        out[name] = res
+        log(f"mixer {name}: sub-phase wall {res['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    out["reduced"] = mixer_reduced(torch, device, counters)
+    out["reduced_wall_s"] = time.perf_counter() - t0
+    log(f"mixer reduced configs: sub-phase wall {out['reduced_wall_s']:.1f} "
+        f"s")
+    return out, rows
+
+
 def main() -> int:
     import torch
 
@@ -3296,6 +3696,9 @@ def main() -> int:
     campaign = campaign_phase(torch, device, dist_counters, runner)
     lm_train = lm_train_phase(torch, device,
                               [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    mixers, mixer_rows = mixer_phase(torch, device,
+                                     [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    kernels += mixer_rows
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -3310,7 +3713,8 @@ def main() -> int:
                    "breakdown": split, "peak_bytes": peak,
                    "launches": launches, "train": train, "lm": lm,
                    "dist": dist, "embedding": emb, "runner": runner,
-                   "campaign": campaign, "lm_train": lm_train}, f,
+                   "campaign": campaign, "lm_train": lm_train,
+                   "mixers": mixers}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

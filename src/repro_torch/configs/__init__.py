@@ -17,6 +17,10 @@ _MODULES = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
     "qwen1.5-32b": "repro_torch.configs.qwen15_32b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 ARCH_NAMES = list(_MODULES)
@@ -26,8 +30,9 @@ def _module(name: str):
     if name not in _MODULES:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (the port runs "
-            f"{ARCH_NAMES}; MoE, SSM, RG-LRU, enc-dec and M-RoPE wait "
-            f"for ROADMAP Queue 1 item 3)")
+            f"{ARCH_NAMES}; seamless-m4t-medium (enc-dec, audio frontend) "
+            f"and qwen2-vl-72b (M-RoPE, vision frontend) wait for ROADMAP "
+            f"Queue 1 item 3)")
     return importlib.import_module(_MODULES[name])
 
 

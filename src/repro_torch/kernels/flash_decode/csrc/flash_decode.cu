@@ -16,8 +16,9 @@
 // 8-way merge. At a long, ragged cache the splits cut [0, S), so an
 // element with few valid positions left most of its blocks empty while
 // full-length elements' blocks did all the work. This design:
-//   - one launch. Block (b*kvH + h, split) owns one kv head's G query
-//     heads over the split-th equal part of the element's own valid
+//   - one launch. Block ((b*kvH + h)*slices + slice, split) owns one kv
+//     head's G query heads (all of them, or one slice: see below) over
+//     the split-th equal part of the element's own valid
 //     range [start_b, length_b), computed here from length/start; the
 //     number of splits is a function of the shapes only (the wrapper's
 //     split_plan), so a CUDA graph replays it. With one split the block
@@ -32,14 +33,21 @@
 //     so that kUnroll rows are in flight per group: 64 keys a round at
 //     dh = 256 in bfloat16, so the decode loop's caches take one round.
 //     The first round's loads are issued before q is staged, and q
-//     sits in registers (up to 4 heads a group): read from shared memory
-//     once a key, each lane's 8 columns conflict on banks. The dot
+//     sits in registers (up to 4 heads a group); wider groups read it
+//     from shared memory once a key, laid out [head][i][lane] so that a
+//     group's lanes hit consecutive banks (as [head][dh] the 8 columns
+//     of lanes c and c + 4 share banks). The dot
 //     products are finished by shuffles inside the group; each group
 //     keeps its own running (m, l, acc), merged once in shared memory
 //     with weights computed once per (group, head). Where a group has a
 //     lane for each of a round's G x kUnroll scores, their softcap and
 //     exponentials are spread one a lane (every lane computed all sixteen
 //     at the decode shape), so they cost one tanh and one exp a lane.
+//   - more than 8 q heads a kv head (recurrentgemma-9b's MQA: 16) are cut
+//     into head slices of at most 8, a block each: the block's running
+//     (m, l, acc) then fit in registers (8 heads x 8 columns a lane), and
+//     the slices' blocks, launched side by side, read the same K/V rows,
+//     the second time mostly from L2.
 // Positions outside [start, length) are never read, which is exact: a
 // masked key leaves (m, l, acc) unchanged. Any S; with no valid position
 // m = -1e30, l = 0, acc = 0 and the normalised output is 0, as the
@@ -151,7 +159,8 @@ __global__ void __launch_bounds__(kThreads)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int32_t* __restrict__ length,
               const int32_t* __restrict__ start, int B, int S, int H,
-              int kvH, int dh, int lanes_log2, int n_split, float scale,
+              int kvH, int dh, int lanes_log2, int slices, int n_split,
+              float scale,
               float softcap, float* __restrict__ part_acc,
               float* __restrict__ part_m, float* __restrict__ part_l,
               int32_t* __restrict__ tickets, float* __restrict__ out_acc,
@@ -159,13 +168,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               float* __restrict__ out) {
   constexpr int KU = Unroll<T, MAXG>::value;
   extern __shared__ __align__(16) float smem[];
-  const int G = H / kvH;
-  const int b = blockIdx.x / kvH, h = blockIdx.x - b * kvH;
+  // block x = (b, kv head h, head slice): G = the slice's q heads, the
+  // q rows b*H + hb*G .. + G - 1, hb = h * slices + slice
+  const int G = H / (kvH * slices);
+  const int b = blockIdx.x / (kvH * slices);
+  const int hb = blockIdx.x - b * kvH * slices, h = hb / slices;
   const int split = blockIdx.y;
   const int L = 1 << lanes_log2, ngrp = kThreads >> lanes_log2;
   const int tid = threadIdx.x, grp = tid >> lanes_log2, c = tid & (L - 1);
-  float* q_s = smem;              // [G][dh]        q * scale
-  float* m_s = q_s + G * dh;      // [ngrp][G]
+  // q * scale, element 8c + i of head g at [g][i][c]
+  float* q_s = smem;              // [G][8][L]
+  float* m_s = q_s + G * 8 * L;   // [ngrp][G]
   float* l_s = m_s + ngrp * G;    // [ngrp][G]
   float* w_s = l_s + ngrp * G;    // [ngrp][G]      merge weights
   float* ml_s = w_s + ngrp * G;   // [2][G]         merged m, l
@@ -188,14 +201,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   Raw<T> kr[KU], vr[KU];
   load_round<T, KU>(k, v, base, stride, lo, ngrp, grp, hi, col_on, kr, vr);
 
-  const T* qb = q + (static_cast<size_t>(b) * H + static_cast<size_t>(h) * G) *
-                        dh;
-  for (int i = tid; i < G * dh; i += kThreads)
-    q_s[i] = to_float(qb[i]) * scale;
+  const size_t row0 =
+      static_cast<size_t>(b) * H + static_cast<size_t>(hb) * G;
+  const T* qb = q + row0 * dh;
+  for (int i = tid; i < G * dh; i += kThreads) {
+    const int g = i / dh, j = i - g * dh;
+    q_s[(g * 8 + (j & 7)) * L + (j >> 3)] = to_float(qb[i]) * scale;
+  }
   __syncthreads();
 
   // q in registers for up to 4 heads a group (read once, not once a
-  // key from shared memory, where a lane's 8 columns conflict on banks)
+  // key from shared memory)
   constexpr bool kQReg = MAXG <= 4;
   float qr[kQReg ? MAXG : 1][8];
   if constexpr (kQReg) {
@@ -203,7 +219,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < MAXG; ++g)
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        qr[g][i] = (g < G && col_on) ? q_s[g * dh + 8 * c + i] : 0.f;
+        qr[g][i] = (g < G && col_on) ? q_s[(g * 8 + i) * L + c] : 0.f;
   }
 
   float m[MAXG], l[MAXG], acc[MAXG][8];
@@ -231,9 +247,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int i = 0; i < 8; ++i) d = fmaf(qr[g][i], kx[i], d);
           } else {
-            const float* qg = q_s + g * dh + 8 * c;
+            const float* qg = q_s + g * 8 * L + c;
 #pragma unroll
-            for (int i = 0; i < 8; ++i) d = fmaf(qg[i], kx[i], d);
+            for (int i = 0; i < 8; ++i) d = fmaf(qg[i * L], kx[i], d);
           }
         }
         x[g][u] = d;
@@ -365,7 +381,6 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     ml_s[G + tid] = ll;
   }
   __syncthreads();
-  const size_t row0 = static_cast<size_t>(b) * H + static_cast<size_t>(h) * G;
   const int rows = B * H;
   for (int i = tid; i < G * dh; i += kThreads) {
     const int g = i / dh, j = i - g * dh;
@@ -386,7 +401,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (n_split == 1) return;
 
-  // the last block of this (b, kv head) to finish combines the splits
+  // the last block of this (b, kv head, slice) to finish combines the
+  // splits
   __threadfence();
   __syncthreads();
   if (tid == 0)
@@ -415,16 +431,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int MAXG>
 cudaError_t run(const void* q, const void* k, const void* v,
                 const int32_t* length, const int32_t* start, int B, int S,
-                int H, int kvH, int dh, float scale, float softcap,
-                int n_split, float* pa, float* pm, float* pl,
+                int H, int kvH, int dh, int slices, float scale,
+                float softcap, int n_split, float* pa, float* pm, float* pl,
                 int32_t* tickets, float* oa, float* om, float* ol, float* out,
                 cudaStream_t st) {
-  const int G = H / kvH;
+  const int G = H / (kvH * slices);
   int lanes_log2 = 0;
   while ((1 << lanes_log2) < dh / 8) ++lanes_log2;
   const int ngrp = kThreads >> lanes_log2;
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(G) * dh + 3 * ngrp * G + 2 * G +
+      sizeof(float) * (static_cast<size_t>(G) * 8 * (1 << lanes_log2) +
+                       3 * ngrp * G + 2 * G +
                        static_cast<size_t>(ngrp) * G * dh);
   // raise the limit to the most any shape needs, once per instantiation,
   // so a CUDA-graph capture never calls it
@@ -437,26 +454,28 @@ cudaError_t run(const void* q, const void* k, const void* v,
     attr_set = true;
   }
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  const dim3 grid(B * kvH, n_split);
+  const dim3 grid(B * kvH * slices, n_split);
   decode_kernel<T, MAXG><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), length, start, B, S, H, kvH, dh, lanes_log2,
-      n_split, scale, softcap, pa, pm, pl, tickets, oa, om, ol, out);
+      slices, n_split, scale, softcap, pa, pm, pl, tickets, oa, om, ol, out);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const int32_t* length, const int32_t* start, int B,
-                     int S, int H, int kvH, int dh, float scale,
+                     int S, int H, int kvH, int dh, int slices, float scale,
                      float softcap, int n_split, float* pa, float* pm,
                      float* pl, int32_t* tickets, float* oa, float* om,
                      float* ol, float* out, cudaStream_t st) {
-  const int G = H / kvH;
+  if (slices < 1 || H % (kvH * slices)) return cudaErrorInvalidValue;
+  const int G = H / (kvH * slices);
+  if (G > 8) return cudaErrorInvalidValue;
 #define REPRO_DECODE_RUN(MAXG)                                               \
-  return run<T, MAXG>(q, k, v, length, start, B, S, H, kvH, dh, scale,       \
-                      softcap, n_split, pa, pm, pl, tickets, oa, om, ol, out, \
-                      st)
+  return run<T, MAXG>(q, k, v, length, start, B, S, H, kvH, dh, slices,      \
+                      scale, softcap, n_split, pa, pm, pl, tickets, oa, om,  \
+                      ol, out, st)
   if (G <= 1) REPRO_DECODE_RUN(1);
   if (G <= 2) REPRO_DECODE_RUN(2);
   if (G <= 4) REPRO_DECODE_RUN(4);
@@ -468,14 +487,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // q (B,H,dh), k/v (B,S,kvH,dh), length/start (B,) int32 (start may be
 // null); dtype 0 = float32, 1 = bfloat16; dh % 8 == 0, dh <= 256,
-// H/kvH <= 8 (checked by the wrapper). With n_split > 1: scratch part_*
-// holds (n_split, B, H[, dh]) float32 and tickets (B*kvH,) int32 zeros,
+// H/kvH a multiple of head_slices, at most 8 q heads a slice (checked by
+// the wrapper). With n_split > 1: scratch part_* holds (n_split, B,
+// H[, dh]) float32 and tickets (B*kvH*head_slices,) int32 zeros,
 // which every launch leaves zero again. Writes out_acc/out_m/out_l
 // and/or out where they are not null, in one launch.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* length, const void* start,
                                   int dtype, int B, int S, int H, int kvH,
-                                  int dh, float scale, float softcap,
+                                  int dh, int head_slices, float scale,
+                                  float softcap,
                                   int n_split, void* part_acc, void* part_m,
                                   void* part_l, void* tickets, void* out_acc,
                                   void* out_m, void* out_l, void* out,
@@ -492,12 +513,13 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   float* ol = static_cast<float*>(out_l);
   float* o = static_cast<float*>(out);
   const cudaError_t err =
-      dtype == 1 ? dispatch<__nv_bfloat16>(q, k, v, len, sta, B, S, H, kvH,
-                                           dh, scale, softcap, n_split, pa,
-                                           pm, pl, tk, oa, om, ol, o, st)
-                 : dispatch<float>(q, k, v, len, sta, B, S, H, kvH, dh, scale,
-                                   softcap, n_split, pa, pm, pl, tk, oa, om,
-                                   ol, o, st);
+      dtype == 1
+          ? dispatch<__nv_bfloat16>(q, k, v, len, sta, B, S, H, kvH, dh,
+                                    head_slices, scale, softcap, n_split, pa,
+                                    pm, pl, tk, oa, om, ol, o, st)
+          : dispatch<float>(q, k, v, len, sta, B, S, H, kvH, dh, head_slices,
+                            scale, softcap, n_split, pa, pm, pl, tk, oa, om,
+                            ol, o, st);
   return static_cast<int>(err);
 }
 

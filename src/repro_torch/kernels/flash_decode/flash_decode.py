@@ -8,7 +8,9 @@ call (the JAX wrapper vmaps it). Here one launch takes the whole batch:
 block (b*kvH + h, split) owns one kv head's G query heads over the
 split-th equal part of the element's own valid range ``[start,
 length)``; inside it, groups of lanes stream their own keys, up to eight
-in flight, with their own running (m, l, acc), merged at the end. With
+in flight, with their own running (m, l, acc), merged at the end. More
+than 8 q heads a kv head are cut into ``head_slices`` of at most 8, a
+block each. With
 one split the block writes the result itself; with more, the last block
 of each (b, kv head) to finish, told by an integer ticket, combines the
 splits in split order (the TPU kernel's own (acc, m, l) contract) and
@@ -34,7 +36,10 @@ BLOCKS_PER_SM = 8
 #: fewest cache positions a split is given
 MIN_SPLIT = 512
 
-_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+#: the most q heads one block holds (its running state in registers)
+SLICE_HEADS = 8
+
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
          + [ctypes.c_float, ctypes.c_float, ctypes.c_int]
          + [ctypes.c_void_p] * 9)
 
@@ -43,8 +48,18 @@ _ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
 _tickets = {}
 
 
+def head_slices(G: int) -> int:
+    """The fewest equal slices of a kv head's G q heads with at most
+    ``SLICE_HEADS`` heads each (16 -> 2 of 8)."""
+    n = -(-G // SLICE_HEADS)
+    while G % n:
+        n += 1
+    return n
+
+
 def plan_splits(pairs: int, S: int, sms: int) -> int:
-    """Slices of each element's valid range per (b, kv head): enough that
+    """Slices of each element's valid range per (b, kv head, head slice)
+    column of blocks, ``pairs`` of them: enough that
     the grid holds about ``BLOCKS_PER_SM`` blocks a multiprocessor, and no
     more than one per ``MIN_SPLIT`` cache positions. A function of the
     shapes only, never of the lengths (which live on the card)."""
@@ -93,13 +108,14 @@ def launch_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     given."""
     B, H, dh = q.shape
     S, kvH = k.shape[1], k.shape[2]
-    n_split = split_plan(B * kvH, S, q.device)
+    slices = head_slices(H // kvH)
+    n_split = split_plan(B * kvH * slices, S, q.device)
     if n_split > 1:
         f32 = dict(dtype=torch.float32, device=q.device)
         part_acc = torch.empty((n_split, B, H, dh), **f32)
         part_m = torch.empty((n_split, B, H), **f32)
         part_l = torch.empty((n_split, B, H), **f32)
-        tickets = _ticket_buffer(q.device, B * kvH)
+        tickets = _ticket_buffer(q.device, B * kvH * slices)
     else:
         part_acc = part_m = part_l = tickets = None
 
@@ -111,7 +127,7 @@ def launch_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  length.data_ptr(), ptr(start), _DTYPES[q.dtype], B, S, H,
-                 kvH, dh, float(scale), float(softcap), n_split,
+                 kvH, dh, slices, float(scale), float(softcap), n_split,
                  ptr(part_acc), ptr(part_m), ptr(part_l), ptr(tickets),
                  ptr(acc), ptr(m), ptr(l), ptr(out),
                  stream_handle(q.device))

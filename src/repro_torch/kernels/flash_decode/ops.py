@@ -27,9 +27,10 @@ from repro_torch.kernels.flash_decode.ref import (combine,
 
 LAUNCHES = LaunchCount("flash_decode")
 
-#: the widest head and the largest q-head group the kernel takes
+#: the widest head the kernel takes (any q-head group: ``head_slices``
+#: cuts a wide one into blocks of at most ``SLICE_HEADS``)
 MAX_HEAD_DIM = 256
-MAX_GROUP = 8
+
 
 def _lengths(t: Optional[torch.Tensor], B: int) -> Optional[torch.Tensor]:
     if t is None:
@@ -63,11 +64,9 @@ def _batched(q, k, v, length, start, scale, softcap, interpret, partials):
         raise ValueError(f"flash_decode kernel takes one dtype of "
                          f"float32/bfloat16, got {q.dtype}/{k.dtype}/"
                          f"{v.dtype}")
-    if dh % 8 or dh > MAX_HEAD_DIM or H // kvH > MAX_GROUP:
+    if dh % 8 or dh > MAX_HEAD_DIM:
         raise ValueError(f"flash_decode kernel takes head_dim a multiple "
-                         f"of 8 up to {MAX_HEAD_DIM} and at most "
-                         f"{MAX_GROUP} q heads a kv head, got dh={dh}, "
-                         f"G={H // kvH}")
+                         f"of 8 up to {MAX_HEAD_DIM}, got dh={dh}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_decode: {name} must be contiguous and "

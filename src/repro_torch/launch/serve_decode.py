@@ -6,14 +6,19 @@ synthetic prompts, with the reference launcher's flags and printout
 decode, then ``--gen`` tokens are generated. ``--device`` (default
 ``cuda``; raises without a card) picks the device; ``--full`` takes the
 architecture's full config (``get_arch``) in place of its CPU-sized
-reduced one. Weights are random, from ``torch.Generator`` seeded with
+reduced one. ``--arch`` takes every name of the port's registry: the
+dense configs, qwen3-moe-30b-a3b and arctic-480b (MoE), mamba2-1.3b
+(SSD) and recurrentgemma-9b (RG-LRU and local attention); arctic-480b's
+full width needs expert parallelism over several cards and runs only
+reduced. Weights are random, from ``torch.Generator`` seeded with
 ``--seed``. On the card every attention layer of a step is one
-``flash_decode`` launch.
+``flash_decode`` launch; SSD and RG-LRU layers update their states in
+place.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_decode --device cpu \
       --arch gemma2-2b --batch 4 --prompt-len 16 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve_decode --full \
-      --arch gemma2-2b --batch 8
+      --arch recurrentgemma-9b --batch 8
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""The transformer substrate's dense decoder (prefill, training and
-decode), the port's ``repro.models.transformer``."""
+"""The transformer substrate's decoder (dense attention, MoE, SSD and
+RG-LRU blocks; prefill, training and decode), the port's
+``repro.models.transformer``."""
 from repro_torch.models.transformer.common import ArchConfig
 from repro_torch.models.transformer.model import (forward, init_decode_state,
                                                   init_params, lm_loss,

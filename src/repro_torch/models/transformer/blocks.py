@@ -1,11 +1,12 @@
-"""Block-level init/apply for the dense attention kinds (``attn`` and
-``local``): the port's ``repro/models/transformer/blocks.py``.
+"""Block-level init/apply for every layer kind: ``attn``/``local``,
+``ssm`` and ``rglru``: the port's ``repro/models/transformer/blocks.py``.
 
-Each block = attention mixer + FFN, pre-norm residual (+ optional gemma2
-sandwich post-norms). Parameters for one *pattern position* are stacked
-over the repeat dimension R in ``model.py``. The ``ssm`` and ``rglru``
-kinds raise until they are ported (ROADMAP Queue 1 item 3); so do the
-config options no ported config sets (``model.check_supported``).
+Each block = mixer + (FFN | MoE | nothing for ``ssm``), pre-norm
+residual (+ optional gemma2 sandwich post-norms); an MoE block may carry
+a dense FFN residual beside its experts (arctic). Parameters for one
+*pattern position* are stacked over the repeat dimension R in
+``model.py``. What the port does not run yet raises ``not_ported``,
+naming the ROADMAP item that holds it (``model.check_supported``).
 """
 from __future__ import annotations
 
@@ -17,8 +18,16 @@ from repro_torch.models.transformer.attention import (attention,
                                                       decode_attention)
 from repro_torch.models.transformer.common import (ArchConfig, apply_rope,
                                                    dense_init, rms_norm)
+from repro_torch.models.transformer.moe import init_moe_params, moe_apply
+from repro_torch.models.transformer.rglru import (init_rglru_params,
+                                                  rglru_decode_step,
+                                                  rglru_forward)
+from repro_torch.models.transformer.ssm import (init_ssm_params,
+                                                ssm_decode_step,
+                                                ssm_forward)
 
 ATTN_KINDS = ("attn", "local")
+KINDS = ATTN_KINDS + ("ssm", "rglru")
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -27,9 +36,7 @@ def not_ported(what: str) -> NotImplementedError:
 
 
 def _check_kind(kind: str) -> None:
-    if kind in ("ssm", "rglru"):
-        raise not_ported(f"the {kind!r} block")
-    if kind not in ATTN_KINDS:
+    if kind not in KINDS:
         raise ValueError(kind)
 
 
@@ -66,17 +73,28 @@ def init_ffn_params(cfg: ArchConfig, generator: torch.Generator, dtype,
 def init_block_params(cfg: ArchConfig, kind: str,
                       generator: torch.Generator, dtype,
                       device=None) -> Dict[str, Any]:
+    """One block's parameters, drawn in order: the mixer, then the
+    experts, then the dense FFN. ``ssm`` blocks have no ``ln2``/FFN."""
     _check_kind(kind)
     d = cfg.d_model
     zeros = dict(dtype=dtype, device=device or generator.device)
     p: Dict[str, Any] = {"ln1": torch.zeros((d,), **zeros)}
-    p["attn"] = init_attn_params(cfg, generator, dtype, device)
+    if kind in ATTN_KINDS:
+        p["attn"] = init_attn_params(cfg, generator, dtype, device)
+    elif kind == "ssm":
+        p["ssm"] = init_ssm_params(cfg, generator, dtype, device)
+    else:
+        p["rglru"] = init_rglru_params(cfg, generator, dtype, device)
     if cfg.post_norms:
         p["ln1_post"] = torch.zeros((d,), **zeros)
-    p["ln2"] = torch.zeros((d,), **zeros)
-    p["ffn"] = init_ffn_params(cfg, generator, dtype, device)
-    if cfg.post_norms:
-        p["ln2_post"] = torch.zeros((d,), **zeros)
+    if kind != "ssm":
+        p["ln2"] = torch.zeros((d,), **zeros)
+        if cfg.moe:
+            p["moe"] = init_moe_params(cfg, generator, dtype, device)
+        if not cfg.moe or cfg.dense_residual:
+            p["ffn"] = init_ffn_params(cfg, generator, dtype, device)
+        if cfg.post_norms:
+            p["ln2_post"] = torch.zeros((d,), **zeros)
     return p
 
 
@@ -109,9 +127,15 @@ def ffn_apply(cfg: ArchConfig, p, h):
 
 
 def mixer_ffn(cfg: ArchConfig, p, x):
-    """The FFN half of a block (shared by the prefill and decode paths)."""
+    """The FFN/MoE half of a block (shared by the prefill and decode
+    paths)."""
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    out = ffn_apply(cfg, p["ffn"], h2)
+    if cfg.moe:
+        out = moe_apply(p["moe"], h2, cfg)
+        if cfg.dense_residual:
+            out = out + ffn_apply(cfg, p["ffn"], h2)
+    else:
+        out = ffn_apply(cfg, p["ffn"], h2)
     if cfg.post_norms:
         out = rms_norm(out, p["ln2_post"], cfg.norm_eps)
     return x + out
@@ -121,44 +145,65 @@ def block_apply(cfg: ArchConfig, kind: str, p, x, *, positions=None):
     """Prefill forward for one block. x (B,S,d)."""
     _check_kind(kind)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(cfg, p["attn"], h, positions)
-    window = cfg.window if kind == "local" else 0
-    o = attention(q, k, v, window=window,
-                  attn_softcap=cfg.attn_softcap, q_chunk=cfg.attn_q_chunk,
-                  kv_chunk=cfg.attn_kv_chunk)
-    o = o.reshape(*x.shape[:2], cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+    if kind in ATTN_KINDS:
+        q, k, v = _project_qkv(cfg, p["attn"], h, positions)
+        window = cfg.window if kind == "local" else 0
+        o = attention(q, k, v, window=window,
+                      attn_softcap=cfg.attn_softcap,
+                      q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+        o = o.reshape(*x.shape[:2], cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+    elif kind == "ssm":
+        o = ssm_forward(p["ssm"], h, cfg)
+    else:
+        o = rglru_forward(p["rglru"], h, cfg)
     if cfg.post_norms:
         o = rms_norm(o, p["ln1_post"], cfg.norm_eps)
     x = x + o
-    return mixer_ffn(cfg, p, x)
+    return x if kind == "ssm" else mixer_ffn(cfg, p, x)
 
 
 # -------------------------------------------------------- decode apply ----
 
 def block_decode(cfg: ArchConfig, kind: str, p, x, state: Dict[str, Any],
                  *, pos, positions=None):
-    """One-token decode. x (B,1,d); state holds this block's caches
-    (k/v (B, S_cache, kvH, dh)), which are written IN PLACE (the
-    reference returns new arrays); the returned state holds the same
-    tensors. pos (B,) int32 absolute position of the new token."""
+    """One-token decode. x (B,1,d); state holds this block's caches --
+    k/v (B, S_cache, kvH, dh) for attention, conv (B, K-1, C) and ssm
+    (B, h, p, n) for ``ssm``, conv and h (B, w) for ``rglru`` -- which
+    are written IN PLACE (the reference returns new arrays); the
+    returned state holds the same tensors. pos (B,) int32 absolute
+    position of the new token."""
     _check_kind(kind)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _project_qkv(cfg, p["attn"], h, positions)
-    k_cache, v_cache = state["k"], state["v"]
-    S_cache = k_cache.shape[1]
-    # ring-buffer write: when S_cache covers all positions this is the
-    # identity; for window caches (S_cache == window) it wraps. RoPE is
-    # applied at write time, so slot order is irrelevant to attention
-    # (permutation-invariant over the valid set).
-    slot = (pos % S_cache).long()
-    bidx = torch.arange(x.shape[0], device=x.device)
-    k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
-    length = torch.clamp(pos + 1, max=S_cache).to(torch.int32)
-    o = decode_attention(q, k_cache, v_cache, length,
-                         attn_softcap=cfg.attn_softcap)
-    o = o.reshape(x.shape[0], 1, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+    if kind in ATTN_KINDS:
+        q, k, v = _project_qkv(cfg, p["attn"], h, positions)
+        k_cache, v_cache = state["k"], state["v"]
+        S_cache = k_cache.shape[1]
+        # ring-buffer write: when S_cache covers all positions this is the
+        # identity; for window caches (S_cache == window) it wraps. RoPE
+        # is applied at write time, so slot order is irrelevant to
+        # attention (permutation-invariant over the valid set).
+        slot = (pos % S_cache).long()
+        bidx = torch.arange(x.shape[0], device=x.device)
+        k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
+        length = torch.clamp(pos + 1, max=S_cache).to(torch.int32)
+        o = decode_attention(q, k_cache, v_cache, length,
+                             attn_softcap=cfg.attn_softcap)
+        o = o.reshape(x.shape[0], 1, cfg.q_dim) @ p["attn"]["wo"].to(
+            x.dtype)
+    elif kind == "ssm":
+        o, new_conv, new_ssm = ssm_decode_step(p["ssm"], h, state["conv"],
+                                               state["ssm"], cfg)
+        state["conv"].copy_(new_conv)
+        state["ssm"].copy_(new_ssm)
+    else:
+        o, new_conv, new_h = rglru_decode_step(p["rglru"], h, state["conv"],
+                                               state["h"], cfg)
+        state["conv"].copy_(new_conv)
+        state["h"].copy_(new_h)
     if cfg.post_norms:
         o = rms_norm(o, p["ln1_post"], cfg.norm_eps)
     x = x + o
-    return mixer_ffn(cfg, p, x), dict(state)
+    if kind != "ssm":
+        x = mixer_ffn(cfg, p, x)
+    return x, dict(state)

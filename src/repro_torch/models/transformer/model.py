@@ -10,9 +10,10 @@ R) and ``tail_blocks``. Where the reference scans over R, the port loops
 in Python, applying the pattern positions in the same order inside each
 repeat; when a gradient is needed each repeat's body runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so only
-the residual stream between repeats is kept for the backward. The
-encoder and the enc-dec, MoE, SSM, RG-LRU and M-RoPE paths wait for
-ROADMAP Queue 1 item 3; a config that needs one raises
+the residual stream between repeats is kept for the backward. Every
+block kind runs (``attn``, ``local``, ``ssm``, ``rglru``, dense FFN or
+MoE); the encoder, enc-dec, M-RoPE and the frontends wait for ROADMAP
+Queue 1 item 3, and a config that needs one raises
 (``check_supported``).
 """
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.transformer.blocks import (block_apply,
+from repro_torch.models.transformer.blocks import (KINDS, block_apply,
                                                    block_decode,
                                                    init_block_params,
                                                    not_ported)
@@ -41,13 +42,13 @@ def _dtype(cfg: ArchConfig):
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what the port's transformer does not run yet."""
     for flag, what in ((cfg.kind == "encdec", "the enc-dec model"),
-                       (cfg.moe, "MoE"), (cfg.mrope_sections, "M-RoPE"),
+                       (cfg.mrope_sections, "M-RoPE"),
                        (cfg.frontend, f"the {cfg.frontend!r} frontend")):
         if flag:
             raise not_ported(what)
     for kind in cfg.pattern + cfg.tail:
-        if kind not in ("attn", "local"):
-            raise not_ported(f"the {kind!r} block")
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}")
 
 
 def _map(fn, tree):
@@ -58,11 +59,26 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _stack(trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _put(dst, src, r: int) -> None:
+    """Copy each leaf of ``src`` into ``dst``'s leaf at ``[r]``."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _put(dst[k], src[k], r)
+    else:
+        dst[r].copy_(src)
+
+
+def _stacked(make, R: int):
+    """R trees from ``make()``, in call order, stacked on a new leading
+    dimension: each leaf is allocated once at (R, ...) and filled repeat
+    by repeat, so one repeat's tree lives beside the stack, where
+    stacking a list of R trees would hold the whole position twice."""
+    tree = make()
+    out = _map(lambda a: a.new_empty((R, *a.shape)), tree)
+    for r in range(R):
+        _put(out, tree if r == 0 else make(), r)
+        tree = None
+    return out
 
 
 def _unstack(tree):
@@ -84,7 +100,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     with std ``fan_in ** -0.5`` in float32, cast to the config's dtype;
     norms zero), drawn from ``generator`` on its own device and placed
     on ``device`` (default: the generator's). The draws differ from
-    ``jax.random``'s; ``params_from_numpy`` carries the reference's."""
+    ``jax.random``'s; ``params_from_numpy`` carries the reference's.
+    The float32 leaves of the SSM and RG-LRU mixers stay float32 in a
+    bfloat16 model, as the reference keeps them."""
     check_supported(cfg)
     dt = _dtype(cfg)
     device = torch.device(device) if device is not None else \
@@ -99,8 +117,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             generator, (cfg.d_model, cfg.padded_vocab), 0, dt, device)
     R = cfg.num_repeats
     params["blocks"] = [
-        _stack([init_block_params(cfg, kind, generator, dt, device)
-                for _ in range(R)])
+        _stacked(lambda: init_block_params(cfg, kind, generator, dt, device),
+                 R)
         for kind in cfg.pattern]
     params["tail_blocks"] = [
         init_block_params(cfg, kind, generator, dt, device)
@@ -108,10 +126,18 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return params
 
 
+def _tensor_from_numpy(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: exact
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def params_from_numpy(tree, device=None):
     """A tree of numpy arrays (the reference's ``init_params`` output moved
-    through ``np.asarray``) -> the same tree of tensors on ``device``."""
-    return _map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+    through ``np.asarray``) -> the same tree of tensors on ``device``,
+    each leaf in its own dtype (bfloat16 included)."""
+    return _map(lambda a: _tensor_from_numpy(a).to(device), tree)
 
 
 # ---------------------------------------------------------- forward ------
@@ -211,17 +237,31 @@ def make_train_step(cfg: ArchConfig, optimizer):
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device: Optional[torch.device] = None) -> dict:
-    """Per-pattern-position stacked caches, leaves (R, B, S, kvH, dh):
-    ``window`` slots for ``local`` layers, else ``max_len``, never more
-    than ``max_len``."""
+    """Per-pattern-position stacked caches, leaves (R, B, ...): k/v (R, B,
+    S, kvH, dh) with ``window`` slots for ``local`` layers, else
+    ``max_len``, never more than ``max_len``; ``ssm`` conv (R, B, K-1,
+    d_inner + 2n) in the model's dtype and ssm (R, B, h, p, n) float32;
+    ``rglru`` conv (R, B, K-1, w) and h (R, B, w) float32."""
     check_supported(cfg)
     dt = _dtype(cfg)
 
+    def zeros(shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
     def one(kind, R):
+        if kind == "ssm":
+            return {"conv": zeros((R, batch, cfg.ssm_conv - 1,
+                                   cfg.d_inner + 2 * cfg.ssm_state)),
+                    "ssm": zeros((R, batch, cfg.ssm_heads,
+                                  cfg.ssm_head_dim, cfg.ssm_state),
+                                 torch.float32)}
+        if kind == "rglru":
+            w = cfg.lru_width or cfg.d_model
+            return {"conv": zeros((R, batch, cfg.ssm_conv - 1, w)),
+                    "h": zeros((R, batch, w), torch.float32)}
         S = min(cfg.window if kind == "local" else max_len, max_len)
         shape = (R, batch, S, cfg.num_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        return {"k": zeros(shape), "v": zeros(shape)}
 
     return {"scan": [one(kind, cfg.num_repeats) for kind in cfg.pattern],
             "tail": [_map(lambda a: a[0], one(kind, 1))
@@ -233,7 +273,8 @@ def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
     """One decode step. tokens (B, 1); pos (B,) int32 absolute positions.
     -> (logits (B, 1, V) float32, states). The caches in ``states`` are
     updated IN PLACE and returned (the reference returns new ones). On
-    the card every attention layer is one ``flash_decode`` launch."""
+    the card every attention layer is one ``flash_decode`` launch; the
+    SSM and RG-LRU states are overwritten in place too."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     positions = pos[:, None]

@@ -219,6 +219,10 @@ FLASH_ATTN_CASES = {
     "bf16_noncausal_window_g2_dh256": (1, 150, 4, 2, 256, False, 40, 50.0,
                                        "bfloat16"),
     "bf16_noncausal_g3_dh48": (2, 90, 3, 1, 48, False, 0, 0.0, "bfloat16"),
+    # 16 q heads a kv head: recurrentgemma-9b's MQA local layers
+    "bf16_g16_dh256_window": (1, 300, 16, 1, 256, True, 64, 0.0,
+                              "bfloat16"),
+    "g16_dh64_causal": (1, 90, 16, 1, 64, True, 0, 0.0, "float32"),
 }
 
 
@@ -245,6 +249,11 @@ FLASH_DECODE_CASES = {
                                 50.0, "bfloat16"),
     "s_one_g8": (1, 8, 1, 128, 1, (1,), (0,), 0.0, "float32"),
     "dh48_g3": (2, 3, 1, 48, 33, (33, 17), (5, 17), 0.0, "float32"),
+    # 16 q heads a kv head: recurrentgemma-9b's MQA (G = 16, dh 256)
+    "g16_mqa_dh256_bf16": (2, 16, 1, 256, 48, (48, 17), (0, 3), 0.0,
+                           "bfloat16"),
+    "g16_dh64_window_softcap": (3, 32, 2, 64, 300, (300, 0, 150),
+                                (40, 0, 150), 30.0, "float32"),
 }
 
 

@@ -512,6 +512,56 @@ def test_flash_decode_at_the_decode_loop_shape_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("S", [48, 2048])
+def test_flash_decode_sixteen_heads_a_kv_head_on_card(cuda, S):
+    """recurrentgemma-9b's decode: B=8, 16 q heads over 1 kv head, dh
+    256, bfloat16, the decode loop's 48-slot cache and a full 2048-slot
+    window, lengths from 0 to S: one launch a call, within the
+    reference's tolerance of the plain version (float32 outputs)."""
+    gen = torch.Generator().manual_seed(S)
+    B, H, kvH, dh = 8, 16, 1, 256
+    q = torch.randn((B, H, dh), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, S, kvH, dh), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    ln = torch.tensor([S, S - 1, 1, 0, S // 2, 17, S, 3], dtype=torch.int32,
+                      device=cuda)
+    st = torch.tensor([0, 0, 0, 0, 5, 17, S // 3, 0], dtype=torch.int32,
+                      device=cuda)
+    before = t_fd_ops.LAUNCHES.value
+    got = t_fd_ops.flash_decode_batched(q, k, v, ln, st)
+    acc, m, l = flash_decode_batched_ref(q, k, v, ln, st)
+    parts = t_fd_ops.flash_decode(q[0], k[0], v[0], ln[0], st[0])
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got, finalize(acc, l), **tol)
+    for g_, w_ in zip(parts, (acc[0], m[0], l[0])):
+        torch.testing.assert_close(g_, w_, **tol)
+    assert bool((got[3] == 0).all()) and bool((got[5] == 0).all())
+    assert t_fd_ops.LAUNCHES.value == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [12, 24, 32])
+def test_flash_decode_wide_groups_on_card(cuda, G):
+    """More than 16 q heads a kv head, or a group that 8 does not divide:
+    ``head_slices`` cuts it into equal blocks (12 -> 2 of 6, 24 -> 3 of
+    8, 32 -> 4 of 8), one launch a call, within the reference's tolerance
+    of the plain version."""
+    gen = torch.Generator().manual_seed(G)
+    B, S, kvH, dh = 3, 300, 2, 128
+    q = torch.randn((B, G * kvH, dh), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, S, kvH, dh), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    ln = torch.tensor([S, 77, 1], dtype=torch.int32, device=cuda)
+    before = t_fd_ops.LAUNCHES.value
+    got = t_fd_ops.flash_decode_batched(q, k, v, ln, softcap=30.0)
+    acc, _, l = flash_decode_batched_ref(q, k, v, ln, softcap=30.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, finalize(acc, l), rtol=1e-4, atol=1e-5)
+    assert t_fd_ops.LAUNCHES.value == before + 1
+
+
+@pytest.mark.gpu
 def test_flash_decode_ragged_long_cache_on_card(cuda):
     """A long cache with ragged lengths and starts (0, 1, S, a window,
     start == length), split over the card: one kernel a call, the same

@@ -44,7 +44,9 @@ from _torch_cases import (BWD_CASES, BWD_FULL_CASES, FLASH_DECODE_CASES,
 from repro.kernels.flash_decode.flash_decode import DEFAULT_TS
 from repro.kernels.flash_decode.ops import flash_decode as j_flash_decode
 from repro.kernels.gather_agg.ops import gather_agg as j_gather_agg
-from repro_torch.kernels.flash_decode.flash_decode import (plan_splits,
+from repro_torch.kernels.flash_decode.flash_decode import (SLICE_HEADS,
+                                                           head_slices,
+                                                           plan_splits,
                                                            split_range)
 from repro_torch.kernels.flash_decode.ref import (combine,
                                                   flash_decode_batched_ref)
@@ -224,7 +226,8 @@ def test_flash_decode_split_plan_matches_pallas_and_plain(name):
     qn, kn, vn, length, start, cap, dtype = flash_decode_case(name)
     q, k, v = (as_dtype(x, dtype) for x in (qn, kn, vn))
     B, S, kvH = k.shape[0], k.shape[1], k.shape[2]
-    plan = plan_splits(B * kvH, S, H100_SMS)
+    plan = plan_splits(B * kvH * head_slices(q.shape[1] // kvH), S,
+                       H100_SMS)
     _check(q, k, v, length, start, cap, sorted({1, plan, 7}))
 
 
@@ -240,6 +243,16 @@ def test_flash_decode_split_plan_at_the_decode_loop_shape():
                    for shape in ((B, H, dh), (B, S, kvH, dh),
                                  (B, S, kvH, dh)))
         _check(q, k, v, lens, np.zeros(B, np.int32), 50.0, (1, 3))
+
+
+def test_flash_decode_head_slices_cut_wide_groups_evenly():
+    """More than 8 q heads a kv head are cut into the fewest equal slices
+    of at most 8 (each a block); 8 or fewer stay whole."""
+    for G in range(1, 65):
+        n = head_slices(G)
+        assert G % n == 0 and G // n <= SLICE_HEADS
+        assert all(G % m or G // m > SLICE_HEADS for m in range(1, n))
+    assert [head_slices(G) for G in (1, 2, 4, 8, 16)] == [1, 1, 1, 1, 2]
 
 
 def test_flash_decode_split_ranges_cover_each_element_once():

@@ -5,8 +5,10 @@ atol=1e-5``), from the JAX ``init_params`` output carried across with
 ``params_from_numpy`` and the same numpy tokens: ``lm_loss`` and every
 gradient leaf against ``jax.value_and_grad(lm_loss)`` for the reduced
 smollm-360m, gemma2-2b (window, softcaps, post-norms, embedding scale),
-granite-3-2b, qwen1.5-32b (qkv bias) and smollm-360m with per-head q/k
-norm, each with several attention chunks; 3 AdamW steps (losses,
+granite-3-2b, qwen1.5-32b (qkv bias), smollm-360m with per-head q/k
+norm, qwen3-moe-30b-a3b and arctic-480b (MoE, arctic with its dense
+residual), mamba2-1.3b (SSD) and recurrentgemma-9b (RG-LRU and local
+attention), each with several attention chunks; 3 AdamW steps (losses,
 moments, clipped update, weight decay) against the reference's jitted
 step; the chunked attention's gradient with a window and with a softcap;
 decode with qkv bias and q/k norm against the reference's
@@ -53,6 +55,12 @@ CONFIGS = {
     "granite-3-2b": ("granite-3-2b", {}),
     "qwen1.5-32b": ("qwen1.5-32b", {}),
     "smollm-360m-qk-norm": ("smollm-360m", {"qk_norm": True}),
+    "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {}),
+    "mamba2-1.3b": ("mamba2-1.3b", {}),
+    "recurrentgemma-9b": ("recurrentgemma-9b", {}),
+    "arctic-480b": ("arctic-480b", {}),
+    # one (rglru, rglru, local) repeat and the two rglru tail blocks
+    "recurrentgemma-9b-tail": ("recurrentgemma-9b", {"num_layers": 5}),
 }
 ADAMW = dict(lr=3e-4, weight_decay=0.01, max_grad_norm=1.0)
 

@@ -10,9 +10,11 @@ two may land one bfloat16 step apart: it is held to ``rtol=2**-7`` (one
 step is at most 2^-7 of the value). Units: ``rms_norm``,
 ``apply_rope``, tanh-GELU, the embedding scale. Blocks: ``block_apply``
 and ``block_decode``. The slice: ``forward`` logits and a 32-step
-``serve_step`` loop (logits and KV caches) for reduced gemma2-2b and
-smollm-360m from the JAX ``init_params`` output, the port's own
-decode-against-prefill check, and the ``serve_decode`` launcher.
+``serve_step`` loop (logits, KV caches and the SSM/RG-LRU states) for
+reduced gemma2-2b, smollm-360m, qwen3-moe-30b-a3b, mamba2-1.3b,
+recurrentgemma-9b and arctic-480b from the JAX ``init_params`` output,
+the port's own decode-against-prefill check, and the ``serve_decode``
+launcher. The mixers' own tests are in ``test_torch_mixers.py``.
 """
 import dataclasses
 import os
@@ -53,7 +55,9 @@ from repro_torch.models.transformer import (forward, init_decode_state,
 from repro_torch.models.transformer.attention import attention
 from repro_torch.models.transformer.blocks import block_apply, block_decode
 from repro_torch.models.transformer.common import apply_rope, rms_norm
-from repro_torch.models.transformer.model import _embed
+from repro_torch.dist.mesh import make_mesh
+from repro_torch.models.transformer.model import _embed, _unstack
+from repro_torch.models.transformer.moe import moe_apply
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -173,6 +177,7 @@ DECODE_CASES = {
     "start_equals_length": (2, 1, 48, 96, 50, 50, 0.0, "float32"),
     "g1_length_one_bf16": (4, 4, 64, 64, 1, 0, 30.0, "bfloat16"),
     "g3_window_softcap_bf16": (6, 2, 64, 512, 300, 150, 50.0, "bfloat16"),
+    "g16_mqa_dh256_bf16": (16, 1, 256, 64, 40, 0, 0.0, "bfloat16"),
 }
 
 
@@ -382,11 +387,22 @@ def _slice_cfg(name):
         return (dataclasses.replace(get_reduced("gemma2-2b"), vocab_size=500),
                 dataclasses.replace(j_get_reduced("gemma2-2b"),
                                     vocab_size=500))
+    if name == "recurrentgemma-9b-tail":  # 1 repeat + 2 rglru tail blocks
+        return (dataclasses.replace(get_reduced("recurrentgemma-9b"),
+                                    num_layers=5),
+                dataclasses.replace(j_get_reduced("recurrentgemma-9b"),
+                                    num_layers=5))
     return get_reduced(name), j_get_reduced(name)
 
 
+#: the reduced configs of the MoE, SSM and hybrid RG-LRU families, and
+#: recurrentgemma at 5 layers so that its two tail blocks run
+MIXER_ARCHS = ["qwen3-moe-30b-a3b", "mamba2-1.3b", "recurrentgemma-9b",
+               "arctic-480b", "recurrentgemma-9b-tail"]
+
+
 @pytest.mark.parametrize("name", ["gemma2-2b", "smollm-360m",
-                                  "gemma2-2b-vocab500"])
+                                  "gemma2-2b-vocab500"] + MIXER_ARCHS)
 def test_forward_logits_match_reference(name):
     cfg, jcfg = _slice_cfg(name)
     assert cfg == dataclasses.replace(jcfg) or cfg.name == jcfg.name
@@ -402,12 +418,14 @@ def test_forward_logits_match_reference(name):
     np.testing.assert_allclose(got, want, **LOGIT_TOL)
 
 
-@pytest.mark.parametrize("name", ["gemma2-2b", "smollm-360m"])
+@pytest.mark.parametrize("name", ["gemma2-2b", "smollm-360m"]
+                         + MIXER_ARCHS)
 def test_serve_step_loop_matches_reference_and_forward(name):
-    """32 decode steps: every step's logits and the final KV caches
-    against the reference's ``serve_step`` (the gemma2 local layers'
-    16-slot ring wraps at step 16), and the decode logits against the
-    port's own ``forward`` of the same tokens."""
+    """32 decode steps: every step's logits and the final KV caches and
+    SSM/RG-LRU states against the reference's ``serve_step`` (the gemma2
+    and recurrentgemma local layers' 16-slot rings wrap at step 16), and
+    the decode logits against the port's own ``forward`` of the same
+    tokens."""
     cfg, jcfg = _slice_cfg(name)
     jp = _np_tree(j_init(jcfg, jax.random.key(1)))
     tp = params_from_numpy(jp)
@@ -418,7 +436,10 @@ def test_serve_step_loop_matches_reference_and_forward(name):
     jst = j_init_state(jcfg, B, max_len=S)
     tst = init_decode_state(cfg, B, max_len=S)
     if cfg.window:
-        assert tst["scan"][0]["k"].shape[2] == cfg.window < S
+        local = cfg.pattern.index("local")
+        assert tst["scan"][local]["k"].shape[2] == cfg.window < S
+    assert len(tst["tail"]) == len(jst["tail"]) == len(cfg.tail)
+    assert (name == "recurrentgemma-9b-tail") == (cfg.tail == ("rglru",) * 2)
     dec = []
     with torch.inference_mode():
         for t in range(S):
@@ -430,8 +451,11 @@ def test_serve_step_loop_matches_reference_and_forward(name):
             np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
                                        **LOGIT_TOL)
             dec.append(tl[:, 0])
-        for js, ts in zip(jst["scan"], tst["scan"]):
-            for key in ("k", "v"):
+        for js, ts in zip(jst["scan"] + jst["tail"],
+                          tst["scan"] + tst["tail"]):
+            assert sorted(ts) == sorted(js)
+            for key in ts:
+                assert ts[key].dtype == torch.float32
                 np.testing.assert_allclose(ts[key].numpy(),
                                            np.asarray(js[key]), **TOL)
         full = forward(cfg, tp, torch.from_numpy(toks))
@@ -460,13 +484,29 @@ def test_init_params_layout_and_law():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        get_reduced("qwen3-moe-30b-a3b")
-    for kw in (dict(pattern=("attn", "ssm")), dict(mrope_sections=(8, 8, 8)),
-               dict(moe=True)):
+    """What waits: enc-dec, M-RoPE and the frontends (ROADMAP Queue 1 item
+    3: the registry's two remaining names and each option), and the
+    expert-parallel ``moe_apply`` over a mesh (item 4)."""
+    for name in ("seamless-m4t-medium", "qwen2-vl-72b"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            get_reduced(name)
+    for kw in (dict(kind="encdec", num_enc_layers=2),
+               dict(mrope_sections=(8, 8, 8)), dict(frontend="audio"),
+               dict(frontend="vision")):
         cfg = dataclasses.replace(get_reduced("smollm-360m"), **kw)
         with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             init_params(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
+    cfg = get_reduced("qwen3-moe-30b-a3b")
+    p = init_params(cfg, torch.Generator().manual_seed(0))
+    moe = _unstack(p["blocks"][0])[0]["moe"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        moe_apply(moe, torch.zeros((1, 4, cfg.d_model)), cfg,
+                  mesh=make_mesh((2,), ("data",), device="cpu"))
+    with pytest.raises(ValueError, match="unknown block kind"):
+        init_params(dataclasses.replace(cfg, pattern=("conv",)),
+                    torch.Generator().manual_seed(0))
 
 
 def test_serve_decode_launcher_on_cpu():
