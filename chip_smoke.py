@@ -216,12 +216,47 @@ Phases (any failure raises, so the exit code is non-zero):
    decode steps of the same tokens on the card within ``rtol=1e-4,
    atol=1e-4`` of the same code on the CPU, a second card run bit-equal.
    Each sub-phase prints its wall.
+12. Decode serving of the enc-dec and M-RoPE models, after phase 11's
+   parameters are freed, each model freed before the next; bfloat16,
+   parameters from a seeded generator on the card, the frontends stubbed
+   by 0.02 x normal frame or patch embeddings (as the reference's data
+   pipeline makes them); the same prefill and decode lines and gates as
+   phase 11. (a) seamless-m4t-medium (``configs/seamless_m4t_medium.py``)
+   at full width and depth, 12 encoder and 12 decoder layers: ``encode``
+   of 4096 frames (the reference's ``SRC_LEN``) and ``forward`` with
+   ``enc_out`` at S=8192 (36 ``flash_attention`` a prefill: 12 encoder,
+   12 decoder self, 12 cross at Sq 8192, Skv 4096); the greedy loop at
+   B=8 against cross caches written from ``encode`` of 8 sources, x_len
+   4096 - 97 b (24 ``flash_decode`` a step); and once more against the
+   launcher's empty caches (x_len = 0), whose tokens and logits must
+   equal a run without cross caches bit for bit. (b) qwen2-vl-72b at
+   full width, its 80 layers cut to 16 (33.1 GB of weights): ``forward``
+   at S=8192 with patch embeddings and M-RoPE streams t = i, h = i // 64,
+   w = i % 64 (16 launches), and the launcher's greedy loop (the
+   position on all three streams; 16 a step). Each model's first
+   attention layer's own q/k/v go through ``flash_attention`` (bf16):
+   seamless's causal decoder self-attention (1, 8192, 16, 64) and
+   qwen2-vl's after M-RoPE (1, 8192, 64, 128) with 8 kv heads; and
+   ``flash_decode`` runs at each model's heads over an 8192-position
+   cache and the loop's (8, 48) one. Then ``flash_attention`` at
+   seamless's encoder shape (1, 4096, 16, 64) without a mask and its
+   cross shape (1, 8192, 16, 64) over 4096 keys and a ragged 4001, and
+   ``flash_decode`` over its cross caches (8, 4096, 16, 64) at the
+   loop's ragged lengths, full ones and ones with a 0. Each is held
+   against its plain version, one card operation a call, and timed
+   beside it, SDPA and its bound. (c) both reduced configs in float32,
+   8 x 48 tokens, prefill and 47 decode steps on the card within
+   ``rtol=1e-4, atol=1e-4`` of the CPU, a second card run bit-equal.
 
 Output: one ``kernel {...}`` line per kernel row (phase 11 adds
 ``flash_attention_g16``/``flash_decode_g16`` and ``flash_attention_g8``/
 ``flash_decode_g8``, the same two kernels at recurrentgemma-9b's 16 and
-qwen3-moe-30b-a3b's 8 q heads a kv head), the card's name and power
-limit, one ``{"kernels": [...]}`` line, and as the last line
+qwen3-moe-30b-a3b's 8 q heads a kv head; phase 12
+``flash_attention_g1``, ``flash_attention_g1_encoder``,
+``flash_attention_cross``, ``flash_attention_g8_s8192``,
+``flash_decode_g1_self``, ``flash_decode_g8_h64`` and ``flash_decode_g1``,
+the last over the cross caches), the card's name
+and power limit, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -1474,19 +1509,24 @@ def attn_layers(cfg) -> int:
     return n(cfg.pattern) * cfg.num_repeats + n(cfg.tail)
 
 
-def prefill_phase(torch, device, cfg, params, counters, seq=None):
+def prefill_phase(torch, device, cfg, params, counters, seq=None,
+                  inputs=None, expect=None):
     """(a) ``forward`` at B=1, S=``seq`` (PREFILL_S): launches (counts set
-    to 0 just before, read just after; one ``flash_attention`` an
-    attention layer), time, peak memory, card time by op."""
+    to 0 just before, read just after; ``expect`` ``flash_attention``
+    launches, default one an attention layer), time, peak memory, card
+    time by op. ``inputs()``, called inside each timed run, gives
+    ``forward``'s other arguments (the encoder's output, the frontend
+    stub's embeddings, M-RoPE streams)."""
     from repro_torch.models.transformer import forward
 
     seq = seq or PREFILL_S
+    expect = attn_layers(cfg) if expect is None else expect
     toks = torch.from_numpy(lm_tokens(cfg, (1, seq), 0x5046)).to(
         device)
 
     def run():
         with torch.inference_mode():
-            return forward(cfg, params, toks)
+            return forward(cfg, params, toks, **(inputs() if inputs else {}))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -1506,10 +1546,10 @@ def prefill_phase(torch, device, cfg, params, counters, seq=None):
         raise RuntimeError("prefill logits exceed the final softcap")
     last = logits[0, -1].clone()
     del logits
-    if launches["flash_attention"] != attn_layers(cfg) or \
+    if launches["flash_attention"] != expect or \
             launches["flash_decode"] != 0:
         raise RuntimeError(f"prefill launched {launches}, expected "
-                           f"{attn_layers(cfg)} flash_attention")
+                           f"{expect} flash_attention")
     times = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1536,37 +1576,44 @@ def prefill_phase(torch, device, cfg, params, counters, seq=None):
 
 
 def decode_phase(torch, device, cfg, params, counters, host=True,
-                 trace_steps=None):
+                 trace_steps=None, states=None, per_step=None):
     """(b) the ``serve_decode`` launcher's greedy loop: launches (counts
-    set to 0 just before, read just after; one ``flash_decode`` an
-    attention layer a step), ms/step, tokens/s, peak memory, a second run
-    bit-identical (tokens and every step's logits), card time by op a
-    step over the whole loop, or over ``trace_steps`` steps from a
-    one-token prompt (``host=False``: the card's activity alone)."""
+    set to 0 just before, read just after; ``per_step`` ``flash_decode``
+    a step, default one an attention layer), ms/step, tokens/s, peak
+    memory, a second run bit-identical (tokens and every step's logits),
+    card time by op a step over the whole loop, or over ``trace_steps``
+    steps from a one-token prompt (``host=False``: the card's activity
+    alone). ``states(max_len)`` gives each run a fresh decode state (an
+    enc-dec model's with its cross caches written in); default the
+    launcher's."""
     import numpy as np
     from repro_torch.launch.serve_decode import greedy_decode
 
+    def decode(prompts_, gen):
+        return greedy_decode(
+            cfg, params, prompts_, gen, device,
+            states(prompts_.shape[1] + gen) if states else None)
+
+    per_step = attn_layers(cfg) if per_step is None else per_step
     prompts = lm_tokens(cfg, (DECODE_B, DECODE_PROMPT), 0x4443)
     steps = DECODE_PROMPT + DECODE_GEN - 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.reset()
-    toks, first_s, logits = greedy_decode(cfg, params, prompts, DECODE_GEN,
-                                          device)
+    toks, first_s, logits = decode(prompts, DECODE_GEN)
     launches = {c.name: c.value for c in counters}
     peak = torch.cuda.max_memory_allocated()
-    if launches["flash_decode"] != steps * attn_layers(cfg) or \
+    if launches["flash_decode"] != steps * per_step or \
             launches["flash_attention"] != 0:
         raise RuntimeError(f"decode launched {launches}, expected "
-                           f"{attn_layers(cfg)} flash_decode a step")
+                           f"{per_step} flash_decode a step")
     if toks.shape != (DECODE_B, DECODE_PROMPT + DECODE_GEN) or \
             not np.array_equal(toks[:, :DECODE_PROMPT], prompts) or \
             toks.min() < 0 or toks.max() >= cfg.vocab_size or \
             not all(bool(torch.isfinite(x).all()) for x in logits):
         raise RuntimeError("decode gave bad tokens or logits")
-    again, second_s, logits2 = greedy_decode(cfg, params, prompts,
-                                             DECODE_GEN, device)
+    again, second_s, logits2 = decode(prompts, DECODE_GEN)
     if not np.array_equal(again, toks) or not all(
             torch.equal(a, b) for a, b in zip(logits, logits2)):
         raise RuntimeError("a second decode run gave other tokens or "
@@ -1574,9 +1621,9 @@ def decode_phase(torch, device, cfg, params, counters, host=True,
     del logits, logits2
     traced = steps if trace_steps is None else trace_steps
     traced_s, busy_ms, ops = card_time_by_op(
-        torch, lambda: greedy_decode(
-            cfg, params, prompts if trace_steps is None else prompts[:, :1],
-            DECODE_GEN if trace_steps is None else trace_steps, device),
+        torch, lambda: decode(
+            prompts if trace_steps is None else prompts[:, :1],
+            DECODE_GEN if trace_steps is None else trace_steps),
         host=host)
     out = {"batch": DECODE_B, "prompt": DECODE_PROMPT, "gen": DECODE_GEN,
            "steps": steps, "first_ms_per_step": 1e3 * first_s / steps,
@@ -3326,16 +3373,92 @@ def mixer_serve(torch, device, name, seq, cut, counters):
                          "decode": decode, "cut": cut}
 
 
-def mixer_attention_row(torch, device, cfg, params, seq, launches):
-    """``flash_attention`` on the model's first attention layer's own
-    q/k/v at the prefill shape (bfloat16; recurrentgemma-9b's local layer
-    at G=16 with window 2048, qwen3-moe-30b-a3b's global layer at G=8
-    after q/k-norm), against its plain version, with its time beside the
-    plain version's, SDPA's (the same mask, no softcap) and its FLOP
-    bound."""
+def attention_row(torch, device, name, desc, q, k, v, launches, *,
+                  causal=True, window=0, softcap=0.0, ragged_skv=None):
+    """``flash_attention`` (bfloat16) on q/k/v against its plain version
+    (``rtol=2^-7, atol=1e-5``) over the whole k/v and, without a mask,
+    over its first ``ragged_skv`` keys too; one card operation a call,
+    timed beside the plain version, SDPA (the same mask, ``enable_gqa``,
+    no softcap) and its FLOP bound (4 dh a valid pair)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, Sq, H, dh = q.shape
+    Skv, kvH = k.shape[1], k.shape[2]
+    G = H // kvH
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    err = 0.0
+    for n in (Skv,) + ((ragged_skv,) if ragged_skv else ()):
+        kk, vv = (t[:, :n].contiguous() for t in (k, v))
+        got = fa_ops.flash_attention(q, kk, vv, **kw).float()
+        want = flash_attention_ref(q, kk, vv, **kw).float()
+        err = max(err, float((got - want).abs().max()))
+        if not torch.allclose(got, want, rtol=2 ** -7, atol=1e-5):
+            raise RuntimeError(f"flash_attention G={G} ({desc}) differs "
+                               f"from its plain version at Skv={n}: {err}")
+        del kk, vv, got, want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window:
+        ip = torch.arange(Sq, device=device)
+        sdpa_kw, mask = {"attn_mask": (ip[None, :] <= ip[:, None]) & (
+            ip[None, :] > ip[:, None] - window)}, "band mask"
+    else:
+        sdpa_kw = {"is_causal": causal}
+        mask = "is_causal" if causal else "no mask"
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **sdpa_kw)
+
+    def kern():
+        return fa_ops.flash_attention(q, k, v, **kw)
+    lib_err = float((sdpa().transpose(1, 2).float() - flash_attention_ref(
+        q, k, v, causal=causal, window=window).float()).abs().max())
+    if lib_err > 0.05:
+        raise RuntimeError(f"SDPA yardstick (G={G}, {desc}) computes "
+                           f"another function: {lib_err}")
+    ops = device_ops(torch, kern)
+    if len(ops) != 1:
+        raise RuntimeError(f"flash_attention G={G} ({desc}) ran {len(ops)} "
+                           f"card operations a call: {ops}")
+    flop = 4 * dh * H * B * (causal_pairs(Sq, window) if causal
+                             else Sq * Skv)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    r = {"name": name, "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_mma.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
+         "launches": launches, "max_abs_err": err,
+         "ms": device_ms(torch, kern, iters=5),
+         "plain_ms": device_ms(torch, lambda: flash_attention_ref(
+             q, k, v, **kw), iters=3),
+         "library_ms": device_ms(torch, sdpa, iters=5),
+         "library_err_no_softcap": lib_err, "flop": flop,
+         "device_ops": len(ops),
+         "shape": f"{desc} q=({B},{Sq},{H},{dh}) k/v=({B},{Skv},{kvH},{dh}) "
+                  f"{mask} window={window} softcap={softcap} bf16 (G={G})"}
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flop, BF16_FLOPS_PER_S)
+    r["tflops"] = flop / r["ms"] / 1e9
+    log(f"flash_attention {r['shape']}: ms={r['ms']:.4f} plain_ms="
+        f"{r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} (SDPA, "
+        f"{mask}, enable_gqa) bound_ms={r['bound_ms']:.4f} "
+        f"({r['bound_by']}, {flop:.4g} FLOP; {r['tflops']:.1f} TFLOP/s, "
+        f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound); 1 card op a "
+        f"call; max_abs_err {err:.3e} over Skv {Skv}"
+        f"{f' and {ragged_skv}' if ragged_skv else ''} (rtol=2^-7 "
+        f"atol=1e-5); launches {launches} in the model's prefill")
+    return r
+
+
+def mixer_attention_row(torch, device, cfg, params, seq, launches,
+                        name=None, embeds=None, mrope_positions=None):
+    """``attention_row`` on the model's first attention layer's own q/k/v
+    at the prefill shape, B=1, S=``seq`` (recurrentgemma-9b's local layer
+    at G=16 with window 2048, qwen3-moe-30b-a3b's global layer at G=8
+    after q/k-norm, seamless-m4t-medium's causal decoder self-attention at
+    G=1, qwen2-vl-72b's at G=8 after M-RoPE); ``embeds`` and
+    ``mrope_positions`` as ``forward`` takes them."""
     from repro_torch.models.transformer.blocks import (_project_qkv,
                                                        block_apply)
     from repro_torch.models.transformer.common import rms_norm
@@ -3345,80 +3468,38 @@ def mixer_attention_row(torch, device, cfg, params, seq, launches):
     pos = torch.arange(seq, device=device)[None, :]
     with torch.inference_mode():
         x = _embed(cfg, params, toks)
+        if embeds is not None:
+            x = x + embeds.to(x.dtype)
         for i, kind in enumerate(cfg.pattern):
             p = _unstack(params["blocks"][i])[0]
             if kind in ("attn", "local"):
                 h = rms_norm(x, p["ln1"], cfg.norm_eps)
                 q, k, v = (t.contiguous() for t in _project_qkv(
-                    cfg, p["attn"], h, pos))
+                    cfg, p["attn"], h, pos, mrope_positions))
                 break
-            x = block_apply(cfg, kind, p, x, positions=pos)
+            x = block_apply(cfg, kind, p, x, positions=pos,
+                            mrope_positions=mrope_positions)
     del x, h
-    B, S, H, dh = q.shape
-    G = H // k.shape[2]
-    window = cfg.window if kind == "local" else 0
-    kw = dict(causal=True, window=window, softcap=cfg.attn_softcap)
-    got = fa_ops.flash_attention(q, k, v, **kw)
-    want = flash_attention_ref(q, k, v, **kw)
-    err = float((got.float() - want.float()).abs().max())
-    if not torch.allclose(got.float(), want.float(), rtol=2 ** -7,
-                          atol=1e-5):
-        raise RuntimeError(f"flash_attention G={G} ({cfg.name}) differs "
-                           f"from its plain version: {err}")
-    del got, want
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if window:
-        ip = torch.arange(S, device=device)
-        band = (ip[None, :] <= ip[:, None]) & (ip[None, :] > ip[:, None]
-                                               - window)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
-                                                  enable_gqa=True)
-    else:
-        def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-    lib_err = float((sdpa().transpose(1, 2).float() - flash_attention_ref(
-        q, k, v, causal=True, window=window).float()).abs().max())
-    if lib_err > 0.05:
-        raise RuntimeError(f"SDPA yardstick (G={G}) computes another "
-                           f"function: {lib_err}")
-    flop = 4 * dh * H * B * causal_pairs(S, window)
-    nbytes = B * S * (2 * H + 2 * k.shape[2]) * dh * q.element_size()
-    r = {"name": f"flash_attention_g{G}", "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_attention_mma.cu",
-         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
-         "launches": launches, "max_abs_err": err,
-         "ms": device_ms(torch, lambda: fa_ops.flash_attention(q, k, v, **kw),
-                         iters=5),
-         "plain_ms": device_ms(torch, lambda: flash_attention_ref(
-             q, k, v, **kw), iters=3),
-         "library_ms": device_ms(torch, sdpa, iters=5),
-         "library_err_no_softcap": lib_err, "flop": flop,
-         "shape": f"{cfg.name} {kind} q=({B},{S},{H},{dh}) kvH={k.shape[2]} "
-                  f"window={window} softcap={cfg.attn_softcap} bf16 (G={G})"}
-    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, flop, BF16_FLOPS_PER_S)
-    r["tflops"] = flop / r["ms"] / 1e9
-    log(f"flash_attention {r['shape']}: ms={r['ms']:.4f} plain_ms="
-        f"{r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} (SDPA, "
-        f"{'band mask' if window else 'is_causal'}, enable_gqa) bound_ms="
-        f"{r['bound_ms']:.4f} ({r['bound_by']}, {flop:.4g} FLOP; "
-        f"{r['tflops']:.1f} TFLOP/s, {100 * r['bound_ms'] / r['ms']:.1f} % "
-        f"of the bound); max_abs_err {err:.3e} (rtol=2^-7 atol=1e-5); "
-        f"launches {launches} in the prefill")
-    return r
+    G = q.shape[2] // k.shape[2]
+    return attention_row(
+        torch, device, name or f"flash_attention_g{G}", f"{cfg.name} {kind}",
+        q, k, v, launches, causal=True,
+        window=cfg.window if kind == "local" else 0,
+        softcap=cfg.attn_softcap)
 
 
-def mixer_decode_row(torch, device, cfg, launches):
-    """``flash_decode`` at the model's heads, B=DECODE_B, bfloat16, over
-    a full ``MIXER_DECODE_CACHE`` cache (the row's numbers) and the
-    decode loop's own cache from ``init_decode_state``: full lengths
-    (timed) and ragged ones from 0 to S, against the plain version
-    (float32 outputs, ``rtol=1e-4, atol=1e-5``), with the time beside
-    the plain version's, SDPA's (``enable_gqa``, the same mask) and the
-    byte bound; one card operation a call."""
+def mixer_decode_row(torch, device, cfg, launches, full_s=None, loop=True,
+                     lengths=None, name=None, what=""):
+    """``flash_decode`` at the model's heads, B=DECODE_B, bfloat16, over a
+    cache of ``full_s`` positions (``MIXER_DECODE_CACHE`` by default; the
+    row's numbers) and, with ``loop``, the decode loop's own cache from
+    ``init_decode_state``. At each cache size S, ``lengths(S)`` gives the
+    (B,) length vectors, the first of them timed: by default full lengths
+    and ragged ones from 0 to S. Against the plain version at each (float32
+    outputs, ``rtol=1e-4, atol=1e-5``, exactly 0 at a length of 0), with
+    the time beside the plain version's, SDPA's (``enable_gqa``; a
+    boolean mask where the timed lengths are short of S) and the byte
+    bound over the valid rows; one card operation a call."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ref import (flash_decode_batched_ref,
@@ -3429,38 +3510,44 @@ def mixer_decode_row(torch, device, cfg, launches):
     B, H, kvH, dh = DECODE_B, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // kvH
     cap = cfg.attn_softcap
-    loop = init_decode_state(cfg, B, DECODE_PROMPT + DECODE_GEN,
-                             device=device)
-    loop_s = next(st["k"] for st in loop["scan"] if "k" in st).shape[2]
-    del loop
-    full_s = MIXER_DECODE_CACHE[cfg.name]
+    sizes = [full_s or MIXER_DECODE_CACHE[cfg.name]]
+    if loop:
+        st = init_decode_state(cfg, B, DECODE_PROMPT + DECODE_GEN,
+                               device=device)
+        sizes.append(next(s["k"] for s in st["scan"] if "k" in s).shape[2])
+        del st
+
+    def default_lengths(S):
+        return [torch.full((B,), S, dtype=torch.int32, device=device),
+                torch.arange(B, dtype=torch.int32, device=device) * 7
+                % (S + 1)]
     shapes = {}
-    for S in (full_s, loop_s):
+    for S in sizes:
         q = torch.randn((B, H, dh), generator=gen, device=device,
                         dtype=torch.bfloat16)
         k, v = (torch.randn((B, S, kvH, dh), generator=gen, device=device,
                             dtype=torch.bfloat16) for _ in range(2))
-        ln = torch.full((B,), S, dtype=torch.int32, device=device)
-        ragged = torch.arange(B, dtype=torch.int32, device=device) * 7 % \
-            (S + 1)
+        lens = (lengths or default_lengths)(S)
+        timed = lens[0]
 
         def kern():
-            return fd_ops.flash_decode_batched(q, k, v, ln, softcap=cap)
+            return fd_ops.flash_decode_batched(q, k, v, timed, softcap=cap)
 
         def plain():
-            return flash_decode_batched_ref(q, k, v, ln, softcap=cap)
+            return flash_decode_batched_ref(q, k, v, timed, softcap=cap)
         err = 0.0
-        for lens in (ln, ragged):
-            got = fd_ops.flash_decode_batched(q, k, v, lens, softcap=cap)
-            acc, m, l = flash_decode_batched_ref(q, k, v, lens, softcap=cap)
+        for ln in lens:
+            got = fd_ops.flash_decode_batched(q, k, v, ln, softcap=cap)
+            acc, m, l = flash_decode_batched_ref(q, k, v, ln, softcap=cap)
             err = max(err, float((got - finalize(acc, l)).abs().max()))
             if not torch.allclose(got, finalize(acc, l), rtol=1e-4,
-                                  atol=1e-5):
-                raise RuntimeError(f"flash_decode G={G} ({cfg.name}) "
-                                   f"differs from its plain version at "
+                                  atol=1e-5) or \
+                    not bool((got[ln == 0] == 0).all()):
+                raise RuntimeError(f"flash_decode G={G} ({cfg.name} {what})"
+                                   f" differs from its plain version at "
                                    f"S={S}: {err}")
         acc, m, l = plain()
-        parts = fd_ops.flash_decode(q[1], k[1], v[1], ln[1], softcap=cap)
+        parts = fd_ops.flash_decode(q[1], k[1], v[1], timed[1], softcap=cap)
         for g_, w_ in zip(parts, (acc[1], m[1], l[1])):
             if not torch.allclose(g_, w_, rtol=1e-4, atol=1e-5):
                 raise RuntimeError(f"flash_decode G={G} partials differ")
@@ -3469,21 +3556,25 @@ def mixer_decode_row(torch, device, cfg, launches):
             raise RuntimeError(f"flash_decode G={G} ran {len(ops)} card "
                                f"operations a call: {ops}")
         qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(S, device=device)[None, :] < timed[:, None])[
+            :, None, None, :] if bool((timed < S).any()) else None
 
         def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt,
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   enable_gqa=True)
         lib_err = float((sdpa()[:, :, 0].float() - finalize(
-            *flash_decode_batched_ref(q, k, v, ln)[::2])).abs().max())
+            *flash_decode_batched_ref(q, k, v, timed)[::2])).abs().max())
         if lib_err > 0.05:
             raise RuntimeError(f"SDPA yardstick (decode G={G}) computes "
                                f"another function: {lib_err}")
-        nbytes = (k.numel() + v.numel()) * k.element_size() + \
+        valid = int(timed.sum())
+        nbytes = 2 * valid * kvH * dh * k.element_size() + \
             q.numel() * q.element_size() + B * H * dh * 4
-        bound = bound_ms(nbytes, 4 * dh * H * B * S, BF16_FLOPS_PER_S)
+        bound = bound_ms(nbytes, 4 * dh * H * valid, BF16_FLOPS_PER_S)
         shapes[S] = {
-            "cache": [B, S, kvH, dh], "max_abs_err": err,
-            "device_ops": len(ops), "ms": device_ms(torch, kern),
+            "cache": [B, S, kvH, dh], "lengths": timed.tolist(),
+            "max_abs_err": err, "device_ops": len(ops),
+            "ms": device_ms(torch, kern),
             "ms_in_a_graph": device_ms_per_call(torch, kern),
             "plain_ms": device_ms(torch, plain, iters=5),
             "library_ms": device_ms(torch, sdpa),
@@ -3491,61 +3582,89 @@ def mixer_decode_row(torch, device, cfg, launches):
             "library_err_no_softcap": lib_err, "bytes": nbytes,
             "bound_ms": bound[0], "bound_by": bound[1]}
         sh = shapes[S]
-        log(f"flash_decode {cfg.name} q=({B},{H},{dh}) cache=({B},{S},{kvH},"
-            f"{dh}) bf16 (G={G}{', the loop' if S == loop_s else ''}): "
-            f"ms={sh['ms']:.4f} ({sh['ms_in_a_graph']:.4f} a call in a graph "
+        log(f"flash_decode {cfg.name}{f' {what}' if what else ''} q=({B},"
+            f"{H},{dh}) cache=({B},{S},{kvH},{dh}) bf16 (G={G}"
+            f"{', the loop' if S != sizes[0] else ''}), lengths "
+            f"{'full' if mask is None else timed.tolist()}: ms="
+            f"{sh['ms']:.4f} ({sh['ms_in_a_graph']:.4f} a call in a graph "
             f"of 20) plain_ms={sh['plain_ms']:.4f} library_ms="
             f"{sh['library_ms']:.4f} ({sh['library_ms_in_a_graph']:.4f} in "
-            f"a graph; SDPA enable_gqa, no softcap) bound_ms="
-            f"{sh['bound_ms']:.5f} ({sh['bound_by']}, {nbytes / 1e6:.1f} "
-            f"MB); {len(ops)} card op a call; max_abs_err {err:.3e} over "
-            f"full and ragged lengths (rtol=1e-4 atol=1e-5)")
+            f"a graph; SDPA enable_gqa, {'no' if mask is None else 'boolean'}"
+            f" mask, no softcap) bound_ms={sh['bound_ms']:.5f} "
+            f"({sh['bound_by']}, {nbytes / 1e6:.1f} MB); {len(ops)} card op "
+            f"a call; max_abs_err {err:.3e} over {len(lens)} length vectors "
+            f"(rtol=1e-4 atol=1e-5)")
         del q, k, v
-    full = shapes[full_s]
-    return {"name": f"flash_decode_g{G}", "route": "cuda",
+    first = shapes[sizes[0]]
+    lens_txt = "full" if min(first["lengths"]) == sizes[0] else \
+        first["lengths"]
+    return {"name": name or f"flash_decode_g{G}", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_decode/csrc/"
                       "flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
             "launches": launches,
             "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
-            "ms": full["ms"], "plain_ms": full["plain_ms"],
-            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
-            "library_ms": full["library_ms"],
-            "shape": f"{cfg.name} q=({B},{H},{dh}) cache=({B},{full_s},"
-                     f"{kvH},{dh}) bf16 (G={G}), full",
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "shape": f"{cfg.name}{f' {what}' if what else ''} q=({B},{H},"
+                     f"{dh}) cache=({B},{sizes[0]},{kvH},{dh}) bf16 (G={G}),"
+                     f" lengths {lens_txt}",
             "shapes": {str(k_): v_ for k_, v_ in shapes.items()}}
 
 
-def mixer_reduced(torch, device, counters):
-    """(d) the reduced configs in float32, the same port code on the card
-    and on the CPU from the same parameters: ``forward`` over
+def reduced_check(torch, device, counters, names, what):
+    """The reduced configs ``names`` in float32, the same port code on the
+    card and on the CPU from the same parameters: ``forward`` over
     MIXER_REDUCED_B x MIXER_REDUCED_S tokens and the ``serve_step`` loop
     over the same tokens, logits within ``rtol=1e-4, atol=1e-4``; a
-    second card run bit-equal; one kernel launch an attention layer."""
+    second card run bit-equal; one kernel launch an attention. An enc-dec
+    model's prefill encodes ENCDEC_REDUCED_SRC frames and its loop reads
+    cross caches written from them (ragged lengths, one 0); an M-RoPE
+    model's prefill adds patch embeddings and takes distinct streams, its
+    loop the streams at each position."""
     from repro_torch.configs import get_reduced
-    from repro_torch.models.transformer import (forward, init_decode_state,
+    from repro_torch.models.transformer import (encode, forward,
+                                                init_decode_state,
                                                 init_params, serve_step)
     from repro_torch.train.optim import tree_map
 
     cpu = torch.device("cpu")
     B, S = MIXER_REDUCED_B, MIXER_REDUCED_S
     out = {}
-    for name in MIXER_REDUCED:
+    for name in names:
         cfg = get_reduced(name)
         host_p = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
         card_p = tree_map(lambda t: t.to(device), host_p)
-        toks = lm_tokens(cfg, (B, S), 0x4D58)
+        toks = torch.from_numpy(lm_tokens(cfg, (B, S), 0x4D58))
+        encdec = cfg.kind == "encdec"
+        frames = stub_frames(torch, cfg, (B, ENCDEC_REDUCED_SRC if encdec
+                                          else S), LM_SEED + 11, cpu)
+        streams = mrope_streams(torch, B, S, cpu)
+        x_len = (ENCDEC_REDUCED_SRC - 5 * torch.arange(B)).to(torch.int32)
+        x_len[B // 2] = 0
 
         def run(dev, params):
-            t = torch.from_numpy(toks).to(dev)
+            t = toks.to(dev)
             with torch.inference_mode():
-                full = forward(cfg, params, t)
-                st = init_decode_state(cfg, B, S, device=dev)
+                kw, states = {}, None
+                if encdec:
+                    enc = encode(cfg, params, frames.to(dev))
+                    kw = {"enc_out": enc}
+                    states = cross_caches(torch, cfg, params, enc,
+                                          x_len.to(dev))(S)
+                elif cfg.frontend == "vision":
+                    kw = {"embeds": frames.to(dev),
+                          "mrope_positions": streams.to(dev)}
+                full = forward(cfg, params, t, **kw)
+                states = states or init_decode_state(cfg, B, S, device=dev)
                 steps = []
                 for i in range(S - 1):
-                    lg, st = serve_step(
-                        cfg, params, st, t[:, i:i + 1],
-                        torch.full((B,), i, dtype=torch.int32, device=dev))
+                    lg, states = serve_step(
+                        cfg, params, states, t[:, i:i + 1],
+                        torch.full((B,), i, dtype=torch.int32, device=dev),
+                        mrope_positions=streams[:, :, i:i + 1].to(dev)
+                        if cfg.mrope_sections else None)
                     steps.append(lg[:, 0])
             return full.cpu(), torch.stack(steps, 1).cpu()
         for c in counters:
@@ -3554,10 +3673,12 @@ def mixer_reduced(torch, device, counters):
         launches = {c.name: c.value for c in counters}
         again = run(device, card_p)
         host = run(cpu, host_p)
-        n_attn = attn_layers(cfg)
-        if launches != {"flash_attention": n_attn,
-                        "flash_decode": (S - 1) * n_attn}:
-            raise RuntimeError(f"{name} (reduced) launched {launches}")
+        n = attn_layers(cfg) * (2 if encdec else 1)
+        want = {"flash_attention": n + cfg.num_enc_layers,
+                "flash_decode": (S - 1) * n}
+        if launches != want:
+            raise RuntimeError(f"{name} (reduced) launched {launches}, "
+                               f"expected {want}")
         errs = [float((a - b).abs().max()) for a, b in zip(card, host)]
         if not all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
                    for a, b in zip(card, host)):
@@ -3568,10 +3689,12 @@ def mixer_reduced(torch, device, counters):
                                f"other logits")
         out[name] = {"prefill_max_abs_err": errs[0],
                      "decode_max_abs_err": errs[1], "launches": launches}
-        log(f"mixer {name} (reduced, float32, {B}x{S}): prefill and "
-            f"{S - 1} decode steps on the card within rtol=1e-4 atol=1e-4 "
-            f"of the CPU (max abs err {errs[0]:.3e} / {errs[1]:.3e}); "
-            f"second card run bit-equal; launches {json.dumps(launches)}")
+        log(f"{what} {name} (reduced, float32, {B}x{S}"
+            f"{f', source {ENCDEC_REDUCED_SRC} frames' if encdec else ''}):"
+            f" prefill and {S - 1} decode steps on the card within "
+            f"rtol=1e-4 atol=1e-4 of the CPU (max abs err {errs[0]:.3e} / "
+            f"{errs[1]:.3e}); second card run bit-equal; launches "
+            f"{json.dumps(launches)}")
     return out
 
 
@@ -3599,10 +3722,266 @@ def mixer_phase(torch, device, counters):
         out[name] = res
         log(f"mixer {name}: sub-phase wall {res['wall_s']:.1f} s")
     t0 = time.perf_counter()
-    out["reduced"] = mixer_reduced(torch, device, counters)
+    out["reduced"] = reduced_check(torch, device, counters, MIXER_REDUCED,
+                                   "mixer")
     out["reduced_wall_s"] = time.perf_counter() - t0
     log(f"mixer reduced configs: sub-phase wall {out['reduced_wall_s']:.1f} "
         f"s")
+    return out, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: decode serving of the enc-dec and M-RoPE models
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH, VLM_ARCH = "seamless-m4t-medium", "qwen2-vl-72b"
+PHASE12_FULL = True
+#: qwen2-vl-72b at full width, its 80 layers cut to 16: 80 layers are 145
+#: GB of bf16 weights, which one 80 GB card cannot hold; 16 are 33.1 GB
+#: (sharding over cards is ROADMAP Queue 1 item 4)
+VLM_LAYERS = 16
+#: frame embeddings a source: the reference's SRC_LEN
+#: (``launch/specs.py``)
+SRC_LEN = 4096
+#: the decode loop's source lengths, one a sequence: 4096 - 97 b
+SRC_STEP = 97
+#: the patch grid of the M-RoPE streams: t = i, h = i // 64, w = i % 64
+PATCH_GRID = 64
+#: the reduced enc-dec model's source: 40 frames against 48 decoder tokens
+ENCDEC_REDUCED_SRC = 40
+
+
+def phase12_config(name, full: bool, dtype: str):
+    import dataclasses
+    from repro_torch.configs import get_arch, get_reduced
+    if not full:
+        return dataclasses.replace(get_reduced(name), dtype=dtype)
+    cfg = get_arch(name)
+    if name == VLM_ARCH:
+        cfg = dataclasses.replace(cfg, num_layers=VLM_LAYERS)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def mrope_streams(torch, B: int, S: int, device):
+    """(3, B, S) int32 M-RoPE streams of one image-like sequence: t = i,
+    h = i // PATCH_GRID, w = i % PATCH_GRID (equal streams would make
+    M-RoPE RoPE)."""
+    t = torch.arange(S, dtype=torch.int32, device=device)
+    return torch.stack([t, t // PATCH_GRID, t % PATCH_GRID])[:, None] \
+        .expand(3, B, S).contiguous()
+
+
+def stub_frames(torch, cfg, shape, seed: int, device):
+    """The frontend stubs' (frame or patch) embeddings: 0.02 x normal,
+    float32, as the reference's data pipeline makes them."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return 0.02 * torch.randn((*shape, cfg.d_model), generator=gen,
+                              device=device)
+
+
+def cross_caches(torch, cfg, params, enc_out, x_len):
+    """-> states(max_len): a fresh decode state whose cross caches hold
+    each decoder layer's ``enc_out @ xattn.wk/wv`` (R, B, S_src, kvH, dh)
+    and ``x_len`` (R, B), written as a caller writes them (the reference
+    leaves them to its caller too)."""
+    from repro_torch.models.transformer import init_decode_state
+
+    B, S_src = enc_out.shape[:2]
+    xp = params["blocks"][0]["xattn"]
+    shape = (B, S_src, cfg.num_kv_heads, cfg.head_dim)
+    with torch.inference_mode():
+        xk = torch.stack([(enc_out @ w).reshape(shape) for w in xp["wk"]])
+        xv = torch.stack([(enc_out @ w).reshape(shape) for w in xp["wv"]])
+    xl = x_len.to(torch.int32).expand(cfg.num_repeats, B).contiguous()
+
+    def states(max_len):
+        st = init_decode_state(cfg, B, max_len, device=enc_out.device)
+        st["scan"][0].update(xk=xk, xv=xv, x_len=xl)
+        return st
+    return states
+
+
+def model_line(torch, cfg, params, t0, cut):
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"model {cfg.name}: {cfg.kind} {cfg.num_layers} layers"
+        f"{f' + {cfg.num_enc_layers} encoder' if cfg.num_enc_layers else ''}"
+        f" d={cfg.d_model} H={cfg.num_heads} kvH={cfg.num_kv_heads} "
+        f"dh={cfg.head_dim} vocab={cfg.vocab_size} frontend "
+        f"{cfg.frontend!r} mrope {cfg.mrope_sections} {cfg.dtype}: "
+        f"{n / 1e9:.3f} B parameters "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) "
+        f"from seed {LM_SEED} in {time.perf_counter() - t0:.2f} s; {cut}")
+    return n
+
+
+def encdec_serve(torch, device, counters):
+    """(a) seamless-m4t-medium at full width and depth: ``encode`` of
+    SRC_LEN frames and ``forward`` with ``enc_out`` at S=PREFILL_S (one
+    ``flash_attention`` an encoder layer, a decoder layer and a
+    cross-attention); the greedy loop against cross caches filled from 8
+    encoded sources with ragged lengths (two ``flash_decode`` a decoder
+    layer a step), and once more against the launcher's empty caches
+    (``x_len = 0``), whose logits must equal, bit for bit, a run with
+    no cross caches at all. Also returns the inputs of the first
+    attention layer's row: none, it is the decoder's self-attention."""
+    import numpy as np
+    from repro_torch.launch.serve_decode import greedy_decode
+    from repro_torch.models.transformer import (encode, init_decode_state,
+                                                init_params)
+
+    cfg = phase12_config(ENCDEC_ARCH, PHASE12_FULL, "bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        LM_SEED), device)
+    torch.cuda.synchronize()
+    n = model_line(torch, cfg, params, t0, f"prefill_32k cut to B=1 "
+                   f"S={PREFILL_S} over a source of {SRC_LEN} frames")
+    src = stub_frames(torch, cfg, (1, SRC_LEN), LM_SEED + 6, device)
+    layers = attn_layers(cfg)
+    prefill = prefill_phase(
+        torch, device, cfg, params, counters,
+        inputs=lambda: {"enc_out": encode(cfg, params, src)},
+        expect=cfg.num_enc_layers + 2 * layers)
+    del src
+    with torch.inference_mode():
+        enc = encode(cfg, params, stub_frames(
+            torch, cfg, (DECODE_B, SRC_LEN), LM_SEED + 7, device))
+    x_len = SRC_LEN - SRC_STEP * torch.arange(DECODE_B, device=device)
+    states = cross_caches(torch, cfg, params, enc, x_len)
+    del enc
+    decode = decode_phase(torch, device, cfg, params, counters, host=False,
+                          trace_steps=MIXER_TRACE_STEPS, states=states,
+                          per_step=2 * layers)
+    del states
+    # the launcher's empty caches (x_len = 0) against no cross caches
+    prompts = lm_tokens(cfg, (DECODE_B, DECODE_PROMPT), 0x4443)
+    steps = DECODE_PROMPT + DECODE_GEN - 1
+    for c in counters:
+        c.reset()
+    toks, empty_s, logits = greedy_decode(cfg, params, prompts, DECODE_GEN,
+                                          device)
+    launches = {c.name: c.value for c in counters}
+
+    def bare(max_len):
+        st = init_decode_state(cfg, DECODE_B, max_len, device=device)
+        for k in ("xk", "xv", "x_len"):
+            del st["scan"][0][k]
+        return st
+    toks2, _, logits2 = greedy_decode(cfg, params, prompts, DECODE_GEN,
+                                      device, bare(DECODE_PROMPT
+                                                   + DECODE_GEN))
+    if launches != {"flash_attention": 0, "flash_decode": 2 * layers * steps}:
+        raise RuntimeError(f"decode with empty cross caches launched "
+                           f"{launches}")
+    if not np.array_equal(toks, toks2) or not all(
+            torch.equal(a, b) for a, b in zip(logits, logits2)) or \
+            not all(bool(torch.isfinite(x).all()) for x in logits):
+        raise RuntimeError("cross-attention over empty caches (x_len = 0) "
+                           "did not add exactly 0")
+    del logits, logits2
+    empty = {"ms_per_step": 1e3 * empty_s / steps, "launches": launches}
+    log(f"decode {cfg.name} over empty cross caches (x_len = 0, the "
+        f"launcher's): {empty['ms_per_step']:.2f} ms/step, launches "
+        f"{json.dumps(launches)}; tokens and every step's logits bit-equal "
+        f"to a run without cross caches (the cross-attention adds exactly "
+        f"0)")
+    return cfg, params, {"parameters": n, "prefill": prefill,
+                         "decode": decode, "decode_empty_cross": empty,
+                         "x_len": x_len.tolist()}, {}
+
+
+def vlm_serve(torch, device, counters):
+    """(b) qwen2-vl-72b at full width, VLM_LAYERS layers: ``forward`` at
+    S=PREFILL_S with patch embeddings and distinct M-RoPE streams (one
+    ``flash_attention`` a layer), and the launcher's greedy loop (the
+    position on all three streams; one ``flash_decode`` a layer a
+    step). Also returns the prefill's inputs."""
+    from repro_torch.models.transformer import init_params
+
+    cfg = phase12_config(VLM_ARCH, PHASE12_FULL, "bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        LM_SEED), device)
+    torch.cuda.synchronize()
+    n = model_line(torch, cfg, params, t0, f"80 layers cut to {VLM_LAYERS} "
+                   f"(145 GB of weights do not fit one card); prefill_32k "
+                   f"cut to B=1 S={PREFILL_S}")
+    inputs = {"embeds": stub_frames(torch, cfg, (1, PREFILL_S), LM_SEED + 8,
+                                    device),
+              "mrope_positions": mrope_streams(torch, 1, PREFILL_S, device)}
+    prefill = prefill_phase(torch, device, cfg, params, counters,
+                            inputs=lambda: inputs)
+    decode = decode_phase(torch, device, cfg, params, counters, host=False,
+                          trace_steps=MIXER_TRACE_STEPS)
+    return cfg, params, {"parameters": n, "prefill": prefill,
+                         "decode": decode,
+                         "cut": f"num_layers 80 -> {VLM_LAYERS}"}, inputs
+
+
+def encdec_vlm_phase(torch, device, counters):
+    """Phase 12: (a) seamless-m4t-medium and (b) qwen2-vl-72b, each with
+    ``mixer_attention_row`` on its first attention layer (seamless's
+    causal decoder self-attention, qwen2-vl's after M-RoPE) and
+    ``mixer_decode_row`` over a PREFILL_S cache and the loop's, and freed
+    before the next; then seamless's encoder (no mask, Sq == Skv) and
+    cross shapes (Sq = PREFILL_S over SRC_LEN keys, and a ragged SRC_LEN -
+    95) on seeded random q/k/v and its cross decode over SRC_LEN
+    positions at the loop's ragged lengths, full ones and ones with a 0;
+    then (c) the reduced configs."""
+    torch.cuda.empty_cache()
+    out = {"held_at_start_bytes": torch.cuda.memory_allocated()}
+    rows, launches = [], {}
+    for key, serve_fn, suffix in (("encdec", encdec_serve, ("", "_self")),
+                                  ("vlm", vlm_serve,
+                                   (f"_s{PREFILL_S}", "_h64"))):
+        t0 = time.perf_counter()
+        cfg, params, res, inputs = serve_fn(torch, device, counters)
+        G = cfg.num_heads // cfg.num_kv_heads
+        launches[key] = cfg, res["prefill"]["launches"]["flash_attention"], \
+            res["decode"]["launches"]["flash_decode"]
+        rows.append(mixer_attention_row(
+            torch, device, cfg, params, PREFILL_S, launches[key][1],
+            name=f"flash_attention_g{G}{suffix[0]}", **inputs))
+        rows.append(mixer_decode_row(
+            torch, device, cfg, launches[key][2], full_s=PREFILL_S,
+            name=f"flash_decode_g{G}{suffix[1]}", what="self"))
+        del params, inputs
+        torch.cuda.empty_cache()
+        res["wall_s"] = time.perf_counter() - t0
+        out[cfg.name] = res
+        log(f"model {cfg.name}: sub-phase wall {res['wall_s']:.1f} s")
+    t0 = time.perf_counter()
+    cfg, prefill_n, decode_n = launches["encdec"]
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 10)
+
+    def rand(S, heads):
+        return torch.randn((1, S, heads, cfg.head_dim), generator=gen,
+                           device=device, dtype=torch.bfloat16)
+    H, kvH = cfg.num_heads, cfg.num_kv_heads
+    k, v = rand(SRC_LEN, kvH), rand(SRC_LEN, kvH)
+    rows.append(attention_row(
+        torch, device, "flash_attention_g1_encoder", f"{cfg.name} encoder",
+        rand(SRC_LEN, H), k, v, prefill_n, causal=False))
+    rows.append(attention_row(
+        torch, device, "flash_attention_cross", f"{cfg.name} cross",
+        rand(PREFILL_S, H), k, v, prefill_n, causal=False,
+        ragged_skv=SRC_LEN - 95))
+    del k, v
+    x_len = (SRC_LEN - SRC_STEP * torch.arange(DECODE_B, device=device)).to(
+        torch.int32)
+    with_zero = x_len.clone()
+    with_zero[DECODE_B // 2] = 0
+    rows.append(mixer_decode_row(
+        torch, device, cfg, decode_n, full_s=SRC_LEN, loop=False,
+        lengths=lambda S: [x_len, torch.full_like(x_len, S), with_zero],
+        name="flash_decode_g1", what="cross"))
+    out["rows_wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["reduced"] = reduced_check(torch, device, counters,
+                                   (ENCDEC_ARCH, VLM_ARCH), "model")
+    out["reduced_wall_s"] = time.perf_counter() - t0
+    log(f"phase 12 seamless encoder/cross rows: wall {out['rows_wall_s']:.1f}"
+        f" s; reduced configs: wall {out['reduced_wall_s']:.1f} s")
     return out, rows
 
 
@@ -3699,6 +4078,9 @@ def main() -> int:
     mixers, mixer_rows = mixer_phase(torch, device,
                                      [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
     kernels += mixer_rows
+    encdec_vlm, encdec_vlm_rows = encdec_vlm_phase(
+        torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    kernels += encdec_vlm_rows
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -3714,7 +4096,7 @@ def main() -> int:
                    "launches": launches, "train": train, "lm": lm,
                    "dist": dist, "embedding": emb, "runner": runner,
                    "campaign": campaign, "lm_train": lm_train,
-                   "mixers": mixers}, f,
+                   "mixers": mixers, "encdec_vlm": encdec_vlm}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

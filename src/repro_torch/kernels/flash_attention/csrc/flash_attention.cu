@@ -20,7 +20,11 @@
 // tile with no valid key leaves (m, l, acc) unchanged. Tiles are taken
 // heaviest first (reverse order) so the causal triangle's long rows do
 // not trail the grid. Any S: ragged rows and keys are zero-filled and
-// masked, with no tile-multiple assert.
+// masked, with no tile-multiple assert. Without a mask (causal = 0, no
+// window) k/v have a length Skv of their own, the reference's
+// cross-attention: the key loop runs to Skv - 1, keys kp >= Skv are
+// masked, and batch b's k/v rows start at b * Skv. With a mask Skv == S
+// (checked by the wrapper).
 //
 // Arithmetic follows the TPU kernel exactly, all in float32: q is scaled,
 // s = (q*scale).k, then tanh(s/softcap)*softcap, masked scores
@@ -78,8 +82,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out, int S,
-                       int H, int kvH, int dh, float scale, float softcap,
-                       int causal, int window) {
+                       int Skv, int H, int kvH, int dh, float scale,
+                       float softcap, int causal, int window) {
   constexpr int NC = DH / 64;  // float4 column chunks a thread owns
   constexpr int kLoads = BR * (DH / 8) / kThreads;  // 8-element loads a tile
   extern __shared__ __align__(16) float smem[];
@@ -142,7 +146,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int last = min(f0 + BR, nrows) - 1;
   const int qlo = f0 / G, qhi = last / G;
   const int klo = window > 0 ? max(0, qlo - window + 1) : 0;
-  const int khi = causal ? qhi : S - 1;
+  const int khi = causal ? qhi : Skv - 1;
 
   for (int k0 = klo; k0 <= khi; k0 += BK) {
     __syncthreads();  // the last tile's reads are done; Qt is written
@@ -155,8 +159,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int idx = tid + it * kThreads;
         const int c = idx % BK, d0 = (idx / BK) * 8;
         const int kp = k0 + c;
-        if (kp < S && d0 < dh)
-          load_raw(k + (static_cast<size_t>(b) * S + kp) * kv_row +
+        if (kp < Skv && d0 < dh)
+          load_raw(k + (static_cast<size_t>(b) * Skv + kp) * kv_row +
                        static_cast<size_t>(h) * dh + d0,
                    raw[it]);
         else
@@ -180,8 +184,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int idx = tid + it * kThreads;
         const int c = idx / (DH / 8), d0 = (idx % (DH / 8)) * 8;
         const int kp = k0 + c;
-        if (kp < S && d0 < dh)
-          load_raw(v + (static_cast<size_t>(b) * S + kp) * kv_row +
+        if (kp < Skv && d0 < dh)
+          load_raw(v + (static_cast<size_t>(b) * Skv + kp) * kv_row +
                        static_cast<size_t>(h) * dh + d0,
                    raw[it]);
         else
@@ -227,7 +231,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kp = k0 + 4 * tx + j;
         float x = s[i][j];
         if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        const bool valid = row_on[i] && kp < S &&
+        const bool valid = row_on[i] && kp < Skv &&
                            (!causal || kp <= qpos[i]) &&
                            (window <= 0 || kp > qpos[i] - window);
         if (valid) ok |= 1u << j;
@@ -299,7 +303,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int H, int kvH, int dh, float scale,
+                   int B, int S, int Skv, int H, int kvH, int dh, float scale,
                    float softcap, int causal, int window, cudaStream_t st) {
   const size_t smem = sizeof(float) * (2 * DH * LDT + BK * DH + BK * LDT);
   // set once per instantiation, so a CUDA-graph capture never calls it
@@ -315,22 +319,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(static_cast<unsigned>((rows + BR - 1) / BR), kvH, B);
   flash_attention_kernel<T, DH><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, kvH, dh, scale,
-      softcap, causal, window);
+      static_cast<const T*>(v), static_cast<T*>(out), S, Skv, H, kvH, dh,
+      scale, softcap, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
-                     int B, int S, int H, int kvH, int dh, float scale,
-                     float softcap, int causal, int window, cudaStream_t st) {
+                     int B, int S, int Skv, int H, int kvH, int dh,
+                     float scale, float softcap, int causal, int window,
+                     cudaStream_t st) {
   if (dh <= 64)
-    return launch<T, 64>(q, k, v, out, B, S, H, kvH, dh, scale, softcap,
+    return launch<T, 64>(q, k, v, out, B, S, Skv, H, kvH, dh, scale, softcap,
                          causal, window, st);
   if (dh <= 128)
-    return launch<T, 128>(q, k, v, out, B, S, H, kvH, dh, scale, softcap,
-                          causal, window, st);
-  return launch<T, 256>(q, k, v, out, B, S, H, kvH, dh, scale, softcap,
+    return launch<T, 128>(q, k, v, out, B, S, Skv, H, kvH, dh, scale,
+                          softcap, causal, window, st);
+  return launch<T, 256>(q, k, v, out, B, S, Skv, H, kvH, dh, scale, softcap,
                         causal, window, st);
 }
 
@@ -339,23 +344,24 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 // the bfloat16 kernel, flash_attention_mma.cu
 cudaError_t flash_attention_bf16_mma(const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
-                                     int H, int kvH, int dh, float scale,
-                                     float softcap, int causal, int window,
-                                     cudaStream_t st);
+                                     int Skv, int H, int kvH, int dh,
+                                     float scale, float softcap, int causal,
+                                     int window, cudaStream_t st);
 
-// q (B,S,H,dh), k/v (B,S,kvH,dh), out like q; dtype 0 = float32 (CUDA
-// cores), 1 = bfloat16 (tensor cores); dh % 8 == 0 and dh <= 256 (checked
-// by the wrapper).
+// q (B,S,H,dh), k/v (B,Skv,kvH,dh), out like q; dtype 0 = float32 (CUDA
+// cores), 1 = bfloat16 (tensor cores); dh % 8 == 0 and dh <= 256, Skv >= 1
+// and Skv == S unless causal == 0 and window == 0 (checked by the wrapper).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int dtype,
-                                     int B, int S, int H, int kvH, int dh,
-                                     float scale, float softcap, int causal,
-                                     int window, void* stream) {
+                                     int B, int S, int Skv, int H, int kvH,
+                                     int dh, float scale, float softcap,
+                                     int causal, int window, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 1 ? flash_attention_bf16_mma(q, k, v, out, B, S, H, kvH, dh,
-                                            scale, softcap, causal, window, st)
-                 : dispatch<float>(q, k, v, out, B, S, H, kvH, dh, scale,
+      dtype == 1 ? flash_attention_bf16_mma(q, k, v, out, B, S, Skv, H, kvH,
+                                            dh, scale, softcap, causal, window,
+                                            st)
+                 : dispatch<float>(q, k, v, out, B, S, Skv, H, kvH, dh, scale,
                                    softcap, causal, window, st);
   return static_cast<int>(err);
 }

@@ -13,7 +13,12 @@
 // w owns rows 16w..16w+15 and all dh output columns. Key tiles (48 keys at
 // dh = 256, 64 below) run from the first key the window admits to the last
 // the causal mask admits; row tiles are taken heaviest first. Any S:
-// ragged rows and keys are zero-filled and masked.
+// ragged rows and keys are zero-filled and masked. Without a mask (causal
+// = 0, no window) k/v may have a length Skv of their own, the reference's
+// cross-attention: the key loop ends at Skv - 1, keys kp >= Skv are
+// masked (the edge test), and batch b's k/v rows start at b * Skv. With
+// a mask Skv == S (checked by the wrapper). One instance a head width
+// serves both cases.
 //
 // Bound: operations, 4*dh FLOP per valid (q head, key) pair at the bf16
 // tensor-core rate. The TPU kernel's arithmetic is float32; on bf16 inputs
@@ -144,7 +149,7 @@ __device__ __forceinline__ float ex2(float x) {
 // what an edge tile needs to mask: key of column 2*t4 of n-tile 0, the
 // thread's two query positions, and the masking rule
 struct Edge {
-  int kp0, qp0, qp1, S, causal, window;
+  int kp0, qp0, qp1, Skv, causal, window;
 };
 
 // score tile -> base-2 scores (x = s*c1, or tanh(s*c1)*c2 with CAP),
@@ -164,7 +169,7 @@ __device__ __forceinline__ void scores(float (&s)[NS][4], float c1, float c2,
       if (MASK) {
         const int kp = edge.kp0 + j * 8 + (e & 1);
         const int qp = e < 2 ? edge.qp0 : edge.qp1;
-        if (kp >= edge.S || (edge.causal && kp > qp) ||
+        if (kp >= edge.Skv || (edge.causal && kp > qp) ||
             (edge.window > 0 && kp <= qp - edge.window))
           x = -CUDART_INF_F;
       }
@@ -181,7 +186,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ v,
                            __nv_bfloat16* __restrict__ out, int S, int H,
                            int kvH, int dh, float scale, float softcap,
-                           int causal, int window) {
+                           int causal, int window, int Skv) {
   constexpr int BK = key_tile<DH>();
   constexpr int LD = DH + kPad;  // shared row stride, elements
   constexpr int NCH = DH / 8;    // 16-byte chunks a row
@@ -199,14 +204,14 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const size_t kv_row = static_cast<size_t>(kvH) * dh;
   const __nv_bfloat16* kb =
-      k + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(h) * dh;
+      k + static_cast<size_t>(b) * Skv * kv_row + static_cast<size_t>(h) * dh;
   const __nv_bfloat16* vb =
-      v + static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(h) * dh;
+      v + static_cast<size_t>(b) * Skv * kv_row + static_cast<size_t>(h) * dh;
 
   const int last = min(f0 + BR, nrows) - 1;
   const int qlo = f0 / G, qhi = last / G;
   const int klo = window > 0 ? max(0, qlo - window + 1) : 0;
-  const int khi = causal ? qhi : S - 1;
+  const int khi = causal ? qhi : Skv - 1;
   const int ntiles = (khi - klo) / BK + 1;
 
   // q tile: row r of the block is flattened row f0 + r
@@ -237,7 +242,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const size_t off0 = static_cast<size_t>(k0 + r0) * kv_row + c0;
 #pragma unroll
     for (int it = 0; it < BK / RSTEP; ++it) {
-      const bool ok = k0 + r0 + it * RSTEP < S && c0 < dh;
+      const bool ok = k0 + r0 + it * RSTEP < Skv && c0 < dh;
       const size_t off = ok ? off0 + it * step : 0;
       const uint32_t dst = kdst + it * RSTEP * LD * 2;
       cp_async16(dst, kb + off, ok);
@@ -303,11 +308,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // scale, softcap, mask (edge tiles only), online softmax; the 4
     // threads of a quad share a row
-    const bool interior = k0 + BK - 1 < S &&
+    const bool interior = k0 + BK - 1 < Skv &&
                           (!causal || k0 + BK - 1 <= qlo) &&
                           (window <= 0 || k0 > qhi - window);
     float mx0, mx1;
-    const Edge edge{k0 + 2 * t4, qp0, qp1, S, causal, window};
+    const Edge edge{k0 + 2 * t4, qp0, qp1, Skv, causal, window};
     if (softcap > 0.f) {
       if (interior) scores<true, false>(s, c1, c2, edge, mx0, mx1);
       else scores<true, true>(s, c1, c2, edge, mx0, mx1);
@@ -404,7 +409,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int H, int kvH, int dh, float scale,
+                   int B, int S, int Skv, int H, int kvH, int dh, float scale,
                    float softcap, int causal, int window, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DH>();
   // set once per instantiation, so a CUDA-graph capture never calls it
@@ -422,25 +427,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      S, H, kvH, dh, scale, softcap, causal, window);
+      S, H, kvH, dh, scale, softcap, causal, window, Skv);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bfloat16 q (B,S,H,dh), k/v (B,S,kvH,dh), out like q; dh % 8 == 0 and
-// dh <= 256 (checked by the wrapper). Called by repro_flash_attention.
+// bfloat16 q (B,S,H,dh), k/v (B,Skv,kvH,dh), out like q; dh % 8 == 0 and
+// dh <= 256, Skv == S unless there is no mask (checked by the wrapper).
+// Called by repro_flash_attention.
 cudaError_t flash_attention_bf16_mma(const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
-                                     int H, int kvH, int dh, float scale,
-                                     float softcap, int causal, int window,
-                                     cudaStream_t st) {
+                                     int Skv, int H, int kvH, int dh,
+                                     float scale, float softcap, int causal,
+                                     int window, cudaStream_t st) {
   if (dh <= 64)
-    return launch<64>(q, k, v, out, B, S, H, kvH, dh, scale, softcap, causal,
-                      window, st);
+    return launch<64>(q, k, v, out, B, S, Skv, H, kvH, dh, scale, softcap,
+                      causal, window, st);
   if (dh <= 128)
-    return launch<128>(q, k, v, out, B, S, H, kvH, dh, scale, softcap,
+    return launch<128>(q, k, v, out, B, S, Skv, H, kvH, dh, scale, softcap,
                        causal, window, st);
-  return launch<256>(q, k, v, out, B, S, H, kvH, dh, scale, softcap, causal,
-                     window, st);
+  return launch<256>(q, k, v, out, B, S, Skv, H, kvH, dh, scale, softcap,
+                     causal, window, st);
 }

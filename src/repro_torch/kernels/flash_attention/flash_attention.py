@@ -8,7 +8,8 @@ and carries (m, l, acc) in VMEM scratch. Here one block owns one
 (b, kv head) and a tile of rows of the flattened (query position, group
 head) axis, so any group size G fits one tile shape; it walks its KV
 tiles in a loop, from the first key the window admits to the last the
-causal mask admits, holding (m, l, acc) in registers. The C entry point
+causal mask admits (the last of k/v's own length Skv without a mask),
+holding (m, l, acc) in registers. The C entry point
 dispatches by dtype: bfloat16 runs on the tensor cores (bf16 products
 with float32 accumulators, p split into two bf16 terms for P.V, K/V
 through a two-stage ``cp.async`` ring), float32 on the CUDA cores. The
@@ -26,10 +27,9 @@ FAMILY = "flash_attention"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p]
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p])
 
 
 def launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -37,15 +37,16 @@ def launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
                            causal: bool, window: int, softcap: float,
                            scale: float) -> None:
     """Enqueue the kernel on the current stream; inputs pre-checked by
-    the wrapper (B, S >= 1; dh % 8 == 0, dh <= 256; one dtype of
-    float32/bfloat16; contiguous, 16-byte aligned)."""
+    the wrapper (B, S, Skv >= 1, Skv == S unless there is no mask;
+    dh % 8 == 0, dh <= 256; one dtype of float32/bfloat16; contiguous,
+    16-byte aligned)."""
     B, S, H, dh = q.shape
     fn = library(FAMILY).repro_flash_attention
     fn.argtypes = _ARGS
     fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPES[q.dtype], B, S, H, k.shape[2], dh, float(scale),
-                 float(softcap), int(bool(causal)), int(window),
-                 stream_handle(q.device))
+                 _DTYPES[q.dtype], B, S, k.shape[1], H, k.shape[2], dh,
+                 float(scale), float(softcap), int(bool(causal)),
+                 int(window), stream_handle(q.device))
     check(FAMILY, "flash_attention", err)

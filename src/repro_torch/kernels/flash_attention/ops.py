@@ -5,7 +5,9 @@ flash_attention.py:76``: causal online-softmax attention forward with
 GQA (q head h reads kv head h // G), an optional window
 (``kpos > qpos - window``) and a tanh logit softcap applied after the
 scale, all in float32, output in q's dtype. Unlike the TPU kernel it
-takes any S (no tile-multiple assert). bfloat16 inputs run on the tensor
+takes any S (no tile-multiple assert), and k/v of their own length Skv
+>= 1 when there is no mask (``causal=False``, no window): the
+reference's cross-attention, which its chunked ``attention`` computes. bfloat16 inputs run on the tensor
 cores with float32-grade arithmetic (exact bf16 products summed in
 float32; p split into two bf16 terms for P.V), float32 inputs on the CUDA
 cores. Bound on the card: operations, ``4 dh`` FLOP for each valid
@@ -32,13 +34,19 @@ LAUNCHES = LaunchCount("flash_attention")
 MAX_HEAD_DIM = 256
 
 
-def _check(q, k, v):
+def _check(q, k, v, causal, window):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q/k/v must be 4-D (B,S,H,dh)")
     B, S, H, dh = q.shape
-    if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != dh:
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)}/"
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    Skv = k.shape[1]
+    if Skv != S and (causal or window > 0 or Skv < 1):
+        raise ValueError(f"flash_attention: k/v of length {Skv} != q's {S} "
+                         f"only without a mask (causal=False, window=0) "
+                         f"and Skv >= 1, got causal={causal} "
+                         f"window={window}")
     if k.shape[2] == 0 or H % k.shape[2]:
         raise ValueError(f"flash_attention: {H} q heads over "
                          f"{k.shape[2]} kv heads")
@@ -48,8 +56,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: Optional[float] = None,
                     interpret: bool = False) -> torch.Tensor:
-    """q (B,S,H,dh); k/v (B,S,kvH,dh) -> (B,S,H,dh) in q's dtype."""
-    _check(q, k, v)
+    """q (B,S,H,dh); k/v (B,Skv,kvH,dh) -> (B,S,H,dh) in q's dtype; Skv
+    == S unless ``causal=False`` and ``window == 0``."""
+    _check(q, k, v, causal, window)
     if use_plain(interpret, q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap, scale=scale)

@@ -7,7 +7,8 @@ keys j with ``j <= i`` (causal) and ``j > i - window`` (window > 0) are
 valid; ``s = (q_f32 * scale) . k_f32``, then ``tanh(s / softcap) *
 softcap``; masked scores are ``NEG_INF = -1e30`` and their ``p`` is 0;
 the output is ``sum p v / max(sum p, 1e-30)`` in q's dtype. A row with no
-valid key gives 0.
+valid key gives 0. k/v may have a length Skv of their own (keys
+``0 <= j < Skv``); the wrapper allows it only without a mask.
 
 Where the scale is applied: like the Pallas kernel (and the CUDA kernel
 here), q is cast to float32 first and scaled after. The JAX substrate's
@@ -32,14 +33,14 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0, scale: Optional[float] = None,
                         q_block: int = 1024) -> torch.Tensor:
-    """q (B,S,H,dh); k/v (B,S,kvH,dh) -> (B,S,H,dh) in q's dtype."""
+    """q (B,S,H,dh); k/v (B,Skv,kvH,dh) -> (B,S,H,dh) in q's dtype."""
     B, S, H, dh = q.shape
-    kvH = k.shape[2]
+    Skv, kvH = k.shape[1], k.shape[2]
     G = H // kvH
     scale = dh ** -0.5 if scale is None else scale
-    kf = k.float().permute(0, 2, 1, 3)                  # (B,kvH,S,dh)
+    kf = k.float().permute(0, 2, 1, 3)                  # (B,kvH,Skv,dh)
     vf = v.float().permute(0, 2, 1, 3)
-    kpos = torch.arange(S, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
     out = torch.empty_like(q)
     for lo in range(0, S, q_block):
         hi = min(S, lo + q_block)
@@ -49,7 +50,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if softcap > 0.0:
             s = torch.tanh(s / softcap) * softcap
         qpos = torch.arange(lo, hi, device=q.device)
-        valid = torch.ones((hi - lo, S), dtype=torch.bool, device=q.device)
+        valid = torch.ones((hi - lo, Skv), dtype=torch.bool,
+                           device=q.device)
         if causal:
             valid &= kpos[None, :] <= qpos[:, None]
         if window > 0:

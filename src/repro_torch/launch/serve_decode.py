@@ -6,14 +6,19 @@ synthetic prompts, with the reference launcher's flags and printout
 decode, then ``--gen`` tokens are generated. ``--device`` (default
 ``cuda``; raises without a card) picks the device; ``--full`` takes the
 architecture's full config (``get_arch``) in place of its CPU-sized
-reduced one. ``--arch`` takes every name of the port's registry: the
-dense configs, qwen3-moe-30b-a3b and arctic-480b (MoE), mamba2-1.3b
-(SSD) and recurrentgemma-9b (RG-LRU and local attention); arctic-480b's
-full width needs expert parallelism over several cards and runs only
-reduced. Weights are random, from ``torch.Generator`` seeded with
-``--seed``. On the card every attention layer of a step is one
-``flash_decode`` launch; SSD and RG-LRU layers update their states in
-place.
+reduced one. ``--arch`` takes every name of the registry: the dense
+configs, qwen3-moe-30b-a3b and arctic-480b (MoE), mamba2-1.3b (SSD),
+recurrentgemma-9b (RG-LRU and local attention), seamless-m4t-medium
+(enc-dec) and qwen2-vl-72b (M-RoPE); arctic-480b's full width needs
+expert parallelism over several cards and runs only reduced, and
+qwen2-vl-72b's 80 layers (145 GB of bf16 weights) do not fit one card
+at ``--full``. As in the reference launcher, an enc-dec model decodes
+against cross caches of ``SOURCE_SLOTS`` empty source positions (``x_len =
+0``: the cross-attention adds 0), and M-RoPE takes the position of each
+step on all three streams. Weights are random, from ``torch.Generator``
+seeded with ``--seed``. On the card every attention layer of a step is
+one ``flash_decode`` launch (two in an enc-dec block: self and cross);
+SSD and RG-LRU layers update their states in place.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_decode --device cpu \
       --arch gemma2-2b --batch 4 --prompt-len 16 --gen 32
@@ -36,6 +41,10 @@ from repro_torch.graph.sampler import rng_from
 from repro_torch.models.transformer import (init_decode_state, init_params,
                                             serve_step)
 
+#: the enc-dec model's source positions in the launcher's (empty) cross
+#: caches, as the reference launcher's
+SOURCE_SLOTS = 8
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -43,15 +52,22 @@ def _sync(device: torch.device) -> None:
 
 
 def greedy_decode(cfg, params, prompts: np.ndarray, gen: int,
-                  device: torch.device
+                  device: torch.device, states: Optional[dict] = None
                   ) -> Tuple[np.ndarray, float, List[torch.Tensor]]:
     """prompts (B, P) int32 -> (token ids (B, P + gen) int32, wall
     seconds of the decode loop, the logits of each step). Step t feeds
-    token t at position t; past the prompt the next token is the argmax
-    of the step's logits, as the reference launcher does."""
+    token t at position t (on all three M-RoPE streams where the config
+    has them); past the prompt the next token is the argmax of the
+    step's logits, as the reference launcher does. ``states``: a fresh
+    ``init_decode_state`` of ``max_len = P + gen`` (an enc-dec model's
+    with its cross caches written in); default one made here, with
+    ``SOURCE_SLOTS`` empty source positions for enc-dec."""
     B, prompt_len = prompts.shape
     max_len = prompt_len + gen
-    states = init_decode_state(cfg, B, max_len=max_len, device=device)
+    if states is None:
+        states = init_decode_state(
+            cfg, B, max_len=max_len, device=device,
+            src_len=SOURCE_SLOTS if cfg.kind == "encdec" else 0)
     prompts_t = torch.from_numpy(np.ascontiguousarray(prompts)).to(device)
     logits_seen = []
     _sync(device)
@@ -61,7 +77,10 @@ def greedy_decode(cfg, params, prompts: np.ndarray, gen: int,
     with torch.inference_mode():
         for t in range(max_len - 1):
             pos = torch.full((B,), t, dtype=torch.int32, device=device)
-            logits, states = serve_step(cfg, params, states, tok, pos)
+            mp = (pos[None, :, None].expand(3, B, 1)
+                  if cfg.mrope_sections else None)
+            logits, states = serve_step(cfg, params, states, tok, pos,
+                                        mrope_positions=mp)
             logits_seen.append(logits[:, -1])
             if t + 1 < prompt_len:
                 tok = prompts_t[:, t + 1:t + 2]

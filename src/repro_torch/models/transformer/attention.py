@@ -5,8 +5,12 @@ the reference's chunked online-softmax attention written out in PyTorch
 (``_banded`` for sliding-window layers) on the CPU, and on the card
 whenever a gradient is needed: the reference trains through that
 algorithm, and the kernel has no backward. Otherwise a CUDA tensor goes
-to the hand-written ``flash_attention`` kernel (its whole self-attention
-shape, ``Sq == Skv`` and ``q_offset == 0``; anything else raises).
+to the hand-written ``flash_attention`` kernel, one launch a call:
+self-attention over one whole sequence (``Sq == Skv``, causal or not, a
+window or not: the decoder and the encoder), and attention without a
+mask between two lengths (``Sq != Skv``, ``causal=False``, no window:
+cross-attention). Anything else (``q_offset != 0``, a causal or
+windowed call with ``Sq != Skv``) raises.
 ``decode_attention`` is one ``flash_decode`` launch for the whole batch
 on the card, its plain version on the CPU.
 
@@ -60,11 +64,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     if q.device.type == "cuda" and not needs_grad:
-        if Sq != Skv or q_offset != 0:
+        if q_offset != 0:
             raise NotImplementedError(
-                "attention on the card runs the flash_attention kernel over "
-                "one whole sequence (Sq == Skv, q_offset == 0); cross-chunk "
-                "prefill and cross-attention wait for ROADMAP Queue 1 item 3")
+                "attention on the card: cross-chunk prefill (q_offset != 0) "
+                "is not a path of the port; the flash_attention kernel "
+                "takes a whole sequence")
+        if Sq != Skv and (causal or window > 0):
+            raise NotImplementedError(
+                f"attention on the card: a causal or windowed call with "
+                f"Sq={Sq} != Skv={Skv} has no diagonal in the reference; "
+                f"the flash_attention kernel takes Sq != Skv only without "
+                f"a mask (cross-attention, causal=False, window=0)")
         # a window is always causal, as the reference's ``_banded`` and
         # the CPU path below are, whatever ``causal`` says
         return flash_attention(q, k, v, causal=causal or window > 0,

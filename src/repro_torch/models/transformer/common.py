@@ -1,4 +1,5 @@
-"""Shared transformer substrate: the unified arch config, norms, RoPE.
+"""Shared transformer substrate: the unified arch config, norms, RoPE and
+M-RoPE.
 
 The port's copy of ``repro/models/transformer/common.py``. ``ArchConfig``
 is copied whole (same fields, same derived properties); the numerics are
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -189,13 +190,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x (..., S, H, dh); positions (..., S) -> rotated x. The two halves
     of the head are rotated against each other (not interleaved
     pairs), in float32."""
-    dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)               # (dh/2,)
-    ang = positions[..., None].float() * freqs            # (..., S, dh/2)
+    freqs = rope_freqs(x.shape[-1], theta, x.device)      # (dh/2,)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, dh) rotated by the angles ang (..., S, dh/2), one
+    per frequency band and shared by the heads."""
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Sequence[int]) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): positions (3, ..., S); the dh/2
+    frequency bands are split into (t, h, w) sections, each rotated by its
+    own position stream (band j of section i reads ``positions[i]``)."""
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {dh // 2}")
+    freqs = rope_freqs(dh, theta, x.device)               # (dh/2,)
+    # the reference gathers each band's stream; slices of the bands give
+    # the same products without an index tensor to copy to the card
+    bands, lo = [], 0
+    for i, n in enumerate(sections):
+        bands.append(positions[i][..., None].float() * freqs[lo:lo + n])
+        lo += n
+    return _rotate(x, torch.cat(bands, dim=-1))           # (..., S, dh/2)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -1,20 +1,23 @@
-"""Model assembly: the decoder-only LM's prefill (``forward``), loss and
-train step (``lm_loss``, ``make_train_step``) and decode
-(``init_decode_state``, ``serve_step``): the port's
-``repro/models/transformer/model.py``.
+"""Model assembly: the decoder-only LM and the enc-dec model's prefill
+(``encode``, ``forward``), loss and train step (``lm_loss``,
+``make_train_step``) and decode (``init_decode_state``, ``serve_step``):
+the port's ``repro/models/transformer/model.py``.
 
 The parameter tree has the reference's layout: ``embed``,
 ``final_norm``, ``lm_head`` when embeddings are untied, ``blocks`` (one
 dict per pattern position, every leaf stacked over the repeat dimension
-R) and ``tail_blocks``. Where the reference scans over R, the port loops
-in Python, applying the pattern positions in the same order inside each
-repeat; when a gradient is needed each repeat's body runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``), so only
-the residual stream between repeats is kept for the backward. Every
-block kind runs (``attn``, ``local``, ``ssm``, ``rglru``, dense FFN or
-MoE); the encoder, enc-dec, M-RoPE and the frontends wait for ROADMAP
-Queue 1 item 3, and a config that needs one raises
-(``check_supported``).
+R), ``tail_blocks``, and for enc-dec ``enc_blocks`` (one ``attn`` tree
+stacked over the encoder's layers) and ``enc_norm``; an enc-dec
+decoder block also holds ``ln_x`` and ``xattn``. Where the reference
+scans over R, the port loops in Python, applying the pattern positions
+in the same order inside each repeat; when a gradient is needed each
+repeat's body runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``), so only the residual stream between repeats is kept
+for the backward. Every block kind runs (``attn``, ``local``, ``ssm``,
+``rglru``, dense FFN or MoE), with M-RoPE where the config has sections.
+The frontends are stubs, as in the reference: ``forward`` takes
+precomputed patch embeddings (``embeds``) and ``encode`` precomputed
+frame embeddings, each (B, S, d_model).
 """
 from __future__ import annotations
 
@@ -28,8 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.transformer.blocks import (KINDS, block_apply,
                                                    block_decode,
-                                                   init_block_params,
-                                                   not_ported)
+                                                   init_block_params)
 from repro_torch.models.transformer.common import (ArchConfig, dense_init,
                                                    rms_norm, softcap)
 from repro_torch.train.optim import tree_leaves, tree_map
@@ -40,12 +42,7 @@ def _dtype(cfg: ArchConfig):
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise for what the port's transformer does not run yet."""
-    for flag, what in ((cfg.kind == "encdec", "the enc-dec model"),
-                       (cfg.mrope_sections, "M-RoPE"),
-                       (cfg.frontend, f"the {cfg.frontend!r} frontend")):
-        if flag:
-            raise not_ported(what)
+    """Raise for a block kind the transformer does not know."""
     for kind in cfg.pattern + cfg.tail:
         if kind not in KINDS:
             raise ValueError(f"unknown block kind {kind!r}")
@@ -102,7 +99,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     on ``device`` (default: the generator's). The draws differ from
     ``jax.random``'s; ``params_from_numpy`` carries the reference's.
     The float32 leaves of the SSM and RG-LRU mixers stay float32 in a
-    bfloat16 model, as the reference keeps them."""
+    bfloat16 model, as the reference keeps them. An enc-dec model's
+    encoder is drawn last."""
     check_supported(cfg)
     dt = _dtype(cfg)
     device = torch.device(device) if device is not None else \
@@ -116,13 +114,20 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         params["lm_head"] = dense_init(
             generator, (cfg.d_model, cfg.padded_vocab), 0, dt, device)
     R = cfg.num_repeats
+    cross = cfg.kind == "encdec"
     params["blocks"] = [
-        _stacked(lambda: init_block_params(cfg, kind, generator, dt, device),
-                 R)
+        _stacked(lambda: init_block_params(cfg, kind, generator, dt, device,
+                                           with_cross=cross), R)
         for kind in cfg.pattern]
     params["tail_blocks"] = [
-        init_block_params(cfg, kind, generator, dt, device)
+        init_block_params(cfg, kind, generator, dt, device, with_cross=cross)
         for kind in cfg.tail]
+    if cross:
+        params["enc_blocks"] = [_stacked(
+            lambda: init_block_params(cfg, "attn", generator, dt, device),
+            cfg.num_enc_layers)]
+        params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=dt,
+                                         device=device)
     return params
 
 
@@ -171,31 +176,67 @@ def _logits(cfg: ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _needs_remat(params) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
+
+
+def encode(cfg: ArchConfig, params, enc_embeds: torch.Tensor
+           ) -> torch.Tensor:
+    """The encoder over stub frontend embeddings (B, S_src, d): non-causal
+    ``attn`` blocks at positions ``arange(S_src)``, then ``enc_norm``;
+    -> (B, S_src, d) in the model's dtype. Without a gradient every
+    layer on the card is one ``flash_attention`` launch."""
+    check_supported(cfg)
+    x = enc_embeds.to(_dtype(cfg))
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    layers = _unstack(params["enc_blocks"][0])
+    remat = _needs_remat(params)
+
+    def body(h, r):
+        return block_apply(cfg, "attn", layers[r], h, positions=pos,
+                           causal=False)
+
+    for r in range(cfg.num_enc_layers):
+        x = checkpoint(body, x, r, use_reentrant=False) if remat \
+            else body(x, r)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
 def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B,S) -> logits (B,S,V) float32. Without a gradient (the
-    prefill) every attention layer on the card is one ``flash_attention``
-    launch; with one, the chunked attention, each repeat rematerialised
-    in the backward."""
+            positions: Optional[torch.Tensor] = None,
+            mrope_positions: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
+            enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B,S) -> logits (B,S,V) float32. ``embeds`` (B,S,d), the
+    frontend stub's output, is added onto the token embeddings in the
+    model's dtype; ``mrope_positions`` (3,B,S) are M-RoPE's (t, h, w)
+    streams; ``enc_out`` (B,S_src,d), from ``encode``, feeds each
+    block's cross-attention. Without a gradient (the prefill) every
+    attention layer on the card is one ``flash_attention`` launch (two
+    in an enc-dec decoder block: self and cross); with one, the chunked
+    attention, each repeat rematerialised in the backward."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
+    if embeds is not None:
+        x = x + embeds.to(x.dtype)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     layers = [_unstack(b) for b in params["blocks"]]
-    remat = torch.is_grad_enabled() and any(
-        t.requires_grad for t in tree_leaves(params))
+    remat = _needs_remat(params)
+    kw = dict(positions=positions, mrope_positions=mrope_positions,
+              enc_out=enc_out)
 
     def body(h, r):
         for i, kind in enumerate(cfg.pattern):
-            h = block_apply(cfg, kind, layers[i][r], h, positions=positions)
+            h = block_apply(cfg, kind, layers[i][r], h, **kw)
         return h
 
     for r in range(cfg.num_repeats):
         x = checkpoint(body, x, r, use_reentrant=False) if remat \
             else body(x, r)
     for i, kind in enumerate(cfg.tail):
-        x = block_apply(cfg, kind, params["tail_blocks"][i], x,
-                        positions=positions)
+        x = block_apply(cfg, kind, params["tail_blocks"][i], x, **kw)
     return _logits(cfg, params, x)
 
 
@@ -203,8 +244,14 @@ def lm_loss(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token NLL over ``loss_mask`` (all ones when absent) from
     float32 logits: ``batch`` holds ``tokens``, ``labels`` (B,S) on the
-    parameters' device."""
-    logits = forward(cfg, params, batch["tokens"])
+    parameters' device, and where the config needs them
+    ``mrope_positions``, ``embeds`` and (enc-dec) ``enc_embeds``, which
+    go through ``encode``."""
+    enc_out = (encode(cfg, params, batch["enc_embeds"])
+               if cfg.kind == "encdec" else None)
+    logits = forward(cfg, params, batch["tokens"],
+                     mrope_positions=batch.get("mrope_positions"),
+                     embeds=batch.get("embeds"), enc_out=enc_out)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("loss_mask")
@@ -236,19 +283,23 @@ def make_train_step(cfg: ArchConfig, optimizer):
 # ----------------------------------------------------------- decode ------
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
-                      device: Optional[torch.device] = None) -> dict:
+                      device: Optional[torch.device] = None,
+                      src_len: int = 0) -> dict:
     """Per-pattern-position stacked caches, leaves (R, B, ...): k/v (R, B,
     S, kvH, dh) with ``window`` slots for ``local`` layers, else
     ``max_len``, never more than ``max_len``; ``ssm`` conv (R, B, K-1,
     d_inner + 2n) in the model's dtype and ssm (R, B, h, p, n) float32;
-    ``rglru`` conv (R, B, K-1, w) and h (R, B, w) float32."""
+    ``rglru`` conv (R, B, K-1, w) and h (R, B, w) float32; for enc-dec
+    also the cross caches xk/xv (R, B, src_len, kvH, dh) in the model's
+    dtype and x_len (R, B) int32, all zero (the caller writes the
+    encoder's k/v and lengths into them)."""
     check_supported(cfg)
     dt = _dtype(cfg)
 
     def zeros(shape, dtype=dt):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    def one(kind, R):
+    def mixer(kind, R):
         if kind == "ssm":
             return {"conv": zeros((R, batch, cfg.ssm_conv - 1,
                                    cfg.d_inner + 2 * cfg.ssm_state)),
@@ -263,18 +314,30 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
         shape = (R, batch, S, cfg.num_kv_heads, cfg.head_dim)
         return {"k": zeros(shape), "v": zeros(shape)}
 
+    def one(kind, R):
+        st = mixer(kind, R)
+        if cfg.kind == "encdec":
+            shape = (R, batch, src_len, cfg.num_kv_heads, cfg.head_dim)
+            st.update(xk=zeros(shape), xv=zeros(shape),
+                      x_len=zeros((R, batch), torch.int32))
+        return st
+
     return {"scan": [one(kind, cfg.num_repeats) for kind in cfg.pattern],
             "tail": [_map(lambda a: a[0], one(kind, 1))
                      for kind in cfg.tail]}
 
 
 def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
-               pos: torch.Tensor):
-    """One decode step. tokens (B, 1); pos (B,) int32 absolute positions.
-    -> (logits (B, 1, V) float32, states). The caches in ``states`` are
-    updated IN PLACE and returned (the reference returns new ones). On
-    the card every attention layer is one ``flash_decode`` launch; the
-    SSM and RG-LRU states are overwritten in place too."""
+               pos: torch.Tensor, *,
+               mrope_positions: Optional[torch.Tensor] = None):
+    """One decode step. tokens (B, 1); pos (B,) int32 absolute positions;
+    ``mrope_positions`` (3, B, 1) M-RoPE's streams where the config has
+    sections (else RoPE at ``pos``). -> (logits (B, 1, V) float32,
+    states). The caches in ``states`` are updated IN PLACE and returned
+    (the reference returns new ones). On the card every attention layer
+    is one ``flash_decode`` launch, and an enc-dec block's
+    cross-attention over its ``xk``/``xv`` one more; the SSM and RG-LRU
+    states are overwritten in place too."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     positions = pos[:, None]
@@ -283,8 +346,10 @@ def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
         for i, kind in enumerate(cfg.pattern):
             st = _map(lambda a: a[r], states["scan"][i])
             x, _ = block_decode(cfg, kind, layers[i][r], x, st, pos=pos,
-                                positions=positions)
+                                positions=positions,
+                                mrope_positions=mrope_positions)
     for i, kind in enumerate(cfg.tail):
         x, _ = block_decode(cfg, kind, params["tail_blocks"][i], x,
-                            states["tail"][i], pos=pos, positions=positions)
+                            states["tail"][i], pos=pos, positions=positions,
+                            mrope_positions=mrope_positions)
     return _logits(cfg, params, x), states

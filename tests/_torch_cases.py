@@ -226,6 +226,36 @@ FLASH_ATTN_CASES = {
 }
 
 
+#: attention without a mask: k/v of their own length Skv (the enc-dec
+#: model's cross-attention: Skv 1, 17 and the ragged 4001), and at Skv ==
+#: Sq (its encoder's non-causal self-attention)
+CROSS_ATTN_CASES = {
+    # name: (B, Sq, Skv, H, kvH, dh, dtype)
+    "bf16_g1_dh64_skv4001": (1, 300, 4001, 4, 4, 64, "bfloat16"),
+    "bf16_g1_dh64_skv1": (2, 70, 1, 2, 2, 64, "bfloat16"),
+    "bf16_g8_dh128_skv17": (2, 129, 17, 16, 2, 128, "bfloat16"),
+    "bf16_g8_dh128_skv4001": (1, 65, 4001, 8, 1, 128, "bfloat16"),
+    "f32_g1_dh64_skv17": (2, 77, 17, 4, 4, 64, "float32"),
+    "f32_g1_dh128_skv1": (1, 33, 1, 2, 2, 128, "float32"),
+    "f32_g8_dh64_skv4001": (1, 40, 4001, 16, 2, 64, "float32"),
+    "f32_g8_dh128_skv17": (1, 100, 17, 8, 1, 128, "float32"),
+    "bf16_self_g1_dh64": (2, 333, 333, 4, 4, 64, "bfloat16"),
+    "bf16_self_g8_dh128": (1, 200, 200, 16, 2, 128, "bfloat16"),
+    "f32_self_g1_dh64": (1, 130, 130, 2, 2, 64, "float32"),
+}
+
+
+def cross_attn_case(name):
+    """-> (q (B,Sq,H,dh), k, v (B,Skv,kvH,dh)) float32 numpy and the
+    dtype name of the case."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    B, Sq, Skv, H, kvH, dh, dtype = CROSS_ATTN_CASES[name]
+    q = rng.normal(size=(B, Sq, H, dh)).astype(np.float32)
+    k, v = (rng.normal(size=(B, Skv, kvH, dh)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v, dtype
+
+
 def flash_attn_case(name):
     """-> (q (B,S,H,dh), k, v (B,S,kvH,dh)) float32 numpy, and the
     kwargs and dtype name of the case."""
@@ -254,6 +284,10 @@ FLASH_DECODE_CASES = {
                            "bfloat16"),
     "g16_dh64_window_softcap": (3, 32, 2, 64, 300, (300, 0, 150),
                                 (40, 0, 150), 30.0, "float32"),
+    # the enc-dec model's cross caches: MHA (G = 1), dh 64, a length of
+    # its own a sequence, 0 among them
+    "g1_dh64_cross_ragged_bf16": (4, 16, 16, 64, 1001, (1001, 904, 0, 1),
+                                  (0, 0, 0, 0), 0.0, "bfloat16"),
 }
 
 

@@ -2,8 +2,8 @@
 PyTorch version on the same inputs, the serving slice on ``cuda``
 against its own oracle and the CPU path, the training slice (the
 device-compiled schedule, the train step) against the CPU path, and the
-transformer decode-serving slice (prefill and decode) against the CPU
-path, the device-distributed epoch (the ``merge_gather`` kernel,
+transformer decode-serving slice (prefill and decode; the enc-dec and
+M-RoPE models too) against the CPU path, the device-distributed epoch (the ``merge_gather`` kernel,
 ``cache_gather``, a staged epoch), the multi-epoch runner (flat and
 ``2x2``, and a checkpointed resume) and LM training (reduced configs)
 against the CPU path, and LM training at granite-3-2b's width run twice
@@ -20,10 +20,10 @@ import pytest
 import torch
 
 from _torch_cases import (ASSEMBLE_CASES, BWD_CASES, BWD_FULL_CASES,
-                          FLASH_ATTN_CASES,
+                          CROSS_ATTN_CASES, FLASH_ATTN_CASES,
                           FLASH_DECODE_CASES, GATHER_CASES, MERGE_CASES,
                           PLAN_KINDS, PLAN_N_HOTS, SEARCH_CASES, SORT_CASES,
-                          as_dtype, assemble_case, bwd_case,
+                          as_dtype, assemble_case, bwd_case, cross_attn_case,
                           flash_attn_case, flash_decode_case, gather_case,
                           merge_case, plan_assemble_case, plan_case,
                           search_case, sort_case, to_t)
@@ -438,6 +438,71 @@ def test_flash_attention_kernel_equals_plain_on_card(cuda, name):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CROSS_ATTN_CASES))
+def test_flash_attention_without_mask_equals_plain_on_card(cuda, name):
+    """``causal=False``, no window: k/v of their own length (Skv 1, 17,
+    4001 against other Sq) and Skv == Sq, one launch, one card op."""
+    q, k, v, dtype = cross_attn_case(name)
+    tq, tk, tv = [t.to(cuda, _DTYPES[dtype]) for t in to_t(q, k, v)]
+    before = t_fa_ops.LAUNCHES.value
+    got = t_fa_ops.flash_attention(tq, tk, tv, causal=False)
+    want = flash_attention_ref(tq, tk, tv, causal=False)
+    torch.cuda.synchronize()
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol(dtype))
+    assert t_fa_ops.LAUNCHES.value == before + 1
+    assert device_kernels(lambda: t_fa_ops.flash_attention(
+        tq, tk, tv, causal=False)) == 1
+    again = t_fa_ops.flash_attention(tq, tk, tv, causal=False)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_masked_attention_with_another_key_length_raises_on_card(cuda):
+    """A causal or windowed call with Skv != Sq has no diagonal in the
+    reference: the kernel's wrapper and the model's dispatch refuse it
+    (no chunked path, no plain version on the card)."""
+    from repro_torch.models.transformer.attention import attention
+    q = torch.zeros((1, 40, 4, 64), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 24, 4, 64), device=cuda, dtype=torch.bfloat16)
+    before = t_fa_ops.LAUNCHES.value
+    for kw in (dict(causal=True), dict(causal=False, window=8)):
+        with pytest.raises(ValueError, match="only without a mask"):
+            t_fa_ops.flash_attention(q, k, k, **kw)
+    with pytest.raises(NotImplementedError, match="Sq=40 != Skv=24"):
+        attention(q, k, k, causal=True)
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        attention(q, q, q, q_offset=8)
+    assert t_fa_ops.LAUNCHES.value == before
+
+
+@pytest.mark.gpu
+def test_flash_decode_cross_cache_on_card(cuda):
+    """seamless-m4t-medium's cross caches: B=8, 16 heads over 16 kv heads
+    (G = 1), dh 64, 4096 source positions, a length of its own a
+    sequence (4096 - 97 b, then one 0), through ``decode_attention``:
+    one launch, the plain version's result, exactly 0 where x_len = 0."""
+    from repro_torch.models.transformer.attention import decode_attention
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    B, H, dh, S = 8, 16, 64, 4096
+    q = torch.randn((B, 1, H, dh), generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, S, H, dh), generator=gen, device=cuda,
+                        dtype=torch.bfloat16) for _ in range(2))
+    x_len = (S - 97 * torch.arange(B, device=cuda)).to(torch.int32)
+    x_len[5] = 0
+    before = t_fd_ops.LAUNCHES.value
+    got = decode_attention(q, k, v, x_len)
+    acc, m, l = flash_decode_batched_ref(q[:, 0], k, v, x_len)
+    torch.cuda.synchronize()
+    assert t_fd_ops.LAUNCHES.value == before + 1
+    torch.testing.assert_close(got[:, 0].float(),
+                               finalize(acc, l).to(torch.bfloat16).float(),
+                               rtol=2 ** -7, atol=1e-5)
+    assert bool((got[5] == 0).all()) and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(FLASH_DECODE_CASES))
 def test_flash_decode_kernel_equals_plain_on_card(cuda, name):
     q, k, v, length, start, cap, dtype = flash_decode_case(name)
@@ -651,6 +716,112 @@ def test_transformer_slice_on_card_matches_cpu(cuda, arch):
         for a, b in zip(st_dev["scan"], st_cpu["scan"]):
             torch.testing.assert_close(a["k"].cpu(), b["k"], rtol=1e-4,
                                        atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-72b"])
+def test_encdec_and_mrope_slice_on_card_matches_cpu(cuda, arch):
+    """Reduced configs in float32: the prefill (``encode`` and ``forward``
+    with ``enc_out``, Sq != Skv; or patch embeddings and distinct M-RoPE
+    streams) and a ``serve_step`` loop (cross caches filled from the
+    encoder, ragged lengths, one 0; or M-RoPE streams a step) on the card
+    against the CPU, one kernel launch an attention."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import (encode, forward,
+                                                init_decode_state,
+                                                init_params, serve_step)
+    from repro_torch.train.optim import tree_map
+
+    cfg = get_reduced(arch)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    dev_params = tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(2)
+    B, S, S_src = 3, 37, 29
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32))
+    frames = torch.from_numpy((0.02 * rng.standard_normal(
+        (B, S_src if cfg.kind == "encdec" else S, cfg.d_model))).astype(
+            np.float32))
+    t = torch.arange(S)[None, :] + 3 * torch.arange(B)[:, None]
+    streams = torch.stack([t, t // 8, t % 8]).to(torch.int32)
+    x_len = torch.tensor([S_src, 11, 0], dtype=torch.int32)
+
+    def run(dev, p):
+        fa0, fd0 = t_fa_ops.LAUNCHES.value, t_fd_ops.LAUNCHES.value
+        with torch.inference_mode():
+            if cfg.kind == "encdec":
+                enc = encode(cfg, p, frames.to(dev))
+                full = forward(cfg, p, toks.to(dev), enc_out=enc)
+            else:
+                full = forward(cfg, p, toks.to(dev), embeds=frames.to(dev),
+                               mrope_positions=streams.to(dev))
+            st = init_decode_state(cfg, B, S, device=dev)
+            if cfg.kind == "encdec":
+                xp = p["blocks"][0]["xattn"]
+                shape = (B, S_src, cfg.num_kv_heads, cfg.head_dim)
+                st["scan"][0]["xk"] = torch.stack(
+                    [(enc @ w).reshape(shape) for w in xp["wk"]])
+                st["scan"][0]["xv"] = torch.stack(
+                    [(enc @ w).reshape(shape) for w in xp["wv"]])
+                st["scan"][0]["x_len"] = x_len.to(dev).expand(
+                    cfg.num_layers, B).contiguous()
+            steps = []
+            for i in range(S):
+                lg, st = serve_step(
+                    cfg, p, st, toks[:, i:i + 1].to(dev),
+                    torch.full((B,), i, dtype=torch.int32, device=dev),
+                    mrope_positions=streams[:, :, i:i + 1].to(dev)
+                    if cfg.mrope_sections else None)
+                steps.append(lg[:, 0])
+        n = cfg.num_layers * (2 if cfg.kind == "encdec" else 1)
+        launches = (t_fa_ops.LAUNCHES.value - fa0,
+                    t_fd_ops.LAUNCHES.value - fd0)
+        return full.cpu(), torch.stack(steps, 1).cpu(), launches, n
+
+    card = run(cuda, dev_params)
+    host = run(torch.device("cpu"), params)
+    n = card[3]
+    assert card[2] == (n + cfg.num_enc_layers, n * S)
+    for a, b in zip(card[:2], host[:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_encdec_default_state_serves_on_card(cuda):
+    """seamless-m4t-medium (reduced, float32) decoding from
+    ``init_decode_state``'s default cross caches of no source positions:
+    the cross sub-block is skipped (one ``flash_decode`` a layer a step),
+    and the card's logits are the CPU's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import (init_decode_state,
+                                                init_params, serve_step)
+    from repro_torch.train.optim import tree_map
+
+    cfg = get_reduced("seamless-m4t-medium")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    dev_params = tree_map(lambda t: t.to(cuda), params)
+    B, S = 3, 9
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32))
+
+    def run(dev, p):
+        st = init_decode_state(cfg, B, S, device=dev)
+        assert st["scan"][0]["xk"].shape[2] == 0
+        steps = []
+        with torch.inference_mode():
+            for i in range(S):
+                lg, st = serve_step(
+                    cfg, p, st, toks[:, i:i + 1].to(dev),
+                    torch.full((B,), i, dtype=torch.int32, device=dev))
+                steps.append(lg[:, 0].cpu())
+        return torch.stack(steps, 1)
+
+    before = t_fd_ops.LAUNCHES.value
+    card = run(cuda, dev_params)
+    assert t_fd_ops.LAUNCHES.value - before == cfg.num_layers * S
+    assert bool(torch.isfinite(card).all())
+    torch.testing.assert_close(card, run(torch.device("cpu"), params),
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu

@@ -484,20 +484,22 @@ def test_init_params_layout_and_law():
 
 
 def test_unported_options_raise():
-    """What waits: enc-dec, M-RoPE and the frontends (ROADMAP Queue 1 item
-    3: the registry's two remaining names and each option), and the
-    expert-parallel ``moe_apply`` over a mesh (item 4)."""
+    """What waits: the expert-parallel ``moe_apply`` over a mesh (ROADMAP
+    Queue 1 item 4). The registry's last two names and the four options
+    of item 3 (enc-dec, M-RoPE, the audio and vision frontends) build and
+    run; an unknown block kind raises."""
     for name in ("seamless-m4t-medium", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            get_reduced(name)
+        assert get_reduced(name).name == get_arch(name).name == name
+    toks = torch.zeros((1, 4), dtype=torch.int32)
     for kw in (dict(kind="encdec", num_enc_layers=2),
                dict(mrope_sections=(8, 8, 8)), dict(frontend="audio"),
                dict(frontend="vision")):
         cfg = dataclasses.replace(get_reduced("smollm-360m"), **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            init_params(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            forward(cfg, {}, torch.zeros((1, 4), dtype=torch.int32))
+        p = init_params(cfg, torch.Generator().manual_seed(0))
+        assert ("enc_blocks" in p) == (cfg.kind == "encdec")
+        with torch.inference_mode():
+            logits = forward(cfg, p, toks)
+        assert logits.shape == (1, 4, cfg.vocab_size)
     cfg = get_reduced("qwen3-moe-30b-a3b")
     p = init_params(cfg, torch.Generator().manual_seed(0))
     moe = _unstack(p["blocks"][0])[0]["moe"]
