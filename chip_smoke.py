@@ -248,6 +248,33 @@ Phases (any failure raises, so the exit code is non-zero):
    8 x 48 tokens, prefill and 47 decode steps on the card within
    ``rtol=1e-4, atol=1e-4`` of the CPU, a second card run bit-equal.
 
+13. The ``("data", "model")`` mesh: the KV cache sequence-sharded over
+   ``model`` (``sharded_decode_attention``: one ``flash_decode`` launch
+   over the B x tp folded shards, then the (acc, m, l) combine) and the
+   experts expert-parallel over it (``moe_apply``). (a) inside phase 11,
+   qwen3-moe-30b-a3b at full width and depth over (2, 2): the prefill at
+   B=1, S=4096 (two data groups of 2048 tokens) and the greedy loop
+   through ``serve_step(mesh=...)``, with phase 11's gates (48
+   ``flash_decode`` a step, a second run bit-equal), the last prefill
+   position's and the first decode step's logits beside the unsharded
+   run's (they differ by design: each data group is routed alone), and
+   the expert bytes a step. (b) inside phase 6, gemma2-2b's loop over
+   (1, 4) (softcap, G = 2, the local ring caches), the same gates. (c)
+   the ``flash_decode_sharded`` row: qwen3-moe's (8, 4096, 4, 128) cache
+   at tp = 4, the folded partials against their plain version, the
+   output against the plain sharded call and the plain unsharded
+   attention, timed beside the folded launch alone, the unsharded call,
+   SDPA and the byte bound; the same at the loop's (8, 48) cache. (d)
+   last, two ranks of a gloo group on the one card
+   (``torch.multiprocessing`` spawn, a ``FileStore``; NCCL takes one card
+   a rank): ``sharded_decode_shard`` over (c)'s cache split in two and
+   ``moe_shard`` of one full-width qwen3-moe layer (64 + 64 experts) at
+   T = 8 and 4096, each bit-equal to the in-process form at (1, 2). (e)
+   the reduced qwen3-moe-30b-a3b (capacity factor 1.0), arctic-480b and
+   gemma2-2b in float32 over (2, 2), 8 x 48, within ``rtol=1e-4,
+   atol=1e-4`` of the CPU, a second card run bit-equal. Each part prints
+   its wall.
+
 Output: one ``kernel {...}`` line per kernel row (phase 11 adds
 ``flash_attention_g16``/``flash_decode_g16`` and ``flash_attention_g8``/
 ``flash_decode_g8``, the same two kernels at recurrentgemma-9b's 16 and
@@ -255,8 +282,8 @@ qwen3-moe-30b-a3b's 8 q heads a kv head; phase 12
 ``flash_attention_g1``, ``flash_attention_g1_encoder``,
 ``flash_attention_cross``, ``flash_attention_g8_s8192``,
 ``flash_decode_g1_self``, ``flash_decode_g8_h64`` and ``flash_decode_g1``,
-the last over the cross caches), the card's name
-and power limit, one ``{"kernels": [...]}`` line, and as the last line
+the last over the cross caches; phase 13 ``flash_decode_sharded``), the
+card's name and power limit, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
 no result.
@@ -1501,6 +1528,10 @@ def card_time_by_op(torch, fn, top: int = 8, host: bool = True):
     return wall, busy_us / 1e3, ops
 
 
+def mesh_tag(mesh) -> str:
+    return "" if mesh is None else f" over mesh {json.dumps(mesh.shape)}"
+
+
 def attn_layers(cfg) -> int:
     """The attention layers of a config (one kernel launch each a
     prefill or a decode step)."""
@@ -1510,13 +1541,14 @@ def attn_layers(cfg) -> int:
 
 
 def prefill_phase(torch, device, cfg, params, counters, seq=None,
-                  inputs=None, expect=None):
+                  inputs=None, expect=None, mesh=None):
     """(a) ``forward`` at B=1, S=``seq`` (PREFILL_S): launches (counts set
     to 0 just before, read just after; ``expect`` ``flash_attention``
     launches, default one an attention layer), time, peak memory, card
     time by op. ``inputs()``, called inside each timed run, gives
     ``forward``'s other arguments (the encoder's output, the frontend
-    stub's embeddings, M-RoPE streams)."""
+    stub's embeddings, M-RoPE streams). ``mesh``: ``forward`` over that
+    ``("data", "model")`` mesh."""
     from repro_torch.models.transformer import forward
 
     seq = seq or PREFILL_S
@@ -1526,7 +1558,8 @@ def prefill_phase(torch, device, cfg, params, counters, seq=None,
 
     def run():
         with torch.inference_mode():
-            return forward(cfg, params, toks, **(inputs() if inputs else {}))
+            return forward(cfg, params, toks, mesh=mesh,
+                           **(inputs() if inputs else {}))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -1566,7 +1599,8 @@ def prefill_phase(torch, device, cfg, params, counters, seq=None,
            "peak_bytes": peak, "launches": launches,
            "traced_ms": 1e3 * traced_s, "card_busy_ms": busy_ms,
            "card_ms_by_op": ops}
-    log(f"prefill {cfg.name}: B=1 S={seq} in {out['ms']:.2f} ms "
+    log(f"prefill {cfg.name}{mesh_tag(mesh)}: B=1 S={seq} in "
+        f"{out['ms']:.2f} ms "
         f"({out['tokens_per_s']:.0f} tok/s; first call {out['first_ms']:.2f}"
         f" ms), peak device memory {peak / 2**30:.2f} GiB, launches "
         f"{json.dumps(launches)}; logits finite, second run bit-identical")
@@ -1576,7 +1610,7 @@ def prefill_phase(torch, device, cfg, params, counters, seq=None,
 
 
 def decode_phase(torch, device, cfg, params, counters, host=True,
-                 trace_steps=None, states=None, per_step=None):
+                 trace_steps=None, states=None, per_step=None, mesh=None):
     """(b) the ``serve_decode`` launcher's greedy loop: launches (counts
     set to 0 just before, read just after; ``per_step`` ``flash_decode``
     a step, default one an attention layer), ms/step, tokens/s, peak
@@ -1585,14 +1619,15 @@ def decode_phase(torch, device, cfg, params, counters, host=True,
     steps from a one-token prompt (``host=False``: the card's activity
     alone). ``states(max_len)`` gives each run a fresh decode state (an
     enc-dec model's with its cross caches written in); default the
-    launcher's."""
+    launcher's. ``mesh``: every step over that ``("data", "model")``
+    mesh."""
     import numpy as np
     from repro_torch.launch.serve_decode import greedy_decode
 
     def decode(prompts_, gen):
         return greedy_decode(
             cfg, params, prompts_, gen, device,
-            states(prompts_.shape[1] + gen) if states else None)
+            states(prompts_.shape[1] + gen) if states else None, mesh=mesh)
 
     per_step = attn_layers(cfg) if per_step is None else per_step
     prompts = lm_tokens(cfg, (DECODE_B, DECODE_PROMPT), 0x4443)
@@ -1636,7 +1671,8 @@ def decode_phase(torch, device, cfg, params, counters, host=True,
            "card_busy_share": busy_ms / 1e3 / traced_s,
            "card_ms_by_op_per_step": {k: v / traced for k, v in ops.items()},
            "sample": toks[0, DECODE_PROMPT:DECODE_PROMPT + 10].tolist()}
-    log(f"decode {cfg.name}: B={DECODE_B} prompt {DECODE_PROMPT} gen "
+    log(f"decode {cfg.name}{mesh_tag(mesh)}: B={DECODE_B} prompt "
+        f"{DECODE_PROMPT} gen "
         f"{DECODE_GEN}: {steps} steps, {out['ms_per_step']:.2f} ms/step, "
         f"{out['tokens_per_s']:.1f} tok/s (first run "
         f"{out['first_ms_per_step']:.2f} ms/step); peak device memory "
@@ -2026,9 +2062,11 @@ def lm_phase(torch, device, counters):
     check = decode_vs_prefill(torch, device)
     rows = [attn_kernel_rows(torch, device, cfg, params, launches),
             decode_kernel_row(torch, device, cfg, params, launches)]
+    # phase 13 (b), while the model is loaded
+    mesh = mesh_serve(torch, device, cfg, params, counters, MESH_GEMMA)
     del params
     return {"prefill": prefill, "decode": decode, "decode_vs_prefill": check,
-            "parameters": n}, rows
+            "parameters": n, "mesh": mesh}, rows
 
 
 def _leaves(tree):
@@ -3613,7 +3651,8 @@ def mixer_decode_row(torch, device, cfg, launches, full_s=None, loop=True,
             "shapes": {str(k_): v_ for k_, v_ in shapes.items()}}
 
 
-def reduced_check(torch, device, counters, names, what):
+def reduced_check(torch, device, counters, names, what, mesh_shape=None,
+                  fields=None):
     """The reduced configs ``names`` in float32, the same port code on the
     card and on the CPU from the same parameters: ``forward`` over
     MIXER_REDUCED_B x MIXER_REDUCED_S tokens and the ``serve_step`` loop
@@ -3622,7 +3661,11 @@ def reduced_check(torch, device, counters, names, what):
     model's prefill encodes ENCDEC_REDUCED_SRC frames and its loop reads
     cross caches written from them (ragged lengths, one 0); an M-RoPE
     model's prefill adds patch embeddings and takes distinct streams, its
-    loop the streams at each position."""
+    loop the streams at each position. ``mesh_shape``: both runs over a
+    ``("data", "model")`` mesh of that shape (on their own device);
+    ``fields``: config fields set per name."""
+    import dataclasses
+    from repro_torch.dist import make_mesh
     from repro_torch.configs import get_reduced
     from repro_torch.models.transformer import (encode, forward,
                                                 init_decode_state,
@@ -3633,7 +3676,8 @@ def reduced_check(torch, device, counters, names, what):
     B, S = MIXER_REDUCED_B, MIXER_REDUCED_S
     out = {}
     for name in names:
-        cfg = get_reduced(name)
+        cfg = dataclasses.replace(get_reduced(name),
+                                  **(fields or {}).get(name, {}))
         host_p = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
         card_p = tree_map(lambda t: t.to(device), host_p)
         toks = torch.from_numpy(lm_tokens(cfg, (B, S), 0x4D58))
@@ -3646,6 +3690,8 @@ def reduced_check(torch, device, counters, names, what):
 
         def run(dev, params):
             t = toks.to(dev)
+            mesh = (make_mesh(mesh_shape, ("data", "model"), device=dev)
+                    if mesh_shape else None)
             with torch.inference_mode():
                 kw, states = {}, None
                 if encdec:
@@ -3656,7 +3702,7 @@ def reduced_check(torch, device, counters, names, what):
                 elif cfg.frontend == "vision":
                     kw = {"embeds": frames.to(dev),
                           "mrope_positions": streams.to(dev)}
-                full = forward(cfg, params, t, **kw)
+                full = forward(cfg, params, t, mesh=mesh, **kw)
                 states = states or init_decode_state(cfg, B, S, device=dev)
                 steps = []
                 for i in range(S - 1):
@@ -3664,7 +3710,7 @@ def reduced_check(torch, device, counters, names, what):
                         cfg, params, states, t[:, i:i + 1],
                         torch.full((B,), i, dtype=torch.int32, device=dev),
                         mrope_positions=streams[:, :, i:i + 1].to(dev)
-                        if cfg.mrope_sections else None)
+                        if cfg.mrope_sections else None, mesh=mesh)
                     steps.append(lg[:, 0])
             return full.cpu(), torch.stack(steps, 1).cpu()
         for c in counters:
@@ -3690,6 +3736,8 @@ def reduced_check(torch, device, counters, names, what):
         out[name] = {"prefill_max_abs_err": errs[0],
                      "decode_max_abs_err": errs[1], "launches": launches}
         log(f"{what} {name} (reduced, float32, {B}x{S}"
+            f"{f', mesh {mesh_shape}' if mesh_shape else ''}"
+            f"{f', {fields[name]}' if fields and fields.get(name) else ''}"
             f"{f', source {ENCDEC_REDUCED_SRC} frames' if encdec else ''}):"
             f" prefill and {S - 1} decode steps on the card within "
             f"rtol=1e-4 atol=1e-4 of the CPU (max abs err {errs[0]:.3e} / "
@@ -3716,6 +3764,17 @@ def mixer_phase(torch, device, counters):
                 res["prefill"]["launches"]["flash_attention"]))
             rows.append(mixer_decode_row(
                 torch, device, cfg, res["decode"]["launches"]["flash_decode"]))
+        if cfg.moe:
+            # phase 13 (a) and (c), while the model is loaded
+            res["mesh"] = mesh_serve(torch, device, cfg, params, counters,
+                                     MESH_MOE, seq=seq)
+            t1 = time.perf_counter()
+            rows.append(mesh_decode_row(
+                torch, device, cfg,
+                res["mesh"]["decode"]["launches"]["flash_decode"]))
+            res["mesh"]["row_wall_s"] = time.perf_counter() - t1
+            log(f"mesh {name} flash_decode_sharded rows: sub-phase wall "
+                f"{res['mesh']['row_wall_s']:.1f} s")
         del params
         torch.cuda.empty_cache()
         res["wall_s"] = time.perf_counter() - t0
@@ -3985,6 +4044,403 @@ def encdec_vlm_phase(torch, device, counters):
     return out, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the ("data", "model") mesh: sequence-sharded decode attention,
+# expert-parallel MoE, and their process-group forms
+# ---------------------------------------------------------------------------
+
+#: (a) qwen3-moe-30b-a3b over 2 data groups of 2 model shards (its prefill
+#: at B=1, S=4096 is two groups of 2048 tokens); (b) gemma2-2b's caches
+#: over 4 model shards
+MESH_MOE, MESH_GEMMA = (2, 2), (1, 4)
+#: decode steps traced over the mesh, from a one-token prompt (the traced
+#: loop's cache of 1 + steps slots splits over every tp here)
+MESH_TRACE_STEPS = 3
+#: (c) the sharded kernel row's model shards over qwen3-moe's long cache
+MESH_ROW_TP = 4
+#: (d) two ranks of a gloo group on the card: token counts of the MoE
+#: layer, the inputs' seed, and a time limit on the ranks
+MESH_PG_TOKENS = (8, 4096)
+MESH_PG_SEED = LM_SEED + 13
+MESH_PG_TIMEOUT_S = 300
+#: (e) the reduced configs (float32, 8 x 48) over the (2, 2) mesh;
+#: qwen3-moe at capacity factor 1.0, so tokens are dropped
+MESH_REDUCED = {"qwen3-moe-30b-a3b": {"capacity_factor": 1.0},
+                "arctic-480b": {}, "gemma2-2b": {}}
+
+
+def expert_bytes(cfg) -> int:
+    """The bytes of every expert's weights, all MoE layers."""
+    per = cfg.num_experts * 3 * cfg.d_model * cfg.moe_d_ff * 2
+    return per * sum(k != "ssm" for k in cfg.pattern) * cfg.num_repeats
+
+
+def mesh_serve(torch, device, cfg, params, counters, shape, seq=None):
+    """(a)/(b) the loaded model over a ``("data", "model")`` mesh of
+    ``shape``: with ``seq``, ``prefill_phase`` at B=1, S=``seq`` (its
+    last position's logits beside the unsharded run's); the greedy loop
+    of ``decode_phase`` (one ``flash_decode`` a layer a step, a second run
+    bit-equal, MESH_TRACE_STEPS steps traced); the logits of the prompt's
+    steps, fed alike, beside the unsharded steps' (the first step's
+    single valid slot lies in shard 0, so its attention is exact). The
+    two differ by design: each data group is routed alone, with its own
+    capacity, and the sums run in another order."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.models.transformer import (forward, init_decode_state,
+                                                serve_step)
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(shape, ("data", "model"), device=device)
+    out = {"mesh": mesh.shape}
+    with torch.inference_mode():
+        if seq:
+            out["prefill"] = prefill_phase(torch, device, cfg, params,
+                                           counters, seq=seq, mesh=mesh)
+            toks = torch.from_numpy(lm_tokens(cfg, (1, seq), 0x5046)).to(
+                device)
+            last = [forward(cfg, params, toks, mesh=m)[0, -1]
+                    for m in (None, mesh)]
+            out["prefill_last_max_abs_diff"] = float(
+                (last[0] - last[1]).abs().max())
+            del last
+        out["decode"] = decode_phase(torch, device, cfg, params, counters,
+                                     host=False,
+                                     trace_steps=MESH_TRACE_STEPS, mesh=mesh)
+        prompts = torch.from_numpy(lm_tokens(
+            cfg, (DECODE_B, DECODE_PROMPT), 0x4443)).to(device)
+        runs = []
+        for m in (None, mesh):
+            st = init_decode_state(cfg, DECODE_B, DECODE_PROMPT + DECODE_GEN,
+                                   device=device)
+            runs.append(torch.stack([serve_step(
+                cfg, params, st, prompts[:, t:t + 1],
+                torch.full((DECODE_B,), t, dtype=torch.int32,
+                           device=device), mesh=m)[0][:, 0]
+                for t in range(DECODE_PROMPT)]))
+            del st
+    diff = (runs[0] - runs[1]).abs().amax(dim=(1, 2)).tolist()
+    del runs
+    out["first_step_max_abs_diff"] = diff[0]
+    out["prompt_steps_max_abs_diff"] = diff
+    txt = ""
+    if cfg.moe:
+        dp = shape[0] if DECODE_B % shape[0] == 0 else 1
+        nbytes = expert_bytes(cfg)
+        out["expert_bytes_per_step"] = dp * nbytes
+        txt = (f"; the expert products read every expert once a data "
+               f"group: {dp} x {nbytes / 1e9:.2f} GB a decode step "
+               f"({1e3 * dp * nbytes / MEM_BYTES_PER_S:.1f} ms at "
+               f"{MEM_BYTES_PER_S / 1e12:.2f} TB/s, against "
+               f"{1e3 * nbytes / MEM_BYTES_PER_S:.1f} unsharded)")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"mesh {cfg.name} over {json.dumps(mesh.shape)}: "
+        + (f"prefill last position's logits max |diff| from the unsharded "
+           f"run {out['prefill_last_max_abs_diff']:.4g}; " if seq else "")
+        + f"first decode step's logits max |diff| from the unsharded step "
+        f"{diff[0]:.4g}, over the {DECODE_PROMPT} prompt steps (fed alike) "
+        f"up to {max(diff):.4g} (per-group capacity and the order of sums "
+        f"differ by design){txt}; sub-phase wall "
+        f"{out['wall_s']:.1f} s")
+    return out
+
+
+def mesh_decode_row(torch, device, cfg, launches):
+    """(c) ``sharded_decode_attention`` at tp = MESH_ROW_TP over a cache as
+    long as qwen3-moe-30b-a3b's prefill (full lengths timed; ragged ones
+    whose later shards hold no valid slot checked) and over the decode
+    loop's: one ``flash_decode`` launch over the folded (B * tp, S / tp)
+    rows plus the combine. The folded partials against their plain
+    version (float32, ``rtol=1e-4, atol=1e-5``); the bfloat16 output
+    against the plain version of the same sharded call and the plain
+    unsharded attention (one bfloat16 step, ``rtol=2^-7, atol=1e-5``).
+    Timed beside the folded launch alone, the unsharded call, the plain
+    version, SDPA and the byte bound."""
+    import torch.nn.functional as F
+    from repro_torch.dist import make_mesh
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.flash_decode import split_plan
+    from repro_torch.kernels.flash_decode.ref import (flash_decode_batched_ref,
+                                                      finalize)
+    from repro_torch.serve import sharded_decode_attention
+
+    tp = MESH_ROW_TP
+    mesh = make_mesh((1, tp), ("data", "model"), device=device)
+    gen = torch.Generator(device=device).manual_seed(LM_SEED + 5)
+    B, H, kvH, dh = DECODE_B, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf = dict(dtype=torch.bfloat16, device=device, generator=gen)
+    shapes = {}
+    for S in (MIXER_DECODE_CACHE[cfg.name], DECODE_PROMPT + DECODE_GEN):
+        q = torch.randn((B, 1, H, dh), **bf)
+        k, v = (torch.randn((B, S, kvH, dh), **bf) for _ in range(2))
+        full = torch.full((B,), S, dtype=torch.int32, device=device)
+        s = S // tp
+        ragged = torch.tensor([1, s, s + 1, S, 3 * s - 1, 17, S - 1, S // 2],
+                              dtype=torch.int32, device=device)[:B]
+        err = 0.0
+        for ln in (full, ragged):
+            lf = (ln[:, None] - torch.arange(tp, device=device)[None, :]
+                  * s).clamp(0, s).reshape(-1).to(torch.int32)
+            qf = q[:, 0].repeat_interleave(tp, dim=0)
+            kf, vf = (t.reshape(B * tp, s, kvH, dh) for t in (k, v))
+            got = fd_ops.flash_decode_partials(qf, kf, vf, lf)
+            want = flash_decode_batched_ref(qf, kf, vf, lf)
+            if not all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+                       for a, b in zip(got, want)) or \
+                    not bool((got[1][lf == 0] == -1e30).all()) or \
+                    not bool((got[2][lf == 0] == 0).all()):
+                raise RuntimeError(f"flash_decode folded partials differ "
+                                   f"from their plain version at S={S}")
+            out = sharded_decode_attention(mesh, q, k, v, ln).float()
+            plain = sharded_decode_attention(mesh, q, k, v, ln,
+                                             interpret=True).float()
+            acc, _, l = flash_decode_batched_ref(q[:, 0], k, v, ln)
+            whole = finalize(acc, l)[:, None].to(q.dtype).float()
+            err = max(err, float((out - plain).abs().max()),
+                      float((out - whole).abs().max()))
+            if not (torch.allclose(out, plain, rtol=2 ** -7, atol=1e-5)
+                    and torch.allclose(out, whole, rtol=2 ** -7,
+                                       atol=1e-5)):
+                raise RuntimeError(f"sharded_decode_attention at S={S} "
+                                   f"differs from its plain version: {err}")
+        qf = q[:, 0].repeat_interleave(tp, dim=0)
+        kf, vf = (t.reshape(B * tp, s, kvH, dh) for t in (k, v))
+        lf = torch.full((B * tp,), s, dtype=torch.int32, device=device)
+
+        def kern():
+            return sharded_decode_attention(mesh, q, k, v, full)
+
+        def folded():
+            return fd_ops.flash_decode_partials(qf, kf, vf, lf)
+
+        def whole_call():
+            return fd_ops.flash_decode_batched(q[:, 0], k, v, full)
+
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
+        lib_err = float((sdpa().transpose(1, 2).float() - kern().float())
+                        .abs().max())
+        if lib_err > 0.05:
+            raise RuntimeError(f"SDPA yardstick (sharded decode) computes "
+                               f"another function: {lib_err}")
+        before = fd_ops.LAUNCHES.value
+        kern()
+        if fd_ops.LAUNCHES.value - before != 1:
+            raise RuntimeError(f"sharded_decode_attention launched "
+                               f"{fd_ops.LAUNCHES.value - before} kernels "
+                               f"a call")
+        ops = device_ops(torch, kern)
+        nbytes = 2 * B * S * kvH * dh * 2 + 2 * q.numel() * 2
+        bound = bound_ms(nbytes, 4 * dh * H * B * S, BF16_FLOPS_PER_S)
+        shapes[S] = {
+            "cache": [B, S, kvH, dh], "tp": tp, "max_abs_err": err,
+            "device_ops": len(ops), "ops": ops,
+            "splits": {"folded": split_plan(B * tp * kvH, s, device),
+                       "unsharded": split_plan(B * kvH, S, device)},
+            "ms": device_ms(torch, kern),
+            "ms_in_a_graph": device_ms_per_call(torch, kern),
+            "folded_launch_ms": device_ms(torch, folded),
+            "folded_launch_ms_in_a_graph": device_ms_per_call(torch, folded),
+            "unsharded_ms": device_ms(torch, whole_call),
+            "unsharded_ms_in_a_graph": device_ms_per_call(torch, whole_call),
+            "plain_ms": device_ms(torch, lambda: sharded_decode_attention(
+                mesh, q, k, v, full, interpret=True), iters=5),
+            "library_ms": device_ms(torch, sdpa),
+            "library_ms_in_a_graph": device_ms_per_call(torch, sdpa),
+            "library_err_no_softcap": lib_err, "bytes": nbytes,
+            "bound_ms": bound[0], "bound_by": bound[1]}
+        sh = shapes[S]
+        log(f"flash_decode_sharded {cfg.name} q=({B},1,{H},{dh}) cache=("
+            f"{B},{S},{kvH},{dh}) bf16 over tp={tp} (one launch over the "
+            f"folded ({B * tp},{s},{kvH},{dh}), {sh['splits']['folded']} "
+            f"splits, then the combine; {len(ops)} card ops a call: "
+            f"{ops}): ms={sh['ms']:.4f} ({sh['ms_in_a_graph']:.4f} a call "
+            f"in a graph of 20); the folded launch alone "
+            f"{sh['folded_launch_ms']:.4f} ({sh['folded_launch_ms_in_a_graph']:.4f}"
+            f" in a graph); the unsharded call {sh['unsharded_ms']:.4f} "
+            f"({sh['unsharded_ms_in_a_graph']:.4f} in a graph, "
+            f"{sh['splits']['unsharded']} splits; PR 22: 0.1417 at "
+            f"S=4096); plain_ms={sh['plain_ms']:.4f} library_ms="
+            f"{sh['library_ms']:.4f} ({sh['library_ms_in_a_graph']:.4f} in "
+            f"a graph; SDPA enable_gqa over the whole cache; PR 22: 0.0311) "
+            f"bound_ms={sh['bound_ms']:.5f} ({sh['bound_by']}, "
+            f"{nbytes / 1e6:.1f} MB; PR 22: 0.0201, 67.3 MB); folding "
+            f"{tp}x the rows: the folded launch takes "
+            f"{sh['folded_launch_ms'] / sh['unsharded_ms']:.2f}x the "
+            f"unsharded call's time; max_abs_err {err:.3e} over full and "
+            f"ragged lengths (rtol=2^-7 atol=1e-5)")
+        del q, k, v, qf, kf, vf
+    first = shapes[MIXER_DECODE_CACHE[cfg.name]]
+    S = MIXER_DECODE_CACHE[cfg.name]
+    return {"name": "flash_decode_sharded", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_decode/csrc/"
+                      "flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
+            "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "shape": f"{cfg.name} q=({B},1,{H},{dh}) cache=({B},{S},{kvH},"
+                     f"{dh}) bf16 over tp={tp}, lengths full",
+            "shapes": {str(k_): v_ for k_, v_ in shapes.items()}}
+
+
+def pg_inputs(torch, device, full: bool):
+    """(d)'s inputs, drawn alike in every process from MESH_PG_SEED on
+    ``device``: a query and qwen3-moe-30b-a3b's long decode cache (bf16,
+    lengths whose second half holds no valid slot in some rows), one of
+    its MoE layers (``full``: at full width, 128 experts) and
+    MESH_PG_TOKENS tokens."""
+    import dataclasses
+    from repro_torch.configs import get_arch, get_reduced
+    from repro_torch.models.transformer.moe import init_moe_params
+
+    cfg = dataclasses.replace((get_arch if full else get_reduced)(
+        "qwen3-moe-30b-a3b"), dtype="bfloat16")
+    gen = torch.Generator(device=device).manual_seed(MESH_PG_SEED)
+    bf = dict(dtype=torch.bfloat16, device=device, generator=gen)
+    B, S = DECODE_B, MIXER_DECODE_CACHE[cfg.name]
+    q = torch.randn((B, 1, cfg.num_heads, cfg.head_dim), **bf)
+    k, v = (torch.randn((B, S, cfg.num_kv_heads, cfg.head_dim), **bf)
+            for _ in range(2))
+    ln = torch.tensor([S, 1, S // 2, S // 2 + 1, 3 * S // 4, 17, S - 1,
+                       S // 3][:B], dtype=torch.int32, device=device)
+    layer = init_moe_params(cfg, gen, torch.bfloat16, device)
+    xs = [torch.randn((T, cfg.d_model), **bf) for T in MESH_PG_TOKENS]
+    return cfg, (q, k, v, ln), layer, xs
+
+
+def pg_rank(rank: int, world: int, src: str, out_dir: str, device: str,
+            full: bool) -> None:
+    """One rank of (d): model rank ``rank`` of ``world`` over gloo (NCCL
+    takes one card a rank), on tensors of the one ``device``. It holds
+    cache slots ``[rank * S/2, (rank + 1) * S/2)`` and experts ``[rank *
+    E/2, (rank + 1) * E/2)``, runs ``sharded_decode_shard`` and
+    ``moe_shard`` at each token count and saves its outputs."""
+    sys.path.insert(0, src)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models.transformer.moe import moe_shard
+    from repro_torch.serve import sharded_decode_shard
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device(device)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(out_dir, "store"), world),
+        rank=rank, world_size=world)
+    try:
+        cfg, (q, k, v, ln), layer, xs = pg_inputs(torch, device, full)
+        s = k.shape[1] // world
+        mine = slice(rank * s, (rank + 1) * s)
+        dec = sharded_decode_shard(q, k[:, mine].contiguous(),
+                                   v[:, mine].contiguous(), ln, rank=rank,
+                                   tp=world)
+        n = cfg.num_experts // world
+        local = {"router": layer["router"]}
+        local.update({w: layer[w][rank * n:(rank + 1) * n].clone()
+                      for w in ("w1", "w2", "w3")})
+        del layer
+        moes = [moe_shard(local, x, cfg, rank=rank, tp=world) for x in xs]
+        torch.save({"decode": dec.cpu(), "moe": [m.cpu() for m in moes]},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def process_group_check(torch, device):
+    """(d) two ranks of a ``torch.distributed`` gloo group on the one card
+    (``torch.multiprocessing`` spawn, a ``FileStore``): each rank's
+    ``sharded_decode_shard`` and ``moe_shard`` against the in-process
+    ``sharded_decode_attention`` and ``moe_apply`` at (1, 2) on the same
+    inputs, bit for bit (every cross-rank sum has two terms). An op or
+    dtype that gloo refuses on CUDA tensors fails the phase."""
+    import shutil
+    import torch.multiprocessing as mp
+    from repro_torch.dist import make_mesh
+    from repro_torch.kernels.flash_decode.flash_decode import split_plan
+    from repro_torch.models.transformer.moe import moe_apply
+    from repro_torch.serve import sharded_decode_attention
+
+    world = 2
+    out_dir = os.path.join(HERE, "build", "mesh_pg")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(pg_rank, args=(world, os.path.join(HERE, "src"),
+                                            out_dir, str(device),
+                                            MIXER_FULL),
+                             nprocs=world, start_method="spawn", join=False)
+    deadline = time.monotonic() + MESH_PG_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the {world} gloo ranks did not finish "
+                                   f"in {MESH_PG_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    ranks_s = time.perf_counter() - t0
+    cfg, (q, k, v, ln), layer, xs = pg_inputs(torch, device, MIXER_FULL)
+    mesh = make_mesh((1, world), ("data", "model"), device=device)
+    with torch.inference_mode():
+        dec = sharded_decode_attention(mesh, q, k, v, ln).cpu()
+        moes = [moe_apply(layer, x[None], cfg, mesh=mesh)[0].cpu()
+                for x in xs]
+    B, S = k.shape[:2]
+    n = cfg.num_experts // world
+    splits = (split_plan(B * world * cfg.num_kv_heads, S // world, device),
+              split_plan(B * cfg.num_kv_heads, S // world, device))
+    del layer, q, k, v, xs
+    for r in range(world):
+        got = torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+        if not torch.equal(got["decode"], dec):
+            raise RuntimeError(f"rank {r}'s sharded_decode_shard differs "
+                               f"from sharded_decode_attention by "
+                               f"{float((got['decode'] - dec).float().abs().max())}"
+                               f" (split plans {splits})")
+        for T, a, b in zip(MESH_PG_TOKENS, got["moe"], moes):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"rank {r}'s moe_shard at T={T} differs "
+                                   f"from moe_apply by "
+                                   f"{float((a - b).float().abs().max())}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out = {"ranks": world, "backend": "gloo", "ranks_wall_s": ranks_s,
+           "decode_cache": [B, S, cfg.num_kv_heads, cfg.head_dim],
+           "split_plans": splits, "moe_tokens": list(MESH_PG_TOKENS),
+           "wall_s": time.perf_counter() - t0}
+    log(f"mesh process group: {world} gloo ranks on the one card (NCCL "
+        f"takes one card a rank), FileStore: sharded_decode_shard over "
+        f"cache ({B},{S},{cfg.num_kv_heads},{cfg.head_dim}) bf16 split in "
+        f"two (split plans {splits[0]} folded / {splits[1]} a rank) and "
+        f"moe_shard of one {'full-width' if MIXER_FULL else 'reduced'} "
+        f"qwen3-moe-30b-a3b layer (experts {n} + {n}) at "
+        f"T={list(MESH_PG_TOKENS)}: every rank bit-equal to the "
+        f"in-process sharded_decode_attention and moe_apply at (1, 2); "
+        f"ranks {ranks_s:.1f} s, sub-phase wall {out['wall_s']:.1f} s")
+    return out
+
+
+def mesh_phase(torch, device, counters):
+    """Phase 13 (d) and (e), after phase 12's parameters are freed; (a)-(c)
+    ran inside phases 6 and 11, while their models were loaded."""
+    torch.cuda.empty_cache()
+    out = {"process_group": process_group_check(torch, device)}
+    t0 = time.perf_counter()
+    out["reduced"] = reduced_check(torch, device, counters,
+                                   tuple(MESH_REDUCED), "mesh",
+                                   mesh_shape=MESH_MOE, fields=MESH_REDUCED)
+    out["reduced_wall_s"] = time.perf_counter() - t0
+    log(f"mesh reduced configs: sub-phase wall {out['reduced_wall_s']:.1f} "
+        f"s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4081,6 +4537,11 @@ def main() -> int:
     encdec_vlm, encdec_vlm_rows = encdec_vlm_phase(
         torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
     kernels += encdec_vlm_rows
+    mesh = mesh_phase(torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    # the sharded row's launches: phase 13's decode loops over a mesh,
+    # qwen3-moe-30b-a3b's (a) and gemma2-2b's (b)
+    next(k for k in kernels if k["name"] == "flash_decode_sharded")[
+        "launches"] += lm["mesh"]["decode"]["launches"]["flash_decode"]
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -4096,7 +4557,8 @@ def main() -> int:
                    "launches": launches, "train": train, "lm": lm,
                    "dist": dist, "embedding": emb, "runner": runner,
                    "campaign": campaign, "lm_train": lm_train,
-                   "mixers": mixers, "encdec_vlm": encdec_vlm}, f,
+                   "mixers": mixers, "encdec_vlm": encdec_vlm,
+                   "mesh": mesh}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,10 +1,11 @@
 """Device-distributed RapidGNN over a flat ``("data",)`` or hierarchical
-``("dcn", "data")`` worker mesh: the device relabelling of the
+``("dcn", "data")`` worker mesh (and the transformer's ``("data",
+"model")`` mesh, ``make_mesh``/``dp_axes``): the device relabelling of the
 partitioned graph, the offline pull plans (two-tier on a hierarchical
 topology), the all-to-all cache-first feature exchange, the pipelined
 and on-demand epoch programs and the multi-epoch runners (the port of
 ``repro.dist``)."""
-from repro_torch.dist.mesh import Mesh, make_mesh
+from repro_torch.dist.mesh import Mesh, dp_axes, make_mesh
 from repro_torch.dist.topology import Topology
 from repro_torch.dist.feature_a2a import (PullPlan, build_pull_plan,
                                           cache_gather, pack_pull_lanes,
@@ -25,7 +26,7 @@ from repro_torch.dist.runner import (DeviceBaselineRunner, DeviceEpochReport,
                                      assert_host_parity, host_miss_matrix)
 
 __all__ = [
-    "Mesh", "make_mesh", "Topology",
+    "Mesh", "make_mesh", "dp_axes", "Topology",
     "PullPlan", "build_pull_plan", "pack_pull_lanes",
     "pack_pull_lanes_two_tier", "pull_shard", "pull_shard_two_tier",
     "pull_features", "pull_features_two_tier", "cache_gather",

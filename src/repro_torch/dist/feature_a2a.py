@@ -378,6 +378,10 @@ def _scatter_tiers(got, send: Dict[str, torch.Tensor], rows: int,
 
 
 def _check_mesh(mesh, table: torch.Tensor) -> None:
+    if mesh.model > 1:
+        raise ValueError(f"the feature exchange runs over data workers; a "
+                         f"mesh of {mesh.model} model shards a worker "
+                         f"({mesh.shape}) is the transformer's")
     if mesh.num_workers != table.shape[0]:
         raise ValueError(f"a {mesh.num_workers}-worker mesh and a table of "
                          f"{table.shape[0]} shards")

@@ -190,6 +190,10 @@ class _DeviceRunnerBase:
         self.recovery_wall_s = 0.0
         self.schedules = list(schedules)
         self.P = len(self.schedules)
+        if mesh.model > 1:
+            raise ValueError(f"the runners train over data workers; a mesh "
+                             f"of {mesh.model} model shards a worker "
+                             f"({mesh.shape}) is the transformer's")
         if mesh.num_workers != self.P:
             raise ValueError(f"{self.P} schedules for a "
                              f"{mesh.num_workers}-worker mesh")

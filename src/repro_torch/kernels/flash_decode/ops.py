@@ -1,7 +1,7 @@
 """Public wrappers of the ``flash_decode`` kernel: one element
-(``flash_decode``, the (acc, m, l) partials) and a batch
-(``flash_decode_batched``, normalised), as in
-``repro/kernels/flash_decode/ops.py``.
+(``flash_decode``, the (acc, m, l) partials) and a batch (its partials,
+``flash_decode_partials``, and ``flash_decode_batched``, normalised), as
+in ``repro/kernels/flash_decode/ops.py``.
 
 Replaces the TPU kernel ``repro/kernels/flash_decode/flash_decode.py:67``:
 one query token attends over a KV cache whose valid positions are
@@ -100,6 +100,20 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return acc[0], m[0], l[0]
 
 
+def flash_decode_partials(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, length: torch.Tensor,
+                          start: Optional[torch.Tensor] = None, *,
+                          scale: Optional[float] = None,
+                          softcap: float = 0.0, interpret: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """q (B, H, dh); k/v (B, S, kvH, dh); length/start (B,) int32 ->
+    the float32 partials (acc (B, H, dh), m (B, H), l (B, H)) of each
+    element, one launch (the sequence-sharded decode's shards)."""
+    return _batched(q, k, v, length, start, scale, softcap, interpret,
+                    partials=True)
+
+
 def flash_decode_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          length: torch.Tensor,
                          start: Optional[torch.Tensor] = None, *,
@@ -111,5 +125,5 @@ def flash_decode_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     partials=False)
 
 
-__all__ = ["flash_decode", "flash_decode_batched", "finalize", "combine",
-           "LAUNCHES"]
+__all__ = ["flash_decode", "flash_decode_partials", "flash_decode_batched",
+           "finalize", "combine", "LAUNCHES"]

@@ -52,7 +52,8 @@ def _sync(device: torch.device) -> None:
 
 
 def greedy_decode(cfg, params, prompts: np.ndarray, gen: int,
-                  device: torch.device, states: Optional[dict] = None
+                  device: torch.device, states: Optional[dict] = None,
+                  mesh=None
                   ) -> Tuple[np.ndarray, float, List[torch.Tensor]]:
     """prompts (B, P) int32 -> (token ids (B, P + gen) int32, wall
     seconds of the decode loop, the logits of each step). Step t feeds
@@ -61,7 +62,8 @@ def greedy_decode(cfg, params, prompts: np.ndarray, gen: int,
     step's logits, as the reference launcher does. ``states``: a fresh
     ``init_decode_state`` of ``max_len = P + gen`` (an enc-dec model's
     with its cross caches written in); default one made here, with
-    ``SOURCE_SLOTS`` empty source positions for enc-dec."""
+    ``SOURCE_SLOTS`` empty source positions for enc-dec. ``mesh``: each
+    step's ``serve_step`` over that ``("data", "model")`` mesh."""
     B, prompt_len = prompts.shape
     max_len = prompt_len + gen
     if states is None:
@@ -80,7 +82,7 @@ def greedy_decode(cfg, params, prompts: np.ndarray, gen: int,
             mp = (pos[None, :, None].expand(3, B, 1)
                   if cfg.mrope_sections else None)
             logits, states = serve_step(cfg, params, states, tok, pos,
-                                        mrope_positions=mp)
+                                        mrope_positions=mp, mesh=mesh)
             logits_seen.append(logits[:, -1])
             if t + 1 < prompt_len:
                 tok = prompts_t[:, t + 1:t + 2]

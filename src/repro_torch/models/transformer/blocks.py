@@ -25,6 +25,7 @@ from repro_torch.models.transformer.rglru import (init_rglru_params,
 from repro_torch.models.transformer.ssm import (init_ssm_params,
                                                 ssm_decode_step,
                                                 ssm_forward)
+from repro_torch.serve.attention import sharded_decode_attention
 
 ATTN_KINDS = ("attn", "local")
 KINDS = ATTN_KINDS + ("ssm", "rglru")
@@ -137,12 +138,12 @@ def ffn_apply(cfg: ArchConfig, p, h):
             ) @ p["w2"].to(h.dtype)
 
 
-def mixer_ffn(cfg: ArchConfig, p, x):
+def mixer_ffn(cfg: ArchConfig, p, x, mesh=None):
     """The FFN/MoE half of a block (shared by the prefill and decode
-    paths)."""
+    paths); the experts shard over ``mesh``'s ``model`` axis."""
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe:
-        out = moe_apply(p["moe"], h2, cfg)
+        out = moe_apply(p["moe"], h2, cfg, mesh=mesh)
         if cfg.dense_residual:
             out = out + ffn_apply(cfg, p["ffn"], h2)
     else:
@@ -153,11 +154,16 @@ def mixer_ffn(cfg: ArchConfig, p, x):
 
 
 def block_apply(cfg: ArchConfig, kind: str, p, x, *, positions=None,
-                mrope_positions=None, enc_out=None, causal: bool = True):
+                mrope_positions=None, enc_out=None, mesh=None,
+                causal: bool = True):
     """Prefill forward for one block. x (B,S,d); ``causal=False`` for the
     encoder's self-attention. With ``enc_out`` (B, S_src, d) and the
     block's ``xattn``, the cross-attention sub-block runs after the
-    mixer: q from x, k/v from ``enc_out`` (no bias, no RoPE), no mask."""
+    mixer: q from x, k/v from ``enc_out`` (no bias, no RoPE), no mask.
+    ``mesh`` shards the experts (``mixer_ffn``). The reference's
+    ``cfg.seq_shard_attn`` only lays q's rows out over the ``model``
+    axis for its compiler; attention computes the same values, so the
+    port computes it as without the option."""
     _check_kind(kind)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
@@ -186,13 +192,13 @@ def block_apply(cfg: ArchConfig, kind: str, p, x, *, positions=None,
             B, -1, cfg.num_kv_heads, cfg.head_dim)
         o = attention(q, k, v, causal=False)
         x = x + o.reshape(B, S, cfg.q_dim) @ px["wo"].to(hx.dtype)
-    return x if kind == "ssm" else mixer_ffn(cfg, p, x)
+    return x if kind == "ssm" else mixer_ffn(cfg, p, x, mesh)
 
 
 # -------------------------------------------------------- decode apply ----
 
 def block_decode(cfg: ArchConfig, kind: str, p, x, state: Dict[str, Any],
-                 *, pos, positions=None, mrope_positions=None):
+                 *, pos, positions=None, mrope_positions=None, mesh=None):
     """One-token decode. x (B,1,d); state holds this block's caches --
     k/v (B, S_cache, kvH, dh) for attention, conv (B, K-1, C) and ssm
     (B, h, p, n) for ``ssm``, conv and h (B, w) for ``rglru`` -- which
@@ -203,7 +209,10 @@ def block_decode(cfg: ArchConfig, kind: str, p, x, state: Dict[str, Any],
     by the caller; read only here), the block's ``xattn`` attends over
     the first ``x_len`` rows of each; ``x_len = 0`` adds exactly 0, and so
     does a cache of no rows (``init_decode_state``'s default ``src_len=0``),
-    which is skipped."""
+    which is skipped. With tp > 1 ``model`` shards in ``mesh`` the
+    self-attention's cache is sequence-sharded over them
+    (``sharded_decode_attention``, one kernel launch) and the experts are
+    sharded (``mixer_ffn``); the cross-attention is not sharded."""
     _check_kind(kind)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
@@ -220,8 +229,12 @@ def block_decode(cfg: ArchConfig, kind: str, p, x, state: Dict[str, Any],
         k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
         length = torch.clamp(pos + 1, max=S_cache).to(torch.int32)
-        o = decode_attention(q, k_cache, v_cache, length,
-                             attn_softcap=cfg.attn_softcap)
+        if mesh is not None and mesh.shape.get("model", 1) > 1:
+            o = sharded_decode_attention(mesh, q, k_cache, v_cache, length,
+                                         attn_softcap=cfg.attn_softcap)
+        else:
+            o = decode_attention(q, k_cache, v_cache, length,
+                                 attn_softcap=cfg.attn_softcap)
         o = o.reshape(x.shape[0], 1, cfg.q_dim) @ p["attn"]["wo"].to(
             x.dtype)
     elif kind == "ssm":
@@ -246,5 +259,5 @@ def block_decode(cfg: ArchConfig, kind: str, p, x, state: Dict[str, Any],
         o = decode_attention(q, state["xk"], state["xv"], state["x_len"])
         x = x + o.reshape(B, 1, cfg.q_dim) @ px["wo"].to(hx.dtype)
     if kind != "ssm":
-        x = mixer_ffn(cfg, p, x)
+        x = mixer_ffn(cfg, p, x, mesh)
     return x, dict(state)

@@ -207,7 +207,8 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             mrope_positions: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
-            enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+            enc_out: Optional[torch.Tensor] = None,
+            mesh=None) -> torch.Tensor:
     """tokens (B,S) -> logits (B,S,V) float32. ``embeds`` (B,S,d), the
     frontend stub's output, is added onto the token embeddings in the
     model's dtype; ``mrope_positions`` (3,B,S) are M-RoPE's (t, h, w)
@@ -215,7 +216,9 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     block's cross-attention. Without a gradient (the prefill) every
     attention layer on the card is one ``flash_attention`` launch (two
     in an enc-dec decoder block: self and cross); with one, the chunked
-    attention, each repeat rematerialised in the backward."""
+    attention, each repeat rematerialised in the backward. ``mesh`` (a
+    ``("data", "model")`` mesh) shards the experts over its ``model``
+    axis (``moe_apply``)."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     if embeds is not None:
@@ -225,7 +228,7 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     layers = [_unstack(b) for b in params["blocks"]]
     remat = _needs_remat(params)
     kw = dict(positions=positions, mrope_positions=mrope_positions,
-              enc_out=enc_out)
+              enc_out=enc_out, mesh=mesh)
 
     def body(h, r):
         for i, kind in enumerate(cfg.pattern):
@@ -240,18 +243,19 @@ def forward(cfg: ArchConfig, params, tokens: torch.Tensor, *,
     return _logits(cfg, params, x)
 
 
-def lm_loss(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def lm_loss(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
+            mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token NLL over ``loss_mask`` (all ones when absent) from
     float32 logits: ``batch`` holds ``tokens``, ``labels`` (B,S) on the
     parameters' device, and where the config needs them
     ``mrope_positions``, ``embeds`` and (enc-dec) ``enc_embeds``, which
-    go through ``encode``."""
+    go through ``encode``. ``mesh`` as ``forward`` takes it."""
     enc_out = (encode(cfg, params, batch["enc_embeds"])
                if cfg.kind == "encdec" else None)
     logits = forward(cfg, params, batch["tokens"],
                      mrope_positions=batch.get("mrope_positions"),
-                     embeds=batch.get("embeds"), enc_out=enc_out)
+                     embeds=batch.get("embeds"), enc_out=enc_out,
+                     mesh=mesh)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("loss_mask")
@@ -260,17 +264,19 @@ def lm_loss(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor]
     return loss, {"loss": loss}
 
 
-def make_train_step(cfg: ArchConfig, optimizer):
+def make_train_step(cfg: ArchConfig, optimizer, mesh=None):
     """-> step(params, opt_state, batch) -> (params, opt_state, aux): the
     reference's ``value_and_grad(lm_loss)`` and optimizer update, through
     ``torch.autograd``. The parameters and the optimizer's moments are
     overwritten in place and returned (the reference returns new trees),
-    so at full width one copy of each lives on the card."""
+    so at full width one copy of each lives on the card. Over an
+    in-process ``mesh`` the gradient flows through the sharded experts'
+    views unchanged."""
 
     def step(params, opt_state, batch):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            loss, _ = lm_loss(cfg, p, batch)
+            loss, _ = lm_loss(cfg, p, batch, mesh=mesh)
         it = iter(torch.autograd.grad(loss, tree_leaves(p)))
         grads = tree_map(lambda _: next(it), params)
         params, opt_state = optimizer.update(grads, opt_state, params,
@@ -329,7 +335,8 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
 
 def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
                pos: torch.Tensor, *,
-               mrope_positions: Optional[torch.Tensor] = None):
+               mrope_positions: Optional[torch.Tensor] = None,
+               mesh=None):
     """One decode step. tokens (B, 1); pos (B,) int32 absolute positions;
     ``mrope_positions`` (3, B, 1) M-RoPE's streams where the config has
     sections (else RoPE at ``pos``). -> (logits (B, 1, V) float32,
@@ -337,7 +344,9 @@ def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
     (the reference returns new ones). On the card every attention layer
     is one ``flash_decode`` launch, and an enc-dec block's
     cross-attention over its ``xk``/``xv`` one more; the SSM and RG-LRU
-    states are overwritten in place too."""
+    states are overwritten in place too. With tp > 1 ``model`` shards in
+    ``mesh`` each self-attention cache is sequence-sharded over them, still
+    one ``flash_decode`` launch a layer, and the experts are sharded."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     positions = pos[:, None]
@@ -347,9 +356,9 @@ def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
             st = _map(lambda a: a[r], states["scan"][i])
             x, _ = block_decode(cfg, kind, layers[i][r], x, st, pos=pos,
                                 positions=positions,
-                                mrope_positions=mrope_positions)
+                                mrope_positions=mrope_positions, mesh=mesh)
     for i, kind in enumerate(cfg.tail):
         x, _ = block_decode(cfg, kind, params["tail_blocks"][i], x,
                             states["tail"][i], pos=pos, positions=positions,
-                            mrope_positions=mrope_positions)
+                            mrope_positions=mrope_positions, mesh=mesh)
     return _logits(cfg, params, x), states

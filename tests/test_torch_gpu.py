@@ -1115,3 +1115,85 @@ def test_lm_training_reduced_on_card_matches_cpu(cuda, arch):
     host, _ = _lm_train(cfg, cpu, cpu, 8, 128)
     assert launched == (0, 0) and card == again
     np.testing.assert_allclose(card, host, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the ("data", "model") mesh: sequence-sharded decode, expert-parallel MoE
+# ---------------------------------------------------------------------------
+
+def _folded_case(G, cuda, B=8, S=1024, kvH=2, dh=128, tp=4):
+    """A bfloat16 cache of B elements split into tp shards and folded into
+    the batch; lengths whose later shards hold no valid slot (and one
+    element of none at all)."""
+    gen = torch.Generator().manual_seed(G)
+    q = torch.randn((B, 1, kvH * G, dh), generator=gen)
+    k, v = (torch.randn((B, S, kvH, dh), generator=gen) for _ in range(2))
+    ln = torch.tensor([1, S // tp, S // tp + 1, S, 0, 3 * S // tp - 1, 17,
+                       S - 1][:B], dtype=torch.int32)
+    return [t.to(cuda, torch.bfloat16) for t in (q, k, v)] + [ln.to(cuda)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [1, 2, 8, 16])
+def test_flash_decode_folded_shards_and_combine_equal_plain_on_card(cuda, G):
+    """One ``flash_decode`` launch in partials mode over the folded (B*tp,
+    S/tp) shards equals the plain version row by row (empty shards exactly
+    m = -1e30, l = 0, acc = 0), and ``sharded_decode_attention`` equals
+    the unsharded plain result; one kernel launch a call."""
+    from repro_torch.dist import make_mesh
+    from repro_torch.serve import sharded_decode_attention
+    tp = 4
+    q, k, v, ln = _folded_case(G, cuda, tp=tp)
+    B, S = k.shape[:2]
+    s = S // tp
+    lf = (ln[:, None] - torch.arange(tp, device=cuda)[None, :] * s).clamp(
+        0, s).reshape(-1).to(torch.int32)
+    qf = q[:, 0].repeat_interleave(tp, dim=0)
+    kf, vf = (t.reshape(B * tp, s, *t.shape[2:]) for t in (k, v))
+    got = t_fd_ops.flash_decode_partials(qf, kf, vf, lf, softcap=50.0)
+    want = flash_decode_batched_ref(qf, kf, vf, lf, softcap=50.0)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5)
+    empty = lf == 0
+    assert bool(empty.any()) and bool((got[1][empty] == -1e30).all())
+    assert bool((got[2][empty] == 0).all()) and \
+        bool((got[0][empty] == 0).all())
+    mesh = make_mesh((1, tp), ("data", "model"), device=cuda)
+    before = t_fd_ops.LAUNCHES.value
+    out = sharded_decode_attention(mesh, q, k, v, ln, attn_softcap=50.0)
+    assert t_fd_ops.LAUNCHES.value == before + 1
+    acc, m, l = flash_decode_batched_ref(q[:, 0], k, v, ln, softcap=50.0)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    torch.testing.assert_close(out[:, 0].float(),
+                               finalize(acc, l).to(q.dtype).float(),
+                               rtol=2 ** -7, atol=1e-5)
+    assert bool((out[ln == 0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resident", [False, True])
+def test_moe_apply_over_a_mesh_on_card_matches_cpu(cuda, resident):
+    """The expert-parallel MoE (and its weight-stationary variant) of
+    reduced qwen3-moe-30b-a3b over a (2, 2) mesh, capacity factor 1.0 so
+    tokens are dropped: float32 on the card within ``rtol=1e-4,
+    atol=1e-5`` of the CPU, a second card run bit-equal."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.dist import make_mesh
+    from repro_torch.models.transformer.moe import (init_moe_params,
+                                                    moe_apply)
+    cfg = dataclasses.replace(get_reduced("qwen3-moe-30b-a3b"),
+                              capacity_factor=1.0,
+                              moe_resident_experts=resident)
+    cpu = torch.device("cpu")
+    p = init_moe_params(cfg, torch.Generator().manual_seed(2),
+                        torch.float32)
+    x = torch.randn((2, 24, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    runs = [moe_apply({k: t.to(dev) for k, t in p.items()}, x.to(dev), cfg,
+                      mesh=make_mesh((2, 2), ("data", "model"), device=dev))
+            .cpu() for dev in (cuda, cuda, cpu)]
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0], runs[2], rtol=1e-4, atol=1e-5)

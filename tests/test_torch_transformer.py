@@ -484,10 +484,12 @@ def test_init_params_layout_and_law():
 
 
 def test_unported_options_raise():
-    """What waits: the expert-parallel ``moe_apply`` over a mesh (ROADMAP
-    Queue 1 item 4). The registry's last two names and the four options
-    of item 3 (enc-dec, M-RoPE, the audio and vision frontends) build and
-    run; an unknown block kind raises."""
+    """The registry's last two names and the four options of Queue 1 item
+    3 (enc-dec, M-RoPE, the audio and vision frontends) build and run;
+    ``moe_apply`` over a mesh of one model shard is ``moe_apply`` without
+    one, and over model shards that do not split the experts it raises
+    (the expert-parallel forms: ``test_torch_sharding.py``); an unknown
+    block kind raises."""
     for name in ("seamless-m4t-medium", "qwen2-vl-72b"):
         assert get_reduced(name).name == get_arch(name).name == name
     toks = torch.zeros((1, 4), dtype=torch.int32)
@@ -503,9 +505,15 @@ def test_unported_options_raise():
     cfg = get_reduced("qwen3-moe-30b-a3b")
     p = init_params(cfg, torch.Generator().manual_seed(0))
     moe = _unstack(p["blocks"][0])[0]["moe"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        moe_apply(moe, torch.zeros((1, 4, cfg.d_model)), cfg,
-                  mesh=make_mesh((2,), ("data",), device="cpu"))
+    x = torch.randn((1, 4, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    assert torch.equal(
+        moe_apply(moe, x, cfg, mesh=make_mesh((2,), ("data",),
+                                              device="cpu")),
+        moe_apply(moe, x, cfg))
+    with pytest.raises(ValueError, match="do not split over 3"):
+        moe_apply(moe, x, cfg, mesh=make_mesh((1, 3), ("data", "model"),
+                                              device="cpu"))
     with pytest.raises(ValueError, match="unknown block kind"):
         init_params(dataclasses.replace(cfg, pattern=("conv",)),
                     torch.Generator().manual_seed(0))
