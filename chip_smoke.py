@@ -275,6 +275,28 @@ Phases (any failure raises, so the exit code is non-zero):
    atol=1e-4`` of the CPU, a second card run bit-equal. Each part prints
    its wall.
 
+14. The dry-run, last. (a) ``launch.dryrun.run_one`` of all 10 archs x
+   4 input shapes on the 16x16 and the 2x16x16 production meshes, shape
+   only (``meta`` tensors), one spawned process a CPU core; FLOPs by
+   ``run_one``'s exact extrapolation from traces at 0 and 1 repeats of
+   the pattern (held equal to the whole trace by the CPU tests). One line a combination: argument GiB a device, ``fits_hbm``,
+   FLOPs a device, the computed roofline. Gate: ``memory_allocated``
+   unchanged across the matrix and CUDA never initialised by a process
+   that traced. (b) gemma2-2b prefill (B=1, S=8192), qwen3-moe-30b-a3b
+   decode (B=8, S=4096) and granite-3-2b train (B=1, S=4096) at full
+   width on a (1, 1) mesh: the spec's inputs made on the card must grow
+   the bytes asked of the allocator by ``argument_size_bytes`` exactly.
+   On one device that only shows that ``materialize`` allocates what the
+   shape-only leaves declare; the sharding arithmetic rests on the CPU
+   test against the reference's compiled argument sizes. Then one step,
+   finite, its peak above the inputs (measured) beside the dry-run's
+   null temp, its launches. (c) ``launch.dryrun_gnn`` rank 0
+   of a fake process group of 256, then 512, in one process of its
+   own: collective calls and bytes by kind (counted at dispatch),
+   per-worker argument MiB, step ms, launches; gates: finite loss, a
+   second run equal in counted bytes and launches, ``assemble``,
+   ``gather_agg`` and ``gather_agg_bwd`` launched.
+
 Output: one ``kernel {...}`` line per kernel row (phase 11 adds
 ``flash_attention_g16``/``flash_decode_g16`` and ``flash_attention_g8``/
 ``flash_decode_g8``, the same two kernels at recurrentgemma-9b's 16 and
@@ -282,7 +304,8 @@ qwen3-moe-30b-a3b's 8 q heads a kv head; phase 12
 ``flash_attention_g1``, ``flash_attention_g1_encoder``,
 ``flash_attention_cross``, ``flash_attention_g8_s8192``,
 ``flash_decode_g1_self``, ``flash_decode_g8_h64`` and ``flash_decode_g1``,
-the last over the cross caches; phase 13 ``flash_decode_sharded``), the
+the last over the cross caches; phase 13 ``flash_decode_sharded``;
+phase 14 adds its launches to the rows of the kernels it ran), the
 card's name and power limit, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -4441,6 +4464,196 @@ def mesh_phase(torch, device, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the dry-run matrix, its accounting against the card, and the
+# GNN's rank 0 of 256 and of 512 on a fake process group
+# ---------------------------------------------------------------------------
+
+#: (arch, shape, S, B) of (b): combinations one card holds, on a (1, 1) mesh
+DRYRUN_CARD = (("gemma2-2b", "prefill_32k", 8192, 1),
+               ("qwen3-moe-30b-a3b", "decode_32k", 4096, 8),
+               ("granite-3-2b", "train_4k", 4096, 1))
+#: (c): the fake group's sizes, the reference's single pod and multi-pod
+DRYRUN_GNN_WORKERS = (256, 512)
+#: the archs whose in-process experts take most of the matrix's trace
+DRYRUN_HEAVY = ("qwen3-moe-30b-a3b", "arctic-480b")
+
+
+def dryrun_matrix(torch, device):
+    """(a) ``run_one`` of all 10 archs x 4 shapes on the 16x16 and the
+    2x16x16 mesh, shape only, in one spawned process a CPU core. FLOPs
+    from traces at 0 and 1 repeats of the pattern, extrapolated exactly
+    (the CPU tests hold it equal to the whole trace); the whole trace of an MoE arch over 256 in-process routings a
+    layer takes minutes. Gate: this process's ``memory_allocated`` is
+    unchanged across the matrix and no process that traced a
+    combination initialised CUDA."""
+    from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES
+    from repro_torch.launch.dryrun import run_matrix, summary
+
+    combos = [(a, s, mp) for mp in (False, True) for a in ARCH_NAMES
+              for s in INPUT_SHAPES]
+    combos.sort(key=lambda c: (c[0] not in DRYRUN_HEAVY,
+                               c[1] != "train_4k", not c[2]))
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    recs = run_matrix(combos, jobs=os.cpu_count() or 1)
+    wall = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated(device)
+    if after != before or any(r["cuda_initialized"] for r in recs):
+        raise RuntimeError(f"dry-run matrix touched the card: "
+                           f"memory_allocated {before} -> {after}")
+    recs.sort(key=lambda r: (r["mesh"], ARCH_NAMES.index(r["arch"]),
+                             list(INPUT_SHAPES).index(r["shape"])))
+    for r in recs:
+        log("dryrun " + summary(r))
+    misfits = [f"{r['arch']}/{r['shape']}/{r['mesh']}" for r in recs
+               if not r["fits_hbm"]]
+    log(f"dryrun matrix: {len(recs)} combinations ({len(ARCH_NAMES)} "
+        f"archs x {len(INPUT_SHAPES)} shapes x 2 meshes) in {wall:.1f} s "
+        f"on {os.cpu_count()} processes; "
+        f"memory_allocated {before} -> {after} (unchanged), CUDA never "
+        f"initialised by a trace; not fitting 80 GB a card (computed): "
+        f"{misfits}")
+    return {"records": recs, "wall_s": wall, "misfits": misfits}
+
+
+def _requested_bytes(torch, device) -> int:
+    return torch.cuda.memory_stats(device)["requested_bytes.all.current"]
+
+
+def dryrun_card(torch, device, counters):
+    """(b) combinations one card holds, on a (1, 1) mesh: the spec's
+    inputs made on the card (``materialize``) must grow the bytes asked
+    of the allocator by ``argument_size_bytes`` exactly. Unsharded, that
+    shows only that ``materialize`` allocates what the shape-only leaves
+    declare (the sharding arithmetic is held to the reference's compiled
+    argument sizes on the CPU); ``memory_allocated``'s growth is
+    printed beside it. Then one step, its peak above the inputs beside
+    the dry-run's null temp, and its launches."""
+    import gc
+
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.launch.dryrun import argument_bytes
+    from repro_torch.launch.specs import make_dryrun_spec, materialize
+
+    mesh = make_mesh((1,), ("data",), device)
+    out = []
+    for arch, shape, S, B in DRYRUN_CARD:
+        spec = make_dryrun_spec(arch, shape, mesh, S=S, B=B)
+        want = argument_bytes(spec, mesh)
+        leaves = sum(1 for _ in _leaves(list(spec.args)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize(device)
+        a0, r0 = (torch.cuda.memory_allocated(device),
+                  _requested_bytes(torch, device))
+        gen = torch.Generator(device=device).manual_seed(LM_SEED)
+        args = materialize(list(spec.args), device, gen)
+        torch.cuda.synchronize(device)
+        grown = torch.cuda.memory_allocated(device) - a0
+        asked = _requested_bytes(torch, device) - r0
+        if asked != want or not want <= grown:
+            raise RuntimeError(
+                f"dryrun card {arch}/{shape}: inputs asked {asked} B, "
+                f"allocated {grown} B, argument_size_bytes {want} B")
+        for c in counters:
+            c.reset()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        res = spec.fn(*args)
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(device) - base
+        launches = {c.name: c.value for c in counters}
+        first = res[0] if isinstance(res, tuple) else res
+        if spec.meta["kind"] == "train":
+            first = res[2]
+        if not bool(torch.isfinite(first.float()).all()):
+            raise RuntimeError(f"dryrun card {arch}/{shape}: non-finite "
+                               f"output")
+        row = {"arch": arch, "shape": shape, "S": S, "B": B,
+               "argument_size_bytes": want, "requested_growth": asked,
+               "allocated_growth": grown, "leaves": leaves,
+               "step_ms": ms,
+               "peak_above_inputs_bytes": peak, "temp_size_bytes": None,
+               "launches": launches}
+        log(f"dryrun card {arch} {shape} S={S} B={B} mesh (1, 1): inputs "
+            f"{want} B = argument_size_bytes exactly (asked of the "
+            f"allocator by materialize; unsharded, so not a check of "
+            f"the sharding arithmetic); memory_allocated grew {grown} B, "
+            f"{grown - want} B above over {leaves} leaves; one step "
+            f"{ms:.1f} ms, peak {peak / 2**30:.3f} GiB above the inputs "
+            f"(the dry-run's temp_size_bytes: null), launches "
+            f"{json.dumps(launches)}")
+        out.append(row)
+        del args, res, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_gnn_phase():
+    """(c) ``launch.dryrun_gnn``: rank 0 of a fake group of 256, then of
+    512, in one process of its own (the fake group must not meet phase
+    13's gloo groups). Gates: finite loss, the two timed runs equal in
+    counted collectives and launches, the fused assembly and both
+    ``gather_agg`` kernels launched."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(HERE, "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out_dir = os.path.join(OUT_DIR, "dryrun_torch")
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun_gnn", "--workers",
+         *map(str, DRYRUN_GNN_WORKERS), "--out", out_dir],
+        env=env, cwd=HERE, capture_output=True, text=True, timeout=600)
+    if p.returncode != 0:
+        raise RuntimeError(f"dryrun_gnn failed:\n{p.stdout[-3000:]}\n"
+                           f"{p.stderr[-3000:]}")
+    wall = time.perf_counter() - t0
+    out = {"process_wall_s": wall}
+    for P in DRYRUN_GNN_WORKERS:
+        with open(os.path.join(out_dir, f"rapidgnn_gnn__w{P}.json")) as f:
+            rec = json.load(f)
+        col, ln = rec["collectives"], rec["launches"]
+        if not (math.isfinite(rec["loss"]) and rec["rerun_equal"]
+                and ln["assemble"] > 0 and ln["gather_agg"] > 0
+                and ln["gather_agg_bwd"] > 0
+                and col["counts"]["all-to-all"] == 2
+                and col["counts"]["all-reduce"] == 1):
+            raise RuntimeError(f"dryrun_gnn --workers {P}: gates failed: "
+                               f"{json.dumps(rec)[:2000]}")
+        log(f"dryrun_gnn rank 0 of {P} (fake group, on the card): "
+            f"collectives {json.dumps({k: col[k] for k in ('all-to-all', 'all-reduce', 'total')})} "
+            f"B, calls {json.dumps(col['counts'])}; per-worker arguments "
+            f"{rec['memory']['argument_size_bytes'] / 2**20:.1f} MiB, peak "
+            f"{rec['memory']['peak_above_inputs_bytes'] / 2**20:.1f} MiB "
+            f"above them; step ms {[round(t, 3) for t in rec['step_ms']]} "
+            f"(a synthetic query mix); "
+            f"launches {json.dumps(ln)}; loss {rec['loss']:.6f}; second "
+            f"run equal in counted bytes and launches; {rec['wall_s']:.1f} "
+            f"s")
+        out[P] = rec
+    log(f"dryrun_gnn process: {wall:.1f} s")
+    return out
+
+
+def dryrun_phase(torch, device, card_counters):
+    """Phase 14, last: (a) the matrix, (b) the accounting against the
+    card, (c) the GNN's rank 0."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"matrix": dryrun_matrix(torch, device)}
+    out["card"] = dryrun_card(torch, device, card_counters)
+    out["gnn"] = dryrun_gnn_phase()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"dryrun phase wall {out['wall_s']:.1f} s (matrix "
+        f"{out['matrix']['wall_s']:.1f} s)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4542,6 +4755,15 @@ def main() -> int:
     # qwen3-moe-30b-a3b's (a) and gemma2-2b's (b)
     next(k for k in kernels if k["name"] == "flash_decode_sharded")[
         "launches"] += lm["mesh"]["decode"]["launches"]["flash_decode"]
+    dryrun = dryrun_phase(torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    # phase 14's launches: (b)'s one-card steps and (c)'s counted step of
+    # each rank 0
+    for row in dryrun["card"]:
+        for name, n in row["launches"].items():
+            next(k for k in kernels if k["name"] == name)["launches"] += n
+    for P in DRYRUN_GNN_WORKERS:
+        for name, n in dryrun["gnn"][P]["launches"].items():
+            next(k for k in kernels if k["name"] == name)["launches"] += n
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -4558,7 +4780,7 @@ def main() -> int:
                    "dist": dist, "embedding": emb, "runner": runner,
                    "campaign": campaign, "lm_train": lm_train,
                    "mixers": mixers, "encdec_vlm": encdec_vlm,
-                   "mesh": mesh}, f,
+                   "mesh": mesh, "dryrun": dryrun}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

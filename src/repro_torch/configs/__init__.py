@@ -8,6 +8,7 @@ every name of the reference's registry.
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.configs.rapidgnn_paper import GNNExperimentConfig, gcn, sage
 
@@ -26,6 +27,18 @@ _MODULES = {
 
 ARCH_NAMES = list(_MODULES)
 
+#: archs with native sub-quadratic support for long_500k; the rest run it
+#: with the sliding-window variant (``launch.specs.LONG_WINDOW``)
+SUBQUADRATIC = {"mamba2-1.3b", "recurrentgemma-9b", "gemma2-2b"}
+
+#: input-shape suite of the dry-run: name -> (seq_len, global_batch, kind)
+INPUT_SHAPES = {
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
+
 
 def get_arch(name: str):
     return importlib.import_module(_MODULES[name]).ARCH
@@ -35,5 +48,10 @@ def get_reduced(name: str):
     return importlib.import_module(_MODULES[name]).reduced()
 
 
-__all__ = ["GNNExperimentConfig", "gcn", "sage", "ARCH_NAMES", "get_arch",
-           "get_reduced"]
+def all_archs() -> Dict[str, object]:
+    return {n: get_arch(n) for n in ARCH_NAMES}
+
+
+__all__ = ["GNNExperimentConfig", "gcn", "sage", "ARCH_NAMES",
+           "SUBQUADRATIC", "INPUT_SHAPES", "get_arch", "get_reduced",
+           "all_archs"]

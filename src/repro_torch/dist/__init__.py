@@ -3,8 +3,8 @@
 "model")`` mesh, ``make_mesh``/``dp_axes``): the device relabelling of the
 partitioned graph, the offline pull plans (two-tier on a hierarchical
 topology), the all-to-all cache-first feature exchange, the pipelined
-and on-demand epoch programs and the multi-epoch runners (the port of
-``repro.dist``)."""
+and on-demand epoch programs, the multi-epoch runners and the dry-run's
+placement specs (``shardings``) (the port of ``repro.dist``)."""
 from repro_torch.dist.mesh import Mesh, dp_axes, make_mesh
 from repro_torch.dist.topology import Topology
 from repro_torch.dist.feature_a2a import (PullPlan, build_pull_plan,
@@ -24,6 +24,9 @@ from repro_torch.dist.gnn_step import (CACHE_PAD, DeviceCache, DeviceView,
 from repro_torch.dist.runner import (DeviceBaselineRunner, DeviceEpochReport,
                                      DeviceRapidGNNRunner, StagingError,
                                      assert_host_parity, host_miss_matrix)
+from repro_torch.dist.shardings import (Spec, batch_shardings,
+                                        decode_state_shardings, fit_spec,
+                                        opt_shardings, param_shardings)
 
 __all__ = [
     "Mesh", "make_mesh", "dp_axes", "Topology",
@@ -37,4 +40,6 @@ __all__ = [
     "prefetch_stream",
     "StagingError", "DeviceEpochReport", "DeviceRapidGNNRunner",
     "DeviceBaselineRunner", "host_miss_matrix", "assert_host_parity",
+    "Spec", "fit_spec", "param_shardings", "opt_shardings",
+    "batch_shardings", "decode_state_shardings",
 ]

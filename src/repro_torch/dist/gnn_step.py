@@ -48,12 +48,13 @@ from repro_torch.core.schedule import EpochSchedule, collate
 from repro_torch.dist.feature_a2a import (build_pull_plan, pack_pull_lanes,
                                           pack_pull_lanes_two_tier,
                                           pull_features,
-                                          pull_features_two_tier)
+                                          pull_features_two_tier,
+                                          pull_shard)
 from repro_torch.graph.partition import PartitionedGraph
 from repro_torch.kernels.assemble.ops import assemble_features
 from repro_torch.kernels.cache_lookup.ops import to_device_ids
 from repro_torch.models.gnn import GNNConfig, loss_and_grads
-from repro_torch.train.optim import tree_map
+from repro_torch.train.optim import tree_leaves, tree_map
 
 #: pull-plan keys of the collated epoch dict, per topology tier layout
 PULL_KEYS_FLAT = ("send_ids", "send_pos", "send_mask")
@@ -681,6 +682,61 @@ def make_ondemand_epoch(cfg: GNNConfig, opt, mesh, m_max: int,
         return params, opt_state, torch.stack(losses), torch.stack(accs)
 
     return epoch_fn
+
+
+def make_rank_step(cfg: GNNConfig, opt, m_max: int, group=None,
+                   assemble_backend: str = "auto", pipelined: bool = True):
+    """-> step(params, opt_state, shard, x, pulled=None) -> (params,
+    opt_state, loss, acc, pulled_next): one rank's step of an epoch
+    program over a ``torch.distributed`` process group (``None``: the
+    world), the per-device scan body of the reference's epochs.
+
+    ``shard`` holds this rank's ``table`` (n_per, d), ``base`` (its first
+    device slot, an int), ``cache_ids`` (n_hot,) sorted int32 and
+    ``cache_feats`` (n_hot, d); ``x`` one step's ``input_nodes`` (m_max,),
+    ``labels``, ``seed_mask``, per-layer ``edge_src``/``edge_dst``/
+    ``edge_mask`` and pull lanes ``send_ids``/``send_pos``/``send_mask``
+    (G, k), row g to rank g.
+
+    Pipelined (Alg. 1): the lanes are step i+1's, pulled (``pull_shard``,
+    two all-to-alls) with no dependence on this step's training, which
+    assembles ``pulled`` -- step i's rows, pulled by the step before --
+    local shard > C_s > pulled; the pull is returned for the next step.
+    On-demand (``pipelined=False``): the lanes are this step's own, the
+    pull feeds this step's cache-less assembly (local > pulled), and
+    ``pulled`` is not taken. Then the GraphSAGE loss and gradients, one
+    ``all_reduce(SUM)`` of the gradients, loss and accuracy packed into
+    one float32 buffer, divided by the group's size (the reference's
+    ``pmean``), and the optimizer update."""
+    import torch.distributed as dist
+
+    def step(params, opt_state, shard, x, pulled=None):
+        table, base = shard["table"], int(shard["base"])
+        lanes = (x["send_ids"], x["send_pos"], x["send_mask"])
+        nxt = pull_shard(table, *lanes, base, m_max, group=group)
+        if pipelined:
+            cids, cfeats, rows = shard["cache_ids"], shard["cache_feats"], \
+                pulled
+        else:
+            cids, cfeats, rows, nxt = None, None, nxt, None
+        feats = assemble_features(table, base, cids, cfeats,
+                                  to_device_ids(x["input_nodes"]), rows,
+                                  backend=assemble_backend)
+        loss, acc, grads = loss_and_grads(cfg, params, {
+            "features": feats, "edge_src": x["edge_src"],
+            "edge_dst": x["edge_dst"], "edge_mask": x["edge_mask"],
+            "labels": x["labels"], "seed_mask": x["seed_mask"]})
+        leaves = tree_leaves(grads)
+        buf = torch.cat([g.reshape(-1).float() for g in leaves]
+                        + [loss.reshape(1), acc.reshape(1)])
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        buf = buf / dist.get_world_size(group)
+        parts = iter(torch.split(buf[:-2], [g.numel() for g in leaves]))
+        grads = tree_map(lambda g: next(parts).reshape(g.shape), grads)
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, buf[-2], buf[-1], nxt
+
+    return step
 
 
 def empty_caches(num_parts: int, feat_dim: int) -> List[DeviceCache]:

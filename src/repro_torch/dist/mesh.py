@@ -14,7 +14,12 @@ transformer's ``(dp, tp)`` over ``("data", "model")``: dp token groups,
 each over tp model shards, which hold a slice of the decode KV cache's
 sequence (``serve.attention``) and of the experts
 (``models.transformer.moe``), as slices of one device's tensors. A
-``(dp, 1)`` model mesh is the flat ``(dp,)``. A process group per card
+``(dp, 1)`` model mesh is the flat ``(dp,)``. The production meshes of
+the dry-run (``launch.mesh.make_production_mesh``: ``(16, 16)`` over
+``("data", "model")`` and ``(2, 16, 16)`` over ``("pod", "data",
+"model")``, ``pod`` the outer data axis) are shape-only meshes on the
+``meta`` device, built directly, not by ``make_mesh``: nothing runs on
+them but a shape-only trace. A process group per card
 (``feature_a2a.pull_shard``, ``serve.attention.sharded_decode_shard``,
 ``moe.moe_shard``) is the form for a machine with several cards.
 """
@@ -34,11 +39,14 @@ _LAYOUTS = (("data",), ("dcn", "data"), ("data", "model"))
 class Mesh:
     """P in-process workers on one device, split over ``hosts`` emulated
     hosts (1 on the flat mesh), each over ``model`` shards (1 but on the
-    ``("data", "model")`` mesh)."""
+    ``("data", "model")`` mesh); ``pods`` > 1 only on the shape-only
+    multi-pod production mesh, whose P data workers are ``pods`` pods of
+    P / pods."""
     num_workers: int
     device: torch.device
     hosts: int = 1
     model: int = 1
+    pods: int = 1
 
     @property
     def devices_per_host(self) -> int:
@@ -46,6 +54,8 @@ class Mesh:
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
+        if self.pods > 1:
+            return ("pod", "data", "model")
         if self.model > 1:
             return ("data", "model")
         return ("dcn", "data") if self.hosts > 1 else ("data",)
@@ -53,9 +63,15 @@ class Mesh:
     @property
     def shape(self) -> Dict[str, int]:
         """Axis name -> size, as the reference's ``mesh.shape``."""
-        sizes = {"dcn": self.hosts, "data": self.devices_per_host,
+        sizes = {"pod": self.pods, "dcn": self.hosts,
+                 "data": self.devices_per_host // self.pods,
                  "model": self.model}
         return {a: sizes[a] for a in self.axis_names}
+
+    @property
+    def size(self) -> int:
+        """Devices of the mesh: the product of its axis sizes."""
+        return self.num_workers * self.model
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str] = ("data",),

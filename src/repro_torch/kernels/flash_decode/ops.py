@@ -11,7 +11,8 @@ one launch here. Unlike the TPU kernel it takes any S. Bound on the
 card: bytes, the valid K/V rows read once.
 
 CPU tensors (or ``interpret=True``) take the plain version in
-``ref.py``; CUDA tensors launch the kernel or raise.
+``ref.py``, and so do shape-only ``meta`` tensors (the dry-run's trace,
+which computes nothing); CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -55,7 +56,8 @@ def _batched(q, k, v, length, start, scale, softcap, interpret, partials):
     start = _lengths(start, B)
     scale = dh ** -0.5 if scale is None else scale
     tensors = [t for t in (q, k, v, length, start) if t is not None]
-    if use_plain(interpret, *tensors):
+    # a shape-only trace (``meta``) computes nothing: the plain version
+    if use_plain(interpret or q.device.type == "meta", *tensors):
         acc, m, l = flash_decode_batched_ref(q, k, v, length, start,
                                              scale=scale, softcap=softcap)
         return (acc, m, l) if partials else finalize(acc, l)

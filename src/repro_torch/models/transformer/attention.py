@@ -14,6 +14,11 @@ windowed call with ``Sq != Skv``) raises.
 ``decode_attention`` is one ``flash_decode`` launch for the whole batch
 on the card, its plain version on the CPU.
 
+Tensors on the ``meta`` device (the dry-run's shape-only trace) take the
+plain chunked route, which computes nothing there; an unmasked call runs
+it as one chunk, the same matmuls in one iteration. Every other device
+but ``cpu`` and ``cuda`` raises.
+
 One difference in bfloat16: this chunked version, like the reference,
 scales q in its input dtype before the float32 cast; the kernel (like
 the Pallas kernel it replaces) casts first and then scales. They agree
@@ -80,8 +85,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention(q, k, v, causal=causal or window > 0,
                                window=window, softcap=attn_softcap,
                                scale=scale)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no attention path for device {q.device}")
+    if q.device.type == "meta" and window == 0:
+        # shape-only: the unmasked chunked loop does the same products
+        # whatever its chunks (every block is computed), so one chunk
+        # traces the same matmul FLOPs in one iteration
+        q_chunk, kv_chunk = Sq, Skv
     dev = q.device
     G = H // kvH
     scale = scale if scale is not None else dh ** -0.5

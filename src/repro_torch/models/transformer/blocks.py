@@ -198,7 +198,8 @@ def block_apply(cfg: ArchConfig, kind: str, p, x, *, positions=None,
 # -------------------------------------------------------- decode apply ----
 
 def block_decode(cfg: ArchConfig, kind: str, p, x, state: Dict[str, Any],
-                 *, pos, positions=None, mrope_positions=None, mesh=None):
+                 *, pos, positions=None, mrope_positions=None, mesh=None,
+                 window_override: int = 0):
     """One-token decode. x (B,1,d); state holds this block's caches --
     k/v (B, S_cache, kvH, dh) for attention, conv (B, K-1, C) and ssm
     (B, h, p, n) for ``ssm``, conv and h (B, w) for ``rglru`` -- which
@@ -212,7 +213,11 @@ def block_decode(cfg: ArchConfig, kind: str, p, x, state: Dict[str, Any],
     which is skipped. With tp > 1 ``model`` shards in ``mesh`` the
     self-attention's cache is sequence-sharded over them
     (``sharded_decode_attention``, one kernel launch) and the experts are
-    sharded (``mixer_ffn``); the cross-attention is not sharded."""
+    sharded (``mixer_ffn``); the cross-attention is not sharded.
+    ``window_override``, as in the reference, is carried for the
+    caller's sake: a sliding-window cache (``init_decode_state(...,
+    window_override)``) is simply a smaller ring, which the write below
+    wraps."""
     _check_kind(kind)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ATTN_KINDS:

@@ -231,7 +231,12 @@ def dense_init(generator: torch.Generator, shape: Tuple[int, ...],
                device: Optional[torch.device] = None) -> torch.Tensor:
     """Normal draws with std ``fan_in ** -0.5``, in float32 then cast, as
     the reference's ``dense_init``; drawn on the generator's device and
-    moved to ``device``."""
+    moved to ``device``. On the ``meta`` device nothing is drawn: the
+    leaf is shape-only (the dry-run's counterpart of ``jax.eval_shape``)
+    and the generator is left as it was."""
+    device = torch.device(device) if device is not None else None
+    if device is not None and device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     if isinstance(in_axis, int):
         fan_in = shape[in_axis]
     else:

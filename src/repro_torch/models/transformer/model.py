@@ -264,6 +264,10 @@ def lm_loss(cfg: ArchConfig, params, batch: Dict[str, torch.Tensor],
     return loss, {"loss": loss}
 
 
+def _or_zeros(g: Optional[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    return torch.zeros_like(like) if g is None else g
+
+
 def make_train_step(cfg: ArchConfig, optimizer, mesh=None):
     """-> step(params, opt_state, batch) -> (params, opt_state, aux): the
     reference's ``value_and_grad(lm_loss)`` and optimizer update, through
@@ -277,8 +281,11 @@ def make_train_step(cfg: ArchConfig, optimizer, mesh=None):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         with torch.enable_grad():
             loss, _ = lm_loss(cfg, p, batch, mesh=mesh)
-        it = iter(torch.autograd.grad(loss, tree_leaves(p)))
-        grads = tree_map(lambda _: next(it), params)
+        # a leaf the loss does not reach (a stack of no repeats) gets a
+        # zero gradient, as ``jax.grad`` gives it
+        it = iter(torch.autograd.grad(loss, tree_leaves(p),
+                                      allow_unused=True))
+        grads = tree_map(lambda t: _or_zeros(next(it), t), params)
         params, opt_state = optimizer.update(grads, opt_state, params,
                                              inplace=True)
         return params, opt_state, {"loss": loss.detach()}
@@ -290,10 +297,12 @@ def make_train_step(cfg: ArchConfig, optimizer, mesh=None):
 
 def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
                       device: Optional[torch.device] = None,
-                      src_len: int = 0) -> dict:
+                      src_len: int = 0, window_override: int = 0) -> dict:
     """Per-pattern-position stacked caches, leaves (R, B, ...): k/v (R, B,
     S, kvH, dh) with ``window`` slots for ``local`` layers, else
-    ``max_len``, never more than ``max_len``; ``ssm`` conv (R, B, K-1,
+    ``window_override`` slots when it is > 0 (the sliding-window variant
+    of full attention, a ring buffer ``block_decode`` wraps), else
+    ``max_len``; never more than ``max_len``. ``ssm`` conv (R, B, K-1,
     d_inner + 2n) in the model's dtype and ssm (R, B, h, p, n) float32;
     ``rglru`` conv (R, B, K-1, w) and h (R, B, w) float32; for enc-dec
     also the cross caches xk/xv (R, B, src_len, kvH, dh) in the model's
@@ -316,7 +325,9 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
             w = cfg.lru_width or cfg.d_model
             return {"conv": zeros((R, batch, cfg.ssm_conv - 1, w)),
                     "h": zeros((R, batch, w), torch.float32)}
-        S = min(cfg.window if kind == "local" else max_len, max_len)
+        S = cfg.window if kind == "local" else (
+            window_override if window_override > 0 else max_len)
+        S = min(S, max_len)
         shape = (R, batch, S, cfg.num_kv_heads, cfg.head_dim)
         return {"k": zeros(shape), "v": zeros(shape)}
 
@@ -336,7 +347,7 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
 def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
                pos: torch.Tensor, *,
                mrope_positions: Optional[torch.Tensor] = None,
-               mesh=None):
+               mesh=None, window_override: int = 0):
     """One decode step. tokens (B, 1); pos (B,) int32 absolute positions;
     ``mrope_positions`` (3, B, 1) M-RoPE's streams where the config has
     sections (else RoPE at ``pos``). -> (logits (B, 1, V) float32,
@@ -346,7 +357,10 @@ def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
     cross-attention over its ``xk``/``xv`` one more; the SSM and RG-LRU
     states are overwritten in place too. With tp > 1 ``model`` shards in
     ``mesh`` each self-attention cache is sequence-sharded over them, still
-    one ``flash_decode`` launch a layer, and the experts are sharded."""
+    one ``flash_decode`` launch a layer, and the experts are sharded.
+    ``window_override`` is the reference's argument: the window of a
+    full-attention cache is its size, fixed by ``init_decode_state``, so
+    it changes nothing here."""
     check_supported(cfg)
     x = _embed(cfg, params, tokens)
     positions = pos[:, None]
@@ -356,9 +370,11 @@ def serve_step(cfg: ArchConfig, params, states, tokens: torch.Tensor,
             st = _map(lambda a: a[r], states["scan"][i])
             x, _ = block_decode(cfg, kind, layers[i][r], x, st, pos=pos,
                                 positions=positions,
-                                mrope_positions=mrope_positions, mesh=mesh)
+                                mrope_positions=mrope_positions, mesh=mesh,
+                                window_override=window_override)
     for i, kind in enumerate(cfg.tail):
         x, _ = block_decode(cfg, kind, params["tail_blocks"][i], x,
                             states["tail"][i], pos=pos, positions=positions,
-                            mrope_positions=mrope_positions, mesh=mesh)
+                            mrope_positions=mrope_positions, mesh=mesh,
+                            window_override=window_override)
     return _logits(cfg, params, x), states

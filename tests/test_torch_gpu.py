@@ -1197,3 +1197,48 @@ def test_moe_apply_over_a_mesh_on_card_matches_cpu(cuda, resident):
             .cpu() for dev in (cuda, cuda, cpu)]
     assert torch.equal(runs[0], runs[1])
     torch.testing.assert_close(runs[0], runs[2], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
+def test_dryrun_argument_bytes_are_what_the_card_allocates(cuda, shape):
+    """``materialize`` allocates what the shape-only leaves declare: the
+    inputs of a reduced granite-3-2b combination on a (1, 1) mesh, made
+    on the card, grow the bytes asked of the allocator by
+    ``argument_size_bytes`` exactly and ``memory_allocated`` by it up to
+    512 B a leaf. Unsharded, this does not check the sharding arithmetic
+    (the CPU tests hold that to the reference's compiled argument
+    sizes). One step runs, finite, and the dry-run touches no card
+    memory."""
+    import math
+    from repro_torch.configs import get_reduced
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.launch.dryrun import argument_bytes, run_one
+    from repro_torch.launch.specs import make_dryrun_spec, materialize
+    from repro_torch.train.optim import tree_leaves
+
+    cfg = get_reduced("granite-3-2b")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rec = run_one("granite-3-2b", shape, False, cfg=cfg, S=64, B=2)
+    assert torch.cuda.memory_allocated() == before
+    mesh = make_mesh((1,), ("data",), cuda)
+    spec = make_dryrun_spec("granite-3-2b", shape, mesh, cfg=cfg, S=64, B=2)
+    want = argument_bytes(spec, mesh)
+    a0 = torch.cuda.memory_allocated()
+    r0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    args = materialize(list(spec.args), cuda,
+                       torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    leaves = tree_leaves(args)
+    grown = torch.cuda.memory_allocated() - a0
+    assert torch.cuda.memory_stats()["requested_bytes.all.current"] - r0 \
+        == want
+    rounded = sum(math.ceil(t.numel() * t.element_size() / 512) * 512
+                  for t in leaves)
+    assert want <= grown <= rounded
+    out = spec.fn(*args)
+    first = out[2] if shape == "train_4k" else (
+        out[0] if isinstance(out, tuple) else out)
+    assert bool(torch.isfinite(first.float()).all())
+    assert rec["memory"]["argument_size_bytes"] > 0
