@@ -337,6 +337,24 @@ BF16_FLOPS_PER_S = 989e12
 #: 2), logged beside the fused kernel
 TWO_LAUNCH_SEARCH_MS = 0.0101
 TWO_LAUNCH_SELECT_MS = 0.1262
+#: the CUDA-core design's bf16 ``flash_decode`` times that the tensor-core
+#: kernel replaced (PERF.md section 6 rows 7 and 7s; NVIDIA H100 80GB
+#: HBM3, 700 W), logged beside each row: the row's full cache one call a
+#: replay, and the decode loop's cache a call in a graph of 20 (the
+#: sharded row: the folded launch alone)
+OLD_DECODE_MS = {"flash_decode": (0.3559, 0.0066),
+                 "flash_decode_g16": (0.1124, 0.0196),
+                 "flash_decode_g8": (0.1417, 0.0135),
+                 "flash_decode_g8_h64": (0.5332, 0.0134),
+                 "flash_decode_g1_self": (0.1012, 0.0052),
+                 "flash_decode_g1": (0.0518, None),
+                 "flash_decode_sharded": (0.1384, 0.0130)}
+#: the sources of the bf16 ``flash_decode`` rows: the tensor cores at G
+#: >= 2, the CUDA cores at G = 1
+DECODE_SOURCE = ("src/repro_torch/kernels/flash_decode/csrc/"
+                 "flash_decode_mma.cu")
+DECODE_G1_SOURCE = ("src/repro_torch/kernels/flash_decode/csrc/"
+                    "flash_decode.cu")
 
 DATASET = "reddit_sim"
 PARTS = 4
@@ -467,6 +485,16 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S):
     t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / ops_per_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def beside_old(name: str, ms: float, lib_ms: float, loop: bool = False):
+    """A ``flash_decode`` row's time against SDPA's and the CUDA-core
+    design's (``OLD_DECODE_MS``), as a log phrase."""
+    old = OLD_DECODE_MS[name][1 if loop else 0]
+    txt = f"{ms / lib_ms:.2f}x SDPA's time"
+    if old is not None:
+        txt += f"; the CUDA-core design {old:.4f} ({old / ms:.2f}x this)"
+    return txt
 
 
 def card_line() -> str:
@@ -1529,11 +1557,17 @@ def lm_tokens(cfg, shape, field: int):
     return zipf_tokens(rng_from(LM_SEED, field), cfg.vocab_size, shape)
 
 
-def card_time_by_op(torch, fn, top: int = 8, host: bool = True):
+#: the card-op names of the ``flash_decode`` kernels (both instances)
+DECODE_KERNELS = ("flash_decode_mma_kernel<", "decode_kernel<")
+
+
+def card_time_by_op(torch, fn, top: int = 8, host: bool = True,
+                    sum_of=()):
     """Run ``fn`` once under ``torch.profiler``: (wall s, card busy ms,
-    the ``top`` card ops by self time in ms). ``host=False`` records the
-    card's activity alone, for a call of some 10^5 kernels, whose host
-    events take minutes to gather."""
+    the ``top`` card ops by self time in ms, and under ``"all of " +
+    sum_of`` the ms of every op whose name holds one of ``sum_of``).
+    ``host=False`` records the card's activity alone, for a call of some
+    10^5 kernels, whose host events take minutes to gather."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1548,6 +1582,10 @@ def card_time_by_op(torch, fn, top: int = 8, host: bool = True):
     busy_us = sum(e.self_device_time_total for e in events)
     ops = {e.key: e.self_device_time_total / 1e3 for e in sorted(
         events, key=lambda e: -e.self_device_time_total)[:top]}
+    if sum_of:
+        ops["all of " + " ".join(sum_of)] = sum(
+            e.self_device_time_total for e in events
+            if any(n in e.key for n in sum_of)) / 1e3
     return wall, busy_us / 1e3, ops
 
 
@@ -1682,7 +1720,8 @@ def decode_phase(torch, device, cfg, params, counters, host=True,
         torch, lambda: decode(
             prompts if trace_steps is None else prompts[:, :1],
             DECODE_GEN if trace_steps is None else trace_steps),
-        host=host)
+        host=host, sum_of=DECODE_KERNELS)
+    decode_ms = ops.pop("all of " + " ".join(DECODE_KERNELS)) / traced
     out = {"batch": DECODE_B, "prompt": DECODE_PROMPT, "gen": DECODE_GEN,
            "steps": steps, "first_ms_per_step": 1e3 * first_s / steps,
            "ms_per_step": 1e3 * second_s / steps,
@@ -1693,6 +1732,7 @@ def decode_phase(torch, device, cfg, params, counters, host=True,
            "card_busy_ms_per_step": busy_ms / traced,
            "card_busy_share": busy_ms / 1e3 / traced_s,
            "card_ms_by_op_per_step": {k: v / traced for k, v in ops.items()},
+           "flash_decode_card_ms_per_step": decode_ms,
            "sample": toks[0, DECODE_PROMPT:DECODE_PROMPT + 10].tolist()}
     log(f"decode {cfg.name}{mesh_tag(mesh)}: B={DECODE_B} prompt "
         f"{DECODE_PROMPT} gen "
@@ -1704,7 +1744,10 @@ def decode_phase(torch, device, cfg, params, counters, host=True,
     log(f"decode traced ({traced} steps): {out['traced_ms_per_step']:.2f} "
         f"ms/step, card busy "
         f"{out['card_busy_ms_per_step']:.3f} ms/step "
-        f"({100 * out['card_busy_share']:.2f} %); card ms a step by op "
+        f"({100 * out['card_busy_share']:.2f} %); flash_decode "
+        f"{decode_ms:.3f} card ms a step ("
+        f"{100 * decode_ms / out['card_busy_ms_per_step']:.1f} % of the "
+        f"busy ms); card ms a step by op "
         f"{json.dumps(out['card_ms_by_op_per_step'])}")
     return out
 
@@ -1991,7 +2034,7 @@ def decode_kernel_row(torch, device, cfg, params, launches):
         raise RuntimeError(f"SDPA yardstick (decode) computes another "
                            f"function: {lib_err}")
     r = {"name": "flash_decode", "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+         "source": DECODE_SOURCE,
          "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
          "launches": launches["flash_decode"], "max_abs_err": err,
          "ms": device_ms(torch, lambda: fd_ops.flash_decode_batched(
@@ -2000,6 +2043,7 @@ def decode_kernel_row(torch, device, cfg, params, launches):
              q, k, v, length, start, softcap=cap), iters=5),
          "library_ms": device_ms(torch, sdpa, iters=5),
          "library_err_no_softcap": lib_err,
+         "old_design_ms": OLD_DECODE_MS["flash_decode"][0],
          "shape": f"q=({B},{H},{dh}) cache=({B},{S},{kvH},{dh}) bf16, "
                   f"{n_valid} valid positions, softcap {cap}"}
     r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 4 * dh * H * n_valid,
@@ -2049,8 +2093,9 @@ def decode_kernel_row(torch, device, cfg, params, launches):
         f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} (SDPA, no "
         f"softcap) bound_ms={r['bound_ms']:.4f} ({r['gb_per_s']:.0f} GB/s, "
         f"{100 * r['share_of_bound']:.1f} % of the bound); "
-        f"{r['device_ops']} card op a call; max_abs_err {err:.3e} "
-        f"(rtol=1e-4 atol=1e-5)")
+        f"{r['device_ops']} card op a call; "
+        f"{beside_old('flash_decode', r['ms'], r['library_ms'])}; "
+        f"max_abs_err {err:.3e} (rtol=1e-4 atol=1e-5)")
     log(f"flash_decode at the decode loop's cache {tuple(small_shape)} "
         f"bf16: {ds['ms_in_a_graph']:.4f} ms a call in a graph of 20 "
         f"({ds['ms']:.4f} one call a replay; launch floor "
@@ -2058,7 +2103,9 @@ def decode_kernel_row(torch, device, cfg, params, launches):
         f"{ds['launch_floor']['in_a_graph_ms']:.4f}), {len(ops)} card op a "
         f"call, bound_ms={ds['bound_ms']:.5f} ({ds['bound_by']}); SDPA "
         f"(same mask, no softcap) {ds['library_ms_in_a_graph']:.4f} ms in a "
-        f"graph ({ds['library_ms']:.4f} one call a replay)")
+        f"graph ({ds['library_ms']:.4f} one call a replay); in a graph "
+        + beside_old('flash_decode', ds['ms_in_a_graph'],
+                     ds['library_ms_in_a_graph'], loop=True))
     torch.cuda.synchronize()
     return r
 
@@ -3570,6 +3617,7 @@ def mixer_decode_row(torch, device, cfg, launches, full_s=None, loop=True,
     gen = torch.Generator(device=device).manual_seed(LM_SEED + 4)
     B, H, kvH, dh = DECODE_B, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // kvH
+    name = name or f"flash_decode_g{G}"
     cap = cfg.attn_softcap
     sizes = [full_s or MIXER_DECODE_CACHE[cfg.name]]
     if loop:
@@ -3653,21 +3701,27 @@ def mixer_decode_row(torch, device, cfg, launches, full_s=None, loop=True,
             f"a graph; SDPA enable_gqa, {'no' if mask is None else 'boolean'}"
             f" mask, no softcap) bound_ms={sh['bound_ms']:.5f} "
             f"({sh['bound_by']}, {nbytes / 1e6:.1f} MB); {len(ops)} card op "
-            f"a call; max_abs_err {err:.3e} over {len(lens)} length vectors "
+            f"a call; "
+            + (beside_old(name, sh['ms'], sh['library_ms'])
+               if S == sizes[0] else
+               "in a graph " + beside_old(name, sh['ms_in_a_graph'],
+                                          sh['library_ms_in_a_graph'],
+                                          loop=True))
+            + f"; max_abs_err {err:.3e} over {len(lens)} length vectors "
             f"(rtol=1e-4 atol=1e-5)")
         del q, k, v
     first = shapes[sizes[0]]
     lens_txt = "full" if min(first["lengths"]) == sizes[0] else \
         first["lengths"]
-    return {"name": name or f"flash_decode_g{G}", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_decode/csrc/"
-                      "flash_decode.cu",
+    return {"name": name, "route": "cuda",
+            "source": DECODE_SOURCE if G > 1 else DECODE_G1_SOURCE,
             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
             "launches": launches,
             "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
+            "old_design_ms": OLD_DECODE_MS[name][0],
             "shape": f"{cfg.name}{f' {what}' if what else ''} q=({B},{H},"
                      f"{dh}) cache=({B},{sizes[0]},{kvH},{dh}) bf16 (G={G}),"
                      f" lengths {lens_txt}",
@@ -4260,8 +4314,10 @@ def mesh_decode_row(torch, device, cfg, launches):
         shapes[S] = {
             "cache": [B, S, kvH, dh], "tp": tp, "max_abs_err": err,
             "device_ops": len(ops), "ops": ops,
-            "splits": {"folded": split_plan(B * tp * kvH, s, device),
-                       "unsharded": split_plan(B * kvH, S, device)},
+            "splits": {"folded": split_plan(B * tp, s, H, kvH, dh,
+                                            q.dtype, device),
+                       "unsharded": split_plan(B, S, H, kvH, dh, q.dtype,
+                                               device)},
             "ms": device_ms(torch, kern),
             "ms_in_a_graph": device_ms_per_call(torch, kern),
             "folded_launch_ms": device_ms(torch, folded),
@@ -4292,20 +4348,29 @@ def mesh_decode_row(torch, device, cfg, launches):
             f"{nbytes / 1e6:.1f} MB; PR 22: 0.0201, 67.3 MB); folding "
             f"{tp}x the rows: the folded launch takes "
             f"{sh['folded_launch_ms'] / sh['unsharded_ms']:.2f}x the "
-            f"unsharded call's time; max_abs_err {err:.3e} over full and "
-            f"ragged lengths (rtol=2^-7 atol=1e-5)")
+            f"unsharded call's time; the folded launch "
+            + (beside_old('flash_decode_sharded', sh['folded_launch_ms'],
+                          sh['library_ms'])
+               if S == MIXER_DECODE_CACHE[cfg.name] else
+               "in a graph " + beside_old(
+                   'flash_decode_sharded',
+                   sh['folded_launch_ms_in_a_graph'],
+                   sh['library_ms_in_a_graph'], loop=True))
+            + f"; max_abs_err {err:.3e} over full and ragged lengths "
+            f"(rtol=2^-7 atol=1e-5)")
         del q, k, v, qf, kf, vf
     first = shapes[MIXER_DECODE_CACHE[cfg.name]]
     S = MIXER_DECODE_CACHE[cfg.name]
     return {"name": "flash_decode_sharded", "route": "cuda",
-            "source": "src/repro_torch/kernels/flash_decode/csrc/"
-                      "flash_decode.cu",
+            "source": DECODE_SOURCE,
             "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
             "launches": launches,
             "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
+            "old_design_folded_launch_ms":
+                OLD_DECODE_MS["flash_decode_sharded"][0],
             "shape": f"{cfg.name} q=({B},1,{H},{dh}) cache=({B},{S},{kvH},"
                      f"{dh}) bf16 over tp={tp}, lengths full",
             "shapes": {str(k_): v_ for k_, v_ in shapes.items()}}
@@ -4417,8 +4482,10 @@ def process_group_check(torch, device):
                 for x in xs]
     B, S = k.shape[:2]
     n = cfg.num_experts // world
-    splits = (split_plan(B * world * cfg.num_kv_heads, S // world, device),
-              split_plan(B * cfg.num_kv_heads, S // world, device))
+    # a rank plans its launch for the folded batch, as the in-process
+    # form launches it
+    splits = split_plan(B * world, S // world, cfg.num_heads,
+                        cfg.num_kv_heads, cfg.head_dim, k.dtype, device)
     del layer, q, k, v, xs
     for r in range(world):
         got = torch.load(os.path.join(out_dir, f"rank{r}.pt"))
@@ -4426,7 +4493,7 @@ def process_group_check(torch, device):
             raise RuntimeError(f"rank {r}'s sharded_decode_shard differs "
                                f"from sharded_decode_attention by "
                                f"{float((got['decode'] - dec).float().abs().max())}"
-                               f" (split plans {splits})")
+                               f" (split plan {splits})")
         for T, a, b in zip(MESH_PG_TOKENS, got["moe"], moes):
             if not torch.equal(a, b):
                 raise RuntimeError(f"rank {r}'s moe_shard at T={T} differs "
@@ -4435,12 +4502,13 @@ def process_group_check(torch, device):
     shutil.rmtree(out_dir, ignore_errors=True)
     out = {"ranks": world, "backend": "gloo", "ranks_wall_s": ranks_s,
            "decode_cache": [B, S, cfg.num_kv_heads, cfg.head_dim],
-           "split_plans": splits, "moe_tokens": list(MESH_PG_TOKENS),
+           "split_plan": splits, "moe_tokens": list(MESH_PG_TOKENS),
            "wall_s": time.perf_counter() - t0}
     log(f"mesh process group: {world} gloo ranks on the one card (NCCL "
         f"takes one card a rank), FileStore: sharded_decode_shard over "
         f"cache ({B},{S},{cfg.num_kv_heads},{cfg.head_dim}) bf16 split in "
-        f"two (split plans {splits[0]} folded / {splits[1]} a rank) and "
+        f"two ({splits} splits, a rank's launch planned for the folded "
+        f"batch) and "
         f"moe_shard of one {'full-width' if MIXER_FULL else 'reduced'} "
         f"qwen3-moe-30b-a3b layer (experts {n} + {n}) at "
         f"T={list(MESH_PG_TOKENS)}: every rank bit-equal to the "
@@ -4688,6 +4756,9 @@ def main() -> int:
         list(pool.map(_build.library, _build.FAMILIES))
     log(f"build: {len(_build.FAMILIES)} kernel families in "
         f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
+    # every instance of the bf16 decode kernel: no spill (its float32
+    # accumulator is 128 registers a thread at dh 256)
+    mma_spills, mma_seen = [], set()
     for fam in _build.FAMILIES:
         text = _build.library_path(fam).with_suffix(".log").read_text()
         fn = ""
@@ -4701,6 +4772,16 @@ def main() -> int:
                 fn = f"{name.group(1)}<{','.join(args)}> " if name else ""
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {fam}: {fn}{line.strip()}")
+                spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                  r"spill loads", line)
+                if fn.startswith("flash_decode_mma_kernel") and spill:
+                    mma_seen.add(fn)
+                    if int(spill.group(1)) or int(spill.group(2)):
+                        mma_spills.append(fn + line.strip())
+    if mma_spills or len(mma_seen) != 6:
+        raise RuntimeError(f"flash_decode_mma.cu: instances {sorted(mma_seen)}"
+                           f" (want 6: dh 64, 128, 256 at 2 and 4 warps), "
+                           f"spills {mma_spills}")
 
     counters = [search_ops.LAUNCHES, assemble_ops.LAUNCHES,
                 gather_ops.LAUNCHES]

@@ -1,6 +1,15 @@
-// Single-token attention over a KV cache (decode) for Hopper (sm_90a):
-// (acc, m, l) partials, or the normalised output, over the valid
-// positions start <= pos < length, GQA, tanh logit softcap.
+// Single-token attention over a KV cache (decode) for Hopper (sm_90a),
+// on the CUDA cores: (acc, m, l) partials, or the normalised output, over
+// the valid positions start <= pos < length, GQA, tanh logit softcap.
+// It takes float32 q/k/v, and bfloat16 where a kv head has one q head (G
+// = 1, multi-head attention: seamless-m4t-medium's self and cross caches).
+// Every other bfloat16 call takes the tensor-core kernel in
+// flash_decode_mma.cu; repro_flash_decode dispatches by the wrapper's
+// plan (warps 0 = this kernel). G = 1 stays here by a fixed rule: the
+// tensor-core kernel spends 15 of its MMA's 16 rows on nothing there, and
+// on the card it ran seamless's cross caches 12-13 % and its decode loop's
+// cache 14-16 % slower than this kernel in the same run
+// (tools/decode_ab.py), where G = 2 and up ran faster.
 //
 // Replaces the TPU kernel repro/kernels/flash_decode/flash_decode.py
 // `_kernel` / `flash_decode`: a (kvH, S/ts) grid, one batch element per
@@ -9,45 +18,36 @@
 // block, and emitting the UNNORMALIZED (acc, m, l) so that shards of a
 // cache combine.
 //
-// Bound: bytes, the valid K/V rows read once. Two things kept the first
-// design from it. At the decode loop's shape (B=8, 4 kv heads, a 48-slot
-// cache) the work is 1.6 MB and the time was fixed costs: a second
-// launch to combine and normalise, two rounds of dependent loads, an
-// 8-way merge. At a long, ragged cache the splits cut [0, S), so an
-// element with few valid positions left most of its blocks empty while
-// full-length elements' blocks did all the work. This design:
+// Bound: bytes, the valid K/V rows read once. Its design:
 //   - one launch. Block ((b*kvH + h)*slices + slice, split) owns one kv
 //     head's G query heads (all of them, or one slice: see below) over
 //     the split-th equal part of the element's own valid
 //     range [start_b, length_b), computed here from length/start; the
 //     number of splits is a function of the shapes only (the wrapper's
-//     split_plan), so a CUDA graph replays it. With one split the block
+//     plan), so a CUDA graph replays it. With one split the block
 //     writes the partials or acc / max(l, 1e-30) itself. With more, each
 //     block writes its partials, and the last block of its (b, kv head)
 //     to finish -- known from an integer ticket, which it resets for the
 //     next launch -- combines the splits in split order 0..n-1. Which
 //     block is last changes nothing in the result.
 //   - inside the block, groups of L lanes (L = dh/8 rounded up to a power
-//     of two; 32 at dh = 256) each take kUnroll keys at a time, every
-//     lane 8 columns of each, loaded raw (16 bytes a lane for bfloat16)
-//     so that kUnroll rows are in flight per group: 64 keys a round at
-//     dh = 256 in bfloat16, so the decode loop's caches take one round.
-//     The first round's loads are issued before q is staged, and q
-//     sits in registers (up to 4 heads a group); wider groups read it
-//     from shared memory once a key, laid out [head][i][lane] so that a
-//     group's lanes hit consecutive banks (as [head][dh] the 8 columns
-//     of lanes c and c + 4 share banks). The dot
-//     products are finished by shuffles inside the group; each group
+//     of two; 32 at dh = 256) each take 8 keys at a time in bfloat16 (4 in
+//     float32), every lane 8 columns of each, loaded raw (16 bytes a lane
+//     for bfloat16, 32 for float32), so that 8 (4) rows are in flight per
+//     group. The first round's loads are issued
+//     before q is staged, and q sits in registers (up to 4 heads a
+//     group); wider groups read it from shared memory once a key, laid
+//     out [head][i][lane] so that a group's lanes hit consecutive banks
+//     (as [head][dh] the 8 columns of lanes c and c + 4 share banks). The
+//     dot products are finished by shuffles inside the group; each group
 //     keeps its own running (m, l, acc), merged once in shared memory
 //     with weights computed once per (group, head). Where a group has a
-//     lane for each of a round's G x kUnroll scores, their softcap and
-//     exponentials are spread one a lane (every lane computed all sixteen
-//     at the decode shape), so they cost one tanh and one exp a lane.
-//   - more than 8 q heads a kv head (recurrentgemma-9b's MQA: 16) are cut
-//     into head slices of at most 8, a block each: the block's running
-//     (m, l, acc) then fit in registers (8 heads x 8 columns a lane), and
-//     the slices' blocks, launched side by side, read the same K/V rows,
-//     the second time mostly from L2.
+//     lane for each of a round's G x 4 scores, their softcap and
+//     exponentials are spread one a lane, so they cost one tanh and one
+//     exp a lane.
+//   - more than 8 q heads a kv head are cut into head slices of at most 8
+//     (`head_slices`), a block each: the block's running (m, l, acc) then
+//     fit in registers (8 heads x 8 columns a lane).
 // Positions outside [start, length) are never read, which is exact: a
 // masked key leaves (m, l, acc) unchanged. Any S; with no valid position
 // m = -1e30, l = 0, acc = 0 and the normalised output is 0, as the
@@ -109,13 +109,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// keys a lane group has in flight: the raw rows of K and V stay in
-// registers, so wider groups of q heads take fewer
-template <typename T, int MAXG>
-struct Unroll {
-  static constexpr int value = (sizeof(T) == 2 && MAXG <= 4) ? 8 : 4;
-};
-
 template <typename T, int KU>
 __device__ __forceinline__ void load_round(const T* __restrict__ k,
                                            const T* __restrict__ v,
@@ -166,7 +159,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               int32_t* __restrict__ tickets, float* __restrict__ out_acc,
               float* __restrict__ out_m, float* __restrict__ out_l,
               float* __restrict__ out) {
-  constexpr int KU = Unroll<T, MAXG>::value;
+  // keys a lane group has in flight (its raw K and V rows in registers)
+  constexpr int KU = sizeof(T) == 2 ? 8 : 4;
   extern __shared__ __align__(16) float smem[];
   // block x = (b, kv head h, head slice): G = the slice's q heads, the
   // q rows b*H + hb*G .. + G - 1, hb = h * slices + slice
@@ -471,36 +465,53 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      float* ol, float* out, cudaStream_t st) {
   if (slices < 1 || H % (kvH * slices)) return cudaErrorInvalidValue;
   const int G = H / (kvH * slices);
-  if (G > 8) return cudaErrorInvalidValue;
+  if (G > 8 || (sizeof(T) == 2 && G != 1)) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {
+    return run<T, 1>(q, k, v, length, start, B, S, H, kvH, dh, slices, scale,
+                     softcap, n_split, pa, pm, pl, tickets, oa, om, ol, out,
+                     st);
+  } else {
 #define REPRO_DECODE_RUN(MAXG)                                               \
   return run<T, MAXG>(q, k, v, length, start, B, S, H, kvH, dh, slices,      \
                       scale, softcap, n_split, pa, pm, pl, tickets, oa, om,  \
                       ol, out, st)
-  if (G <= 1) REPRO_DECODE_RUN(1);
-  if (G <= 2) REPRO_DECODE_RUN(2);
-  if (G <= 4) REPRO_DECODE_RUN(4);
-  REPRO_DECODE_RUN(8);
+    if (G <= 1) REPRO_DECODE_RUN(1);
+    if (G <= 2) REPRO_DECODE_RUN(2);
+    if (G <= 4) REPRO_DECODE_RUN(4);
+    REPRO_DECODE_RUN(8);
 #undef REPRO_DECODE_RUN
+  }
 }
 
 }  // namespace
 
+// the tensor-core kernel (bfloat16 at G >= 2), flash_decode_mma.cu
+cudaError_t flash_decode_bf16_mma(const void* q, const void* k, const void* v,
+                                  const int32_t* length, const int32_t* start,
+                                  int B, int S, int H, int kvH, int dh,
+                                  int slices, int warps, float scale,
+                                  float softcap, int n_split, float* pa,
+                                  float* pm, float* pl, int32_t* tickets,
+                                  float* oa, float* om, float* ol, float* out,
+                                  cudaStream_t st);
+
 // q (B,H,dh), k/v (B,S,kvH,dh), length/start (B,) int32 (start may be
-// null); dtype 0 = float32, 1 = bfloat16; dh % 8 == 0, dh <= 256,
-// H/kvH a multiple of head_slices, at most 8 q heads a slice (checked by
-// the wrapper). With n_split > 1: scratch part_* holds (n_split, B,
-// H[, dh]) float32 and tickets (B*kvH*head_slices,) int32 zeros,
-// which every launch leaves zero again. Writes out_acc/out_m/out_l
-// and/or out where they are not null, in one launch.
+// null); dtype 0 = float32, 1 = bfloat16; warps 0 = this kernel (float32,
+// or bfloat16 at G = 1), 2 or 4 = the tensor-core kernel's warps a block
+// (bfloat16); dh % 8 == 0, dh <= 256; head_slices blocks a kv head's q
+// heads (here equal slices of at most 8 heads; on the tensor cores of its
+// ceil(G/16) row tiles), checked by the wrapper. With n_split > 1: scratch part_* holds (n_split,
+// B, H[, dh]) float32 and tickets (B*kvH*head_slices,) int32 zeros, which
+// every launch leaves zero again. Writes out_acc/out_m/out_l and/or out
+// where they are not null, in one launch.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* length, const void* start,
                                   int dtype, int B, int S, int H, int kvH,
-                                  int dh, int head_slices, float scale,
-                                  float softcap,
-                                  int n_split, void* part_acc, void* part_m,
-                                  void* part_l, void* tickets, void* out_acc,
-                                  void* out_m, void* out_l, void* out,
-                                  void* stream) {
+                                  int dh, int head_slices, int warps,
+                                  float scale, float softcap, int n_split,
+                                  void* part_acc, void* part_m, void* part_l,
+                                  void* tickets, void* out_acc, void* out_m,
+                                  void* out_l, void* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int32_t* len = static_cast<const int32_t*>(length);
   const int32_t* sta = static_cast<const int32_t*>(start);
@@ -512,14 +523,19 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   float* om = static_cast<float*>(out_m);
   float* ol = static_cast<float*>(out_l);
   float* o = static_cast<float*>(out);
-  const cudaError_t err =
-      dtype == 1
-          ? dispatch<__nv_bfloat16>(q, k, v, len, sta, B, S, H, kvH, dh,
-                                    head_slices, scale, softcap, n_split, pa,
-                                    pm, pl, tk, oa, om, ol, o, st)
-          : dispatch<float>(q, k, v, len, sta, B, S, H, kvH, dh, head_slices,
-                            scale, softcap, n_split, pa, pm, pl, tk, oa, om,
-                            ol, o, st);
+  cudaError_t err;
+  if (dtype == 1 && warps > 0)
+    err = flash_decode_bf16_mma(q, k, v, len, sta, B, S, H, kvH, dh,
+                                head_slices, warps, scale, softcap, n_split,
+                                pa, pm, pl, tk, oa, om, ol, o, st);
+  else if (dtype == 1)
+    err = dispatch<__nv_bfloat16>(q, k, v, len, sta, B, S, H, kvH, dh,
+                                  head_slices, scale, softcap, n_split, pa,
+                                  pm, pl, tk, oa, om, ol, o, st);
+  else
+    err = dispatch<float>(q, k, v, len, sta, B, S, H, kvH, dh, head_slices,
+                          scale, softcap, n_split, pa, pm, pl, tk, oa, om,
+                          ol, o, st);
   return static_cast<int>(err);
 }
 

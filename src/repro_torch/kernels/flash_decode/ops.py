@@ -28,8 +28,8 @@ from repro_torch.kernels.flash_decode.ref import (combine,
 
 LAUNCHES = LaunchCount("flash_decode")
 
-#: the widest head the kernel takes (any q-head group: ``head_slices``
-#: cuts a wide one into blocks of at most ``SLICE_HEADS``)
+#: the widest head the kernel takes (any q-head group: bfloat16 takes up
+#: to 64 in a block, float32 8)
 MAX_HEAD_DIM = 256
 
 
@@ -42,7 +42,8 @@ def _lengths(t: Optional[torch.Tensor], B: int) -> Optional[torch.Tensor]:
     return t.reshape(B).contiguous()
 
 
-def _batched(q, k, v, length, start, scale, softcap, interpret, partials):
+def _batched(q, k, v, length, start, scale, softcap, interpret, partials,
+             plan_batch=None):
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_decode: expected q (B,H,dh) and k/v "
                          f"(B,S,kvH,dh), got {tuple(q.shape)}, "
@@ -79,7 +80,8 @@ def _batched(q, k, v, length, start, scale, softcap, interpret, partials):
         m = torch.empty((B, H), **f32)
         l = torch.empty((B, H), **f32)
         launch_flash_decode(q, k, v, length, start, scale=scale,
-                            softcap=softcap, acc=acc, m=m, l=l)
+                            softcap=softcap, acc=acc, m=m, l=l,
+                            plan_batch=plan_batch)
         LAUNCHES.bump()
         return acc, m, l
     out = torch.empty((B, H, dh), **f32)
@@ -106,14 +108,18 @@ def flash_decode_partials(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, length: torch.Tensor,
                           start: Optional[torch.Tensor] = None, *,
                           scale: Optional[float] = None,
-                          softcap: float = 0.0, interpret: bool = False
+                          softcap: float = 0.0, interpret: bool = False,
+                          plan_batch: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """q (B, H, dh); k/v (B, S, kvH, dh); length/start (B,) int32 ->
     the float32 partials (acc (B, H, dh), m (B, H), l (B, H)) of each
-    element, one launch (the sequence-sharded decode's shards)."""
+    element, one launch (the sequence-sharded decode's shards).
+    ``plan_batch``: the batch the card's launch is planned for (default
+    B); a rank's shard passes the folded batch, so that its rows are
+    summed as the folded launch sums them."""
     return _batched(q, k, v, length, start, scale, softcap, interpret,
-                    partials=True)
+                    partials=True, plan_batch=plan_batch)
 
 
 def flash_decode_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -19,8 +19,10 @@ m = -1e30, l = 0, acc = 0, so its weight is 0. Two forms:
   ``torch.distributed`` group of tp ranks, each holding its slice: one
   launch, one ``all_reduce(MAX)`` of m and one ``all_reduce(SUM)`` of
   the weighted acc and l packed into one buffer. Every term of the
-  combine is computed as in the in-process form, so with two ranks the
-  two forms agree bit for bit.
+  combine is computed as in the in-process form (the rank's launch is
+  planned for the folded batch B * tp, so each row is summed in the
+  folded launch's order), so with two ranks the two forms agree bit for
+  bit.
 """
 from __future__ import annotations
 
@@ -97,7 +99,8 @@ def sharded_decode_shard(q: torch.Tensor, k_local: torch.Tensor,
     ln = (length - rank * s_local).clamp(0, s_local).to(torch.int32)
     acc, m, l = flash_decode_partials(q[:, 0].contiguous(), k_local,
                                       v_local, ln, scale=scale,
-                                      softcap=attn_softcap)
+                                      softcap=attn_softcap,
+                                      plan_batch=B * tp)
     m_g = m.clone()
     dist.all_reduce(m_g, op=dist.ReduceOp.MAX, group=group)
     a, b = _weighted(acc, m, l, m_g)

@@ -288,6 +288,16 @@ FLASH_DECODE_CASES = {
     # its own a sequence, 0 among them
     "g1_dh64_cross_ragged_bf16": (4, 16, 16, 64, 1001, (1001, 904, 0, 1),
                                   (0, 0, 0, 0), 0.0, "bfloat16"),
+    # the tensor-core kernel's served groups: qwen3-moe's and qwen2-vl's
+    # G = 8 at dh 128 (ragged, starts past 0), recurrentgemma-9b's G = 16
+    # at dh 256 over a window (start = length - 512), softcap 30; and a
+    # head width 16 does not divide (zero-padded to the MMA's k)
+    "g8_dh128_ragged_start_bf16": (3, 16, 2, 128, 4099, (4099, 2500, 1001),
+                                   (0, 700, 1000), 0.0, "bfloat16"),
+    "g16_dh256_window_softcap_bf16": (2, 16, 1, 256, 1500, (1500, 1100),
+                                      (988, 588), 30.0, "bfloat16"),
+    "g4_dh72_bf16": (2, 8, 2, 72, 300, (300, 77), (0, 3), 30.0,
+                     "bfloat16"),
 }
 
 

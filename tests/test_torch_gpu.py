@@ -609,9 +609,9 @@ def test_flash_decode_sixteen_heads_a_kv_head_on_card(cuda, S):
 @pytest.mark.parametrize("G", [12, 24, 32])
 def test_flash_decode_wide_groups_on_card(cuda, G):
     """More than 16 q heads a kv head, or a group that 8 does not divide:
-    ``head_slices`` cuts it into equal blocks (12 -> 2 of 6, 24 -> 3 of
-    8, 32 -> 4 of 8), one launch a call, within the reference's tolerance
-    of the plain version."""
+    the tensor-core kernel takes ceil(G/16) row tiles in one block (12 ->
+    1, 24 and 32 -> 2), one launch a call, within the reference's
+    tolerance of the plain version."""
     gen = torch.Generator().manual_seed(G)
     B, S, kvH, dh = 3, 300, 2, 128
     q = torch.randn((B, G * kvH, dh), generator=gen).to(cuda, torch.bfloat16)
@@ -657,6 +657,112 @@ def test_flash_decode_ragged_long_cache_on_card(cuda):
     assert bool((got[2] == 0).all()) and bool((got[6] == 0).all())
     assert device_kernels(lambda: t_fd_ops.flash_decode_batched(
         q, k, v, ln, st, softcap=50.0)) == 1
+
+
+#: the served groups on the tensor-core kernel, (B, S, H, kvH, dh,
+#: window): qwen3-moe-30b-a3b's and qwen2-vl-72b's heads (G = 8, dh 128)
+#: at the decode loop's 48 slots and at 4096, recurrentgemma-9b's (G =
+#: 16, dh 256) over a 2048-slot window of a longer cache
+MMA_ROWS = {
+    "qwen3-moe-48": (8, 48, 32, 4, 128, 0),
+    "qwen3-moe-4096": (8, 4096, 32, 4, 128, 0),
+    "qwen2-vl-48": (8, 48, 64, 8, 128, 0),
+    "qwen2-vl-4096": (8, 4096, 64, 8, 128, 0),
+    "recurrentgemma-window": (8, 4096, 16, 1, 256, 2048),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MMA_ROWS))
+def test_flash_decode_served_groups_on_card(cuda, name):
+    """The served models' groups, full and ragged lengths (0 and 1 among
+    them): within the reference's tolerance of the plain version (the
+    normalised output and the partials), exactly 0 where no slot is
+    valid, two runs bit-identical, a CUDA graph's replay equal to the
+    eager call, one launch and one card operation a call."""
+    B, S, H, kvH, dh, window = MMA_ROWS[name]
+    gen = torch.Generator().manual_seed(S + H)
+    q = torch.randn((B, H, dh), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, S, kvH, dh), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    ln = torch.tensor([S, S - 1, 1, 0, S // 2, 17, S, 3], dtype=torch.int32,
+                      device=cuda)
+    st = (ln - window).clamp(min=0).to(torch.int32) if window else None
+
+    def call():
+        return t_fd_ops.flash_decode_batched(q, k, v, ln, st)
+    before = t_fd_ops.LAUNCHES.value
+    got, again = call(), call()
+    parts = t_fd_ops.flash_decode_partials(q, k, v, ln, st)
+    acc, m, l = flash_decode_batched_ref(q, k, v, ln, st)
+    torch.cuda.synchronize()
+    assert t_fd_ops.LAUNCHES.value == before + 3
+    tol = dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got, finalize(acc, l), **tol)
+    for g_, w_ in zip(parts, (acc, m, l)):
+        torch.testing.assert_close(g_, w_, **tol)
+    assert torch.equal(got, again)
+    assert bool((got[3] == 0).all()) and bool((parts[1][3] == -1e30).all())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got)
+    assert device_kernels(call) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tp", [2, 4])
+def test_flash_decode_shard_planned_for_the_folded_batch_on_card(cuda, tp):
+    """A rank's shard of a sequence-sharded cache, launched with
+    ``plan_batch`` = the folded batch, gives the folded launch's rows bit
+    for bit (qwen3-moe-30b-a3b's 4096 slots, bfloat16), so the process-
+    group body equals the in-process form whatever the split plan."""
+    gen = torch.Generator().manual_seed(tp)
+    B, S, H, kvH, dh = 8, 4096, 32, 4, 128
+    s = S // tp
+    q = torch.randn((B, H, dh), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, S, kvH, dh), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    ln = torch.tensor([S, 1, S // 2, S // 2 + 1, 3 * S // 4, 17, S - 1,
+                       S // 3], dtype=torch.int32, device=cuda)
+    lf = (ln[:, None] - torch.arange(tp, device=cuda)[None, :] * s).clamp(
+        0, s).to(torch.int32)
+    folded = t_fd_ops.flash_decode_partials(
+        q.repeat_interleave(tp, dim=0), k.reshape(B * tp, s, kvH, dh),
+        v.reshape(B * tp, s, kvH, dh), lf.reshape(-1))
+    for r in range(tp):
+        kr, vr = (t[:, r * s:(r + 1) * s].contiguous() for t in (k, v))
+        got = t_fd_ops.flash_decode_partials(q, kr, vr,
+                                             lf[:, r].contiguous(),
+                                             plan_batch=B * tp)
+        for g_, f_ in zip(got, folded):
+            assert torch.equal(g_, f_.reshape(B, tp, *f_.shape[1:])[:, r])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [8, 24, 40, 72, 136, 200])
+def test_flash_decode_head_widths_sixteen_does_not_divide_on_card(cuda, dh):
+    """A head width that 16 does not divide (zero-padded to the MMA's k
+    in shared memory) or that the instance's width exceeds: bfloat16, G
+    = 4, ragged lengths and starts, softcap 30, against the plain version
+    (output and partials)."""
+    gen = torch.Generator().manual_seed(dh)
+    B, S, H, kvH = 3, 700, 8, 2
+    q = torch.randn((B, H, dh), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, S, kvH, dh), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    ln = torch.tensor([S, 333, 1], dtype=torch.int32, device=cuda)
+    st = torch.tensor([0, 100, 0], dtype=torch.int32, device=cuda)
+    got = t_fd_ops.flash_decode_batched(q, k, v, ln, st, softcap=30.0)
+    parts = t_fd_ops.flash_decode_partials(q, k, v, ln, st, softcap=30.0)
+    acc, m, l = flash_decode_batched_ref(q, k, v, ln, st, softcap=30.0)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got, finalize(acc, l), **tol)
+    for g_, w_ in zip(parts, (acc, m, l)):
+        torch.testing.assert_close(g_, w_, **tol)
 
 
 @pytest.mark.gpu

@@ -26,11 +26,20 @@ atol=1e-5`` (XLA's ``segment_sum`` adds in its own order).
 ``flash_decode``. Each element's valid range ``[start, length)`` is cut
 into ``plan_splits`` equal parts (``split_range``), each part's (acc, m,
 l) partials are taken, and the parts are combined in split order 0..n-1,
-as the kernel's last block does. The normalised output, m and l must be
-within ``rtol=1e-4, atol=1e-5`` (float32 outputs summed in another
-order) of the Pallas kernel in interpret mode and of
-``flash_decode_batched_ref``.
+as the kernel's last block does. The tensor-core kernel's own order is
+modelled too: 16 KB tiles of keys taken round-robin by the block's key groups,
+each with its own base-2 online softmax, p split into three bf16 terms
+for P.V, the groups merged in group order, the splits combined in order.
+The normalised output, m and l must be within ``rtol=1e-4, atol=1e-5``
+(float32 outputs summed in another order) of the Pallas kernel in
+interpret mode and of ``flash_decode_batched_ref``. The plan itself is a
+function of the shapes: the card filled at every served shape, one split
+at the decode loop's caches.
 """
+import functools
+import inspect
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -44,10 +53,10 @@ from _torch_cases import (BWD_CASES, BWD_FULL_CASES, FLASH_DECODE_CASES,
 from repro.kernels.flash_decode.flash_decode import DEFAULT_TS
 from repro.kernels.flash_decode.ops import flash_decode as j_flash_decode
 from repro.kernels.gather_agg.ops import gather_agg as j_gather_agg
-from repro_torch.kernels.flash_decode.flash_decode import (SLICE_HEADS,
-                                                           head_slices,
-                                                           plan_splits,
-                                                           split_range)
+from repro_torch.kernels.flash_decode.flash_decode import (
+    MAX_SPLITS, MIN_SPLIT_BYTES, SLICE_HEADS, TILE_HEADS, head_slices,
+    MMA_WARPS, launch_plan, mma_warps, plan_splits, row_slices, row_tiles,
+    split_range)
 from repro_torch.kernels.flash_decode.ref import (combine,
                                                   flash_decode_batched_ref)
 from repro_torch.kernels.gather_agg.ops import (ONE_BLOCK_EDGES,
@@ -203,56 +212,252 @@ def _normalised(acc, m, l):
     return acc / np.maximum(l, 1e-30)[..., None], m, l
 
 
-def _check(q, k, v, length, start, softcap, n_splits):
+#: the tensor-core kernel's base-2 softmax
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def mma_partials(q, k, v, length, start, softcap, n_split):
+    """The tensor-core kernel's order on the CPU: per (b, kv head) and
+    split, the split's tiles (4096 / dh keys: 16 KB of K and V at the
+    instance's width) taken round-robin by the block's key
+    groups (``mma_warps`` of the grid, ``rtb`` row tiles a group), each
+    group with its own base-2 running (m, l, acc) and p = p_hi + p_mid +
+    p_lo in bf16 for P.V; the groups merged in group order, the splits combined
+    in split order, m returned in natural units (-1e30 where no key is
+    valid). Row tiles do not interact, so a group's heads run at once."""
+    B, H, dh = q.shape
+    S, kvH = k.shape[1], k.shape[2]
+    G = H // kvH
+    scale = dh ** -0.5
+    rtb = -(-row_tiles(G) // row_slices(G))
+    warps = mma_warps(B * kvH * row_slices(G) * n_split, G, H100_SMS)
+    groups = warps // (4 if rtb == 3 else rtb)
+    # keys a tile: 16 KB of K and V at the instance's width (64/128/256)
+    kt = 4096 // (64 if dh <= 64 else 128 if dh <= 128 else 256)
+    c1 = scale / softcap if softcap > 0 else scale * LOG2E
+    acc = torch.zeros((B, H, dh))
+    m = torch.full((B, H), -1e30)
+    l = torch.zeros((B, H))
+
+    def merged(states):
+        mg = torch.stack([st[0] for st in states]).amax(0)
+        a, s_ = torch.zeros_like(states[0][2]), torch.zeros_like(mg)
+        for m_, l_, a_ in states:
+            w = torch.exp2(m_ - mg)
+            s_, a = s_ + l_ * w, a + a_ * w[:, None]
+        return mg, s_, a
+    for b in range(B):
+        for h in range(kvH):
+            qg = q[b, h * G:(h + 1) * G].float()
+            kb, vb = k[b, :, h].float(), v[b, :, h].float()
+            splits = []
+            for sp in range(n_split):
+                lo, hi = split_range(int(start[b]), int(length[b]), S,
+                                     n_split, sp)
+                tiles = -(-max(hi - lo, 0) // kt)
+                states = []
+                for kg in range(groups):
+                    mg = torch.full((G,), -1e30)
+                    lg, ag = torch.zeros(G), torch.zeros((G, dh))
+                    for t in range(kg, tiles, groups):
+                        keys = slice(lo + kt * t, min(lo + kt * t + kt, hi))
+                        x = (qg @ kb[keys].T) * c1
+                        if softcap > 0:
+                            x = torch.tanh(x) * (softcap * LOG2E)
+                        mn = torch.maximum(mg, x.amax(1))
+                        alpha = torch.exp2(mg - mn)
+                        p = torch.exp2(x - mn[:, None])
+                        p_hi = p.bfloat16().float()
+                        p_mid = (p - p_hi).bfloat16().float()
+                        p_lo = (p - p_hi - p_mid).bfloat16().float()
+                        lg = lg * alpha + p.sum(1)
+                        ag = ag * alpha[:, None] + p_hi @ vb[keys] + \
+                            p_mid @ vb[keys] + p_lo @ vb[keys]
+                        mg = mn
+                    states.append((mg, lg, ag))
+                splits.append(merged(states))
+            mg, lg, ag = merged([(m_, l_, a_) for m_, l_, a_ in splits])
+            rows = slice(h * G, (h + 1) * G)
+            acc[b, rows], l[b, rows] = ag, lg
+            m[b, rows] = torch.where(mg == -1e30, mg, mg * LN2)
+    return acc, m, l
+
+
+@functools.lru_cache(maxsize=None)
+def _references(name):
+    """The case's plain version and Pallas kernel, normalised."""
+    qn, kn, vn, length, start, cap, dtype = flash_decode_case(name)
+    q, k, v = (as_dtype(x, dtype) for x in (qn, kn, vn))
+    want = flash_decode_batched_ref(q, k, v, torch.from_numpy(length),
+                                    torch.from_numpy(start), softcap=cap)
+    return (_normalised(*want),
+            _normalised(*_pallas(q, k, v, length, start, cap)))
+
+
+def _check(q, k, v, length, start, softcap, n_splits, refs=None,
+           partials=split_partials):
     """acc is compared normalised, as ``finalize`` gives it: it is a sum
     of up to 20,000 terms p * v with p <= 1, so its rounding grows with
     l, and an absolute 1e-5 on it would hold the order of a long sum, not
     the plan (the plain version and the Pallas kernel themselves differ
     by 2.7e-5 in acc where l is 825). m and l are compared as they are."""
-    want = flash_decode_batched_ref(q, k, v, torch.from_numpy(length),
-                                    torch.from_numpy(start), softcap=softcap)
-    refs = [_normalised(*want),
-            _normalised(*_pallas(q, k, v, length, start, softcap))]
+    if refs is None:
+        want = flash_decode_batched_ref(q, k, v, torch.from_numpy(length),
+                                        torch.from_numpy(start),
+                                        softcap=softcap)
+        refs = [_normalised(*want),
+                _normalised(*_pallas(q, k, v, length, start, softcap))]
     for n_split in n_splits:
-        got = _normalised(*split_partials(q, k, v, length, start, softcap,
-                                          n_split))
+        got = _normalised(*partials(q, k, v, length, start, softcap,
+                                    n_split))
         for ref in refs:
             for a, b in zip(got, ref):
                 np.testing.assert_allclose(a, b, **TOL)
 
 
-@pytest.mark.parametrize("name", sorted(FLASH_DECODE_CASES))
-def test_flash_decode_split_plan_matches_pallas_and_plain(name):
+def _case_plan(name):
     qn, kn, vn, length, start, cap, dtype = flash_decode_case(name)
     q, k, v = (as_dtype(x, dtype) for x in (qn, kn, vn))
     B, S, kvH = k.shape[0], k.shape[1], k.shape[2]
-    plan = plan_splits(B * kvH * head_slices(q.shape[1] // kvH), S,
-                       H100_SMS)
-    _check(q, k, v, length, start, cap, sorted({1, plan, 7}))
+    plan = launch_plan(B, S, q.shape[1], kvH, q.shape[2], q.dtype,
+                       H100_SMS)[1]
+    return q, k, v, length, start, cap, plan
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_DECODE_CASES))
+def test_flash_decode_split_plan_matches_pallas_and_plain(name):
+    q, k, v, length, start, cap, plan = _case_plan(name)
+    _check(q, k, v, length, start, cap, sorted({1, plan, 7}),
+           refs=_references(name))
+
+
+@pytest.mark.parametrize("name", sorted(FLASH_DECODE_CASES))
+def test_flash_decode_tensor_core_order_matches_pallas_and_plain(name):
+    """The tensor-core kernel's arithmetic order (``mma_partials``) at
+    the card's split plan and at 3 splits."""
+    q, k, v, length, start, cap, plan = _case_plan(name)
+    _check(q, k, v, length, start, cap, sorted({plan, 3}),
+           refs=_references(name), partials=mma_partials)
 
 
 def test_flash_decode_split_plan_at_the_decode_loop_shape():
     """gemma2-2b's decode loop: B=8, 8 q heads over 4 kv heads, dh 256,
-    a 48-slot bfloat16 cache filled to lengths 16..47 (one split)."""
+    a 48-slot bfloat16 cache filled to lengths 16..47 (one split), in
+    the split plan's order and the tensor-core kernel's."""
     rng = np.random.default_rng(48)
     B, H, kvH, dh, S = 8, 8, 4, 256, 48
-    assert plan_splits(B * kvH, S, H100_SMS) == 1
+    assert launch_plan(B, S, H, kvH, dh, torch.bfloat16,
+                       H100_SMS) == (1, 1, 4)
     for lens in np.arange(16, 48, dtype=np.int32).reshape(4, B):
         q, k, v = (as_dtype(rng.normal(size=shape).astype(np.float32),
                             "bfloat16")
                    for shape in ((B, H, dh), (B, S, kvH, dh),
                                  (B, S, kvH, dh)))
         _check(q, k, v, lens, np.zeros(B, np.int32), 50.0, (1, 3))
+        _check(q, k, v, lens, np.zeros(B, np.int32), 50.0, (1,),
+               partials=mma_partials)
 
 
 def test_flash_decode_head_slices_cut_wide_groups_evenly():
-    """More than 8 q heads a kv head are cut into the fewest equal slices
-    of at most 8 (each a block); 8 or fewer stay whole."""
+    """float32: more than 8 q heads a kv head are cut into the fewest
+    equal slices of at most 8 (each a block); 8 or fewer stay whole."""
     for G in range(1, 65):
         n = head_slices(G)
         assert G % n == 0 and G // n <= SLICE_HEADS
         assert all(G % m or G // m > SLICE_HEADS for m in range(1, n))
     assert [head_slices(G) for G in (1, 2, 4, 8, 16)] == [1, 1, 1, 1, 2]
+
+
+def test_flash_decode_row_tiles_hold_every_group_in_one_block():
+    """bfloat16: ceil(G/16) row tiles of the MMA, all in one block up to
+    one tile a warp (64 heads), more in the fewest blocks beyond; so every
+    served group (G = 1, 2, 8, 16) is one block a kv head and its K/V
+    are read once."""
+    for G in range(1, 200):
+        assert row_tiles(G) == math.ceil(G / TILE_HEADS)
+        n = row_slices(G)
+        assert n * MMA_WARPS >= row_tiles(G) > (n - 1) * MMA_WARPS
+    assert [row_slices(G) for G in (1, 2, 8, 16, 24, 32, 64, 65, 129)] == \
+        [1, 1, 1, 1, 1, 1, 1, 2, 3]
+    for G, dh in ((8, 128), (16, 256), (2, 256), (1, 64)):
+        assert launch_plan(8, 4096, G * 4, 4, dh, torch.bfloat16,
+                           H100_SMS)[0] == 1
+    assert launch_plan(8, 4096, 64, 4, 128, torch.float32,
+                       H100_SMS)[0] == 2
+
+
+#: every served model's decode shape on the card (B, S, H, kvH, dh):
+#: gemma2-2b's long cache, recurrentgemma-9b's window, qwen3-moe's and
+#: qwen2-vl-72b's caches, the sharded call folded at tp = 4, seamless's
+#: self and cross caches
+ROW_SHAPES = {
+    "gemma2-2b long": (16, 32768, 8, 4, 256),
+    "recurrentgemma-9b window": (8, 2048, 16, 1, 256),
+    "qwen3-moe-30b-a3b": (8, 4096, 32, 4, 128),
+    "qwen2-vl-72b": (8, 8192, 64, 8, 128),
+    "qwen3-moe folded tp=4": (32, 1024, 32, 4, 128),
+    "seamless-m4t-medium self": (8, 8192, 16, 16, 64),
+    "seamless-m4t-medium cross": (8, 4096, 16, 16, 64),
+}
+#: the decode loops' 48-slot caches
+LOOP_SHAPES = {
+    "gemma2-2b": (8, 48, 8, 4, 256),
+    "recurrentgemma-9b": (8, 48, 16, 1, 256),
+    "qwen3-moe-30b-a3b": (8, 48, 32, 4, 128),
+    "qwen2-vl-72b": (8, 48, 64, 8, 128),
+    "seamless-m4t-medium": (8, 48, 16, 16, 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROW_SHAPES))
+def test_flash_decode_plan_fills_the_card_at_every_row(name):
+    """Every served shape's grid gives at least 96 % of the card's
+    multiprocessors a block (recurrentgemma-9b's 8 columns: 16 splits,
+    128 blocks, one wave of one block a multiprocessor; 17 would start a
+    second wave for 4 blocks), no split under the floor of K/V bytes."""
+    B, S, H, kvH, dh = ROW_SHAPES[name]
+    for dtype in (torch.bfloat16, torch.float32):
+        slices, n_split, _ = launch_plan(B, S, H, kvH, dh, dtype, H100_SMS)
+        assert B * kvH * slices * n_split >= 0.96 * H100_SMS
+        assert 1 < n_split <= MAX_SPLITS
+        assert math.ceil(S / n_split) * 2 * dh * dtype.itemsize >= \
+            MIN_SPLIT_BYTES
+    assert launch_plan(8, 2048, 16, 1, 256, torch.bfloat16,
+                       H100_SMS) == (1, 16, 4)
+    assert plan_splits(8, 2048, 1024, 132) * 8 <= 132
+
+
+@pytest.mark.parametrize("name", sorted(LOOP_SHAPES))
+def test_flash_decode_plan_takes_one_split_at_the_loop_shapes(name):
+    B, S, H, kvH, dh = LOOP_SHAPES[name]
+    for dtype in (torch.bfloat16, torch.float32):
+        assert launch_plan(B, S, H, kvH, dh, dtype, H100_SMS)[1] == 1
+
+
+def test_flash_decode_plan_is_a_function_of_shapes_only():
+    """The plan reads shapes, a dtype and the card's multiprocessors,
+    never the lengths; bfloat16 at G >= 2 takes the tensor-core kernel
+    with 4 warps a block on grids of about one block a multiprocessor
+    (the decode loops, recurrentgemma-9b's window) and on wide groups, 2
+    on larger grids; G = 1 and float32 take the CUDA-core kernel."""
+    assert list(inspect.signature(plan_splits).parameters) == [
+        "columns", "S", "row_bytes", "sms"]
+    assert list(inspect.signature(launch_plan).parameters) == [
+        "B", "S", "H", "kvH", "dh", "dtype", "sms"]
+    for shape in (*ROW_SHAPES.values(), *LOOP_SHAPES.values()):
+        assert launch_plan(*shape, torch.bfloat16, H100_SMS) == \
+            launch_plan(*shape, torch.bfloat16, H100_SMS)
+    for name, (B, S, H, kvH, dh) in LOOP_SHAPES.items():
+        # G = 1 (seamless-m4t-medium) takes the CUDA-core kernel
+        assert launch_plan(B, S, H, kvH, dh, torch.bfloat16,
+                           H100_SMS)[2] == (4 if H > kvH else 0)
+    assert launch_plan(*ROW_SHAPES["recurrentgemma-9b window"],
+                       torch.bfloat16, H100_SMS)[2] == 4
+    assert launch_plan(*ROW_SHAPES["qwen2-vl-72b"], torch.bfloat16,
+                       H100_SMS)[2] == 2
+    assert mma_warps(10 ** 6, 33, H100_SMS) == 4     # 3 row tiles
+    assert launch_plan(8, 4096, 64, 4, 128, torch.float32,
+                       H100_SMS)[2] == 0
 
 
 def test_flash_decode_split_ranges_cover_each_element_once():
@@ -271,5 +476,7 @@ def test_flash_decode_split_ranges_cover_each_element_once():
         assert covered == list(range(lo_b, max(hi_b, lo_b)))
         sizes = [hi - lo for lo, hi in cuts]
         assert max(sizes) == -(-max(hi_b - lo_b, 0) // n_split)
-    # the long cache of the card's check: 64 (b, kv head) pairs, 17 splits
-    assert plan_splits(64, 32768, H100_SMS) == 17
+    # the long cache of the card's check: 64 (b, kv head) columns, the
+    # most splits
+    assert launch_plan(16, 32768, 8, 4, 256, torch.bfloat16,
+                       H100_SMS)[:2] == (1, MAX_SPLITS)
