@@ -7,7 +7,10 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. Build the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per kernel family, all started together; six families
-   hold the ports of the seven TPU kernels).
+   hold the ports of the seven TPU kernels). ptxas must report every
+   instance of the two bf16 attention kernels, 6 of
+   ``flash_decode_mma_kernel`` and 3 of ``flash_attention_wgmma_kernel``
+   (dh 64, 128, 256), with 0 bytes of spill.
 2. Serve requests through ``GNNInferenceService`` on ``cuda`` at the
    paper's GraphSAGE width (``configs/rapidgnn_paper.py`` ``sage``):
    ``reddit_sim`` (d=602, 50 classes), 4 greedy partitions, worker 0,
@@ -355,6 +358,26 @@ DECODE_SOURCE = ("src/repro_torch/kernels/flash_decode/csrc/"
                  "flash_decode_mma.cu")
 DECODE_G1_SOURCE = ("src/repro_torch/kernels/flash_decode/csrc/"
                     "flash_decode.cu")
+#: the source of the bf16 ``flash_attention`` rows (warpgroup MMA, TMA)
+ATTENTION_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                    "flash_attention_wgmma.cu")
+#: the ``mma.sync`` design's bf16 ``flash_attention`` times that the
+#: warpgroup-MMA kernel replaced (PERF.md section 6 row 6; NVIDIA H100
+#: 80GB HBM3, 700 W), one call a replay, logged beside each row
+OLD_ATTENTION_MS = {"flash_attention local": 1.221,
+                    "flash_attention attn": 1.466,
+                    "flash_attention_g16": 1.1831,
+                    "flash_attention_g8": 0.7422,
+                    "flash_attention_g1": 0.9827,
+                    "flash_attention_g8_s8192": 5.5939,
+                    "flash_attention_g1_encoder": 0.4582,
+                    "flash_attention_cross": 0.9179}
+#: the card-op name prefix of every bf16 ``flash_attention`` instance
+ATTENTION_KERNEL = "flash_attention_wgmma_kernel<"
+#: the ptxas instances of the bf16 attention kernels, none of which may
+#: spill: ``flash_decode_mma_kernel`` at dh 64, 128, 256 and 2 and 4
+#: warps, ``flash_attention_wgmma_kernel`` at dh 64, 128, 256
+BF16_INSTANCES = {"flash_decode_mma_kernel<": 6, ATTENTION_KERNEL: 3}
 
 DATASET = "reddit_sim"
 PARTS = 4
@@ -495,6 +518,15 @@ def beside_old(name: str, ms: float, lib_ms: float, loop: bool = False):
     if old is not None:
         txt += f"; the CUDA-core design {old:.4f} ({old / ms:.2f}x this)"
     return txt
+
+
+def beside_old_attention(name: str, ms: float) -> str:
+    """A ``flash_attention`` row's time against the ``mma.sync`` design's
+    (``OLD_ATTENTION_MS``), as a log phrase; empty for a row it has no
+    time for (a reduced configuration's)."""
+    old = OLD_ATTENTION_MS.get(name)
+    return "" if old is None else \
+        f"; the mma.sync design {old:.4f} ({old / ms:.2f}x this)"
 
 
 def card_line() -> str:
@@ -1654,19 +1686,23 @@ def prefill_phase(torch, device, cfg, params, counters, seq=None,
         del again
         if not same:
             raise RuntimeError("a second prefill gave other logits")
-    traced_s, busy_ms, ops = card_time_by_op(torch, run)
+    traced_s, busy_ms, ops = card_time_by_op(torch, run,
+                                             sum_of=(ATTENTION_KERNEL,))
+    attn_ms = ops.pop("all of " + ATTENTION_KERNEL, 0.0)
     out = {"tokens": seq, "first_ms": 1e3 * first_s,
            "ms": 1e3 * min(times), "tokens_per_s": seq / min(times),
            "peak_bytes": peak, "launches": launches,
            "traced_ms": 1e3 * traced_s, "card_busy_ms": busy_ms,
-           "card_ms_by_op": ops}
+           "card_ms_by_op": ops, "attention_card_ms": attn_ms}
     log(f"prefill {cfg.name}{mesh_tag(mesh)}: B=1 S={seq} in "
         f"{out['ms']:.2f} ms "
         f"({out['tokens_per_s']:.0f} tok/s; first call {out['first_ms']:.2f}"
         f" ms), peak device memory {peak / 2**30:.2f} GiB, launches "
         f"{json.dumps(launches)}; logits finite, second run bit-identical")
     log(f"prefill traced: {out['traced_ms']:.2f} ms, card busy "
-        f"{busy_ms:.2f} ms; card ms by op {json.dumps(ops)}")
+        f"{busy_ms:.2f} ms, flash_attention {attn_ms:.3f} of it "
+        f"({100 * attn_ms / max(busy_ms, 1e-9):.1f} %); card ms by op "
+        f"{json.dumps(ops)}")
     return out
 
 
@@ -1891,7 +1927,9 @@ def attn_kernel_rows(torch, device, cfg, params, launches):
             f"(SDPA, no softcap) bound_ms={r['bound'][0]:.4f} "
             f"({r['tflops']:.1f} TFLOP/s, "
             f"{100 * r['tflops'] * 1e12 / BF16_FLOPS_PER_S:.1f} % of the "
-            f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bound); max_abs_err "
+            f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bound"
+            f"{beside_old_attention('flash_attention ' + kind, r['ms'])}); "
+            f"max_abs_err "
             f"{err:.3e} (bf16, rtol=2^-7 atol=1e-5), {err32:.3e} (fp32, "
             f"rtol=1e-4 atol=1e-5)")
         log(f"flash_attention {kind} float32: fp32_ms={fp32_ms:.3f} "
@@ -1925,8 +1963,7 @@ def attn_kernel_rows(torch, device, cfg, params, launches):
     torch.cuda.synchronize()
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_mma.cu",
+        "source": ATTENTION_SOURCE,
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
         "launches": launches["flash_attention"],
         "max_abs_err": max(r["err"] for r in rows),
@@ -3533,9 +3570,7 @@ def attention_row(torch, device, name, desc, q, k, v, launches, *,
     flop = 4 * dh * H * B * (causal_pairs(Sq, window) if causal
                              else Sq * Skv)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    r = {"name": name, "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_attention_mma.cu",
+    r = {"name": name, "route": "cuda", "source": ATTENTION_SOURCE,
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:30",
          "launches": launches, "max_abs_err": err,
          "ms": device_ms(torch, kern, iters=5),
@@ -3552,7 +3587,8 @@ def attention_row(torch, device, name, desc, q, k, v, launches, *,
         f"{r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} (SDPA, "
         f"{mask}, enable_gqa) bound_ms={r['bound_ms']:.4f} "
         f"({r['bound_by']}, {flop:.4g} FLOP; {r['tflops']:.1f} TFLOP/s, "
-        f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound); 1 card op a "
+        f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound"
+        f"{beside_old_attention(name, r['ms'])}); 1 card op a "
         f"call; max_abs_err {err:.3e} over Skv {Skv}"
         f"{f' and {ragged_skv}' if ragged_skv else ''} (rtol=2^-7 "
         f"atol=1e-5); launches {launches} in the model's prefill")
@@ -4756,9 +4792,10 @@ def main() -> int:
         list(pool.map(_build.library, _build.FAMILIES))
     log(f"build: {len(_build.FAMILIES)} kernel families in "
         f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
-    # every instance of the bf16 decode kernel: no spill (its float32
-    # accumulator is 128 registers a thread at dh 256)
-    mma_spills, mma_seen = [], set()
+    # every instance of the bf16 decode and prefill kernels: no spill
+    # (their float32 accumulators are 128 registers a thread at dh 256)
+    seen = {prefix: set() for prefix in BF16_INSTANCES}
+    spills = []
     for fam in _build.FAMILIES:
         text = _build.library_path(fam).with_suffix(".log").read_text()
         fn = ""
@@ -4769,19 +4806,24 @@ def main() -> int:
                                  entry.group(1))
                 args = re.findall(r"L\w(\d+)E", name.group(2)) if name \
                     else ()
-                fn = f"{name.group(1)}<{','.join(args)}> " if name else ""
+                fn = f"{name.group(1)}<{','.join(args)}>" if name else ""
             elif "registers" in line or "spill" in line:
-                log(f"  ptxas {fam}: {fn}{line.strip()}")
+                log(f"  ptxas {fam}: {fn} {line.strip()}")
                 spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                   r"spill loads", line)
-                if fn.startswith("flash_decode_mma_kernel") and spill:
-                    mma_seen.add(fn)
+                prefix = next((p for p in seen if fn.startswith(p)), None)
+                if prefix and spill:
+                    seen[prefix].add(fn)
                     if int(spill.group(1)) or int(spill.group(2)):
-                        mma_spills.append(fn + line.strip())
-    if mma_spills or len(mma_seen) != 6:
-        raise RuntimeError(f"flash_decode_mma.cu: instances {sorted(mma_seen)}"
-                           f" (want 6: dh 64, 128, 256 at 2 and 4 warps), "
-                           f"spills {mma_spills}")
+                        spills.append(f"{fn} {line.strip()}")
+    found = {prefix: sorted(fns) for prefix, fns in seen.items()}
+    if spills or any(len(found[p]) != n for p, n in BF16_INSTANCES.items()):
+        raise RuntimeError(f"bf16 attention kernels: instances {found} "
+                           f"(want {BF16_INSTANCES}: flash_decode_mma.cu at "
+                           f"dh 64, 128, 256 and 2 and 4 warps, "
+                           f"flash_attention_wgmma.cu at dh 64, 128, 256), "
+                           f"spills {spills}")
+    log(f"ptxas gate: instances {json.dumps(found)}, 0 bytes of spill")
 
     counters = [search_ops.LAUNCHES, assemble_ops.LAUNCHES,
                 gather_ops.LAUNCHES]

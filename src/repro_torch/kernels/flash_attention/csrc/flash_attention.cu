@@ -1,7 +1,7 @@
 // Causal online-softmax attention forward (prefill) for Hopper (sm_90a),
 // GQA, optional sliding window, fused tanh logit softcap: the float32
 // kernel, on the CUDA cores, and the C entry point. bfloat16 inputs go to
-// the tensor-core kernel in flash_attention_mma.cu.
+// the warpgroup-MMA kernel in flash_attention_wgmma.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py
 // `_kernel` / `flash_attention`: a (B, kvH, S/tq, S/tk) grid whose KV axis
@@ -341,7 +341,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// the bfloat16 kernel, flash_attention_mma.cu
+// the bfloat16 kernel, flash_attention_wgmma.cu
 cudaError_t flash_attention_bf16_mma(const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
                                      int Skv, int H, int kvH, int dh,

@@ -1,5 +1,5 @@
 """``ctypes`` binding of the CUDA ``flash_attention`` kernels
-(``csrc/flash_attention.cu``, ``csrc/flash_attention_mma.cu``).
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_wgmma.cu``).
 
 Replaces the TPU kernel ``repro/kernels/flash_attention/
 flash_attention.py`` ``_kernel`` / ``flash_attention``: a
@@ -10,10 +10,13 @@ head) axis, so any group size G fits one tile shape; it walks its KV
 tiles in a loop, from the first key the window admits to the last the
 causal mask admits (the last of k/v's own length Skv without a mask),
 holding (m, l, acc) in registers. The C entry point
-dispatches by dtype: bfloat16 runs on the tensor cores (bf16 products
-with float32 accumulators, p split into two bf16 terms for P.V, K/V
-through a two-stage ``cp.async`` ring), float32 on the CUDA cores. The
-bound is the operations: ``4 dh`` FLOP per valid (q head, key) pair.
+dispatches by dtype: bfloat16 runs on the tensor cores through warpgroup
+MMA (bf16 products with float32 accumulators, p split into two bf16
+terms for P.V; a producer warp loads K/V by TMA into a two-stage
+``mbarrier`` ring, two consumer warpgroups of 64 rows take turns at the
+tensor cores; the tensor maps are encoded for each call), float32 on
+the CUDA cores. The bound is the operations: ``4 dh`` FLOP per valid
+(q head, key) pair.
 """
 from __future__ import annotations
 

@@ -73,7 +73,7 @@
 // memory.
 //
 // Arithmetic: float32-grade on bf16 tensor cores, as in
-// flash_attention_mma.cu. A bf16 x bf16 product is exact in float32, so
+// flash_attention_wgmma.cu. A bf16 x bf16 product is exact in float32, so
 // S is the float32 einsum up to the order of its sums; the scale is
 // applied to the float32 sum, then the softcap (tanhf); the online max and
 // sum are float32 in base 2 (log2(e) folded into the scale; m is returned

@@ -203,8 +203,9 @@ FLASH_ATTN_CASES = {
     "g2_dh64_causal_softcap_bf16": (3, 100, 4, 2, 64, True, 0, 50.0,
                                     "bfloat16"),
     "s_128_tile_multiple": (1, 128, 4, 2, 64, True, 0, 0.0, "float32"),
-    # bfloat16 (the tensor-core kernel: 128-row blocks, 16-row warp
-    # tiles, 64-key tiles in a two-stage ring, dh padded to 64/128/256)
+    # bfloat16 (the warpgroup-MMA kernel: 128-row blocks, 64 rows a
+    # consumer warpgroup, 128-key tiles (64 at dh 256) by TMA in a
+    # two-stage ring, dh zero-filled to 64/128/256)
     "bf16_s1_g8_dh256_softcap": (1, 1, 8, 1, 256, True, 0, 50.0,
                                  "bfloat16"),
     "bf16_s63_dh48_g2_softcap": (2, 63, 4, 2, 48, True, 0, 50.0,

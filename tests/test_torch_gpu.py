@@ -457,6 +457,67 @@ def test_flash_attention_without_mask_equals_plain_on_card(cuda, name):
     assert torch.equal(again, got)
 
 
+#: the warpgroup-MMA kernel's edges, (B, S, Skv, H, kvH, dh, causal,
+#: window, softcap): k/v lengths that end inside a TMA box (128 keys a
+#: box at dh <= 128, 64 at dh 256), dh 48 and 72 zero-filled inside the
+#: 64 and 128 instances, G = 3 and 16 with a group's rows split across
+#: the two consumer warpgroups' 64-row edge, S = 1, and the served
+#: models' first attention layers (PERF.md section 6 row 6) at a reduced
+#: S, gemma2-2b's and recurrentgemma-9b's windows still binding
+WGMMA_ROWS = {
+    "skv129_across_a_box_g1_dh64": (1, 200, 129, 4, 4, 64, False, 0, 0.0),
+    "skv65_across_a_box_g2_dh256": (1, 100, 65, 4, 2, 256, False, 0, 50.0),
+    "skv4001_s1_g1_dh64": (2, 1, 4001, 4, 4, 64, False, 0, 0.0),
+    "dh48_in_64_g2_softcap": (1, 257, 257, 4, 2, 48, True, 0, 50.0),
+    "dh72_in_128_g3_window": (2, 150, 150, 6, 2, 72, True, 40, 30.0),
+    "g3_across_warpgroups_dh128": (1, 129, 129, 9, 3, 128, True, 0, 0.0),
+    "g16_across_warpgroups_dh256_window": (1, 300, 300, 16, 1, 256, True,
+                                           100, 0.0),
+    "s1_g8_dh128": (1, 1, 1, 8, 1, 128, True, 0, 0.0),
+    "gemma2_local_s4608": (1, 4608, 4608, 8, 4, 256, True, 4096, 50.0),
+    "gemma2_global_s2048": (1, 2048, 2048, 8, 4, 256, True, 0, 50.0),
+    "recurrentgemma_local_s2560": (1, 2560, 2560, 16, 1, 256, True, 2048,
+                                   0.0),
+    "qwen3_moe_s1024": (1, 1024, 1024, 32, 4, 128, True, 0, 0.0),
+    "qwen2_vl_s1024": (1, 1024, 1024, 64, 8, 128, True, 0, 0.0),
+    "seamless_self_s2048": (1, 2048, 2048, 16, 16, 64, True, 0, 0.0),
+    "seamless_encoder_s1024": (1, 1024, 1024, 16, 16, 64, False, 0, 0.0),
+    "seamless_cross_s2048": (1, 2048, 1024, 16, 16, 64, False, 0, 0.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(WGMMA_ROWS))
+def test_flash_attention_wgmma_edges_on_card(cuda, name):
+    """bf16 on the warpgroup-MMA kernel within ``_tol("bfloat16")`` of
+    the plain version, two runs bit-identical, a CUDA graph's replay
+    equal to the eager call, one launch and one card operation a call."""
+    B, S, Skv, H, kvH, dh, causal, window, cap = WGMMA_ROWS[name]
+    gen = torch.Generator().manual_seed(S + 7 * Skv + H + dh)
+    q = torch.randn((B, S, H, dh), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, Skv, kvH, dh), generator=gen)
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=cap)
+
+    def call():
+        return t_fa_ops.flash_attention(q, k, v, **kw)
+    before = t_fa_ops.LAUNCHES.value
+    got, again = call(), call()
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert t_fa_ops.LAUNCHES.value == before + 2
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **_tol("bfloat16"))
+    assert torch.equal(got, again)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got)
+    assert device_kernels(call) == 1
+
+
 @pytest.mark.gpu
 def test_masked_attention_with_another_key_length_raises_on_card(cuda):
     """A causal or windowed call with Skv != Sq has no diagonal in the
