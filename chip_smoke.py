@@ -62,11 +62,15 @@ Phases (any failure raises, so the exit code is non-zero):
    read-once bound and its own floor) and ``gather_agg_bwd`` (layer 1's
    shapes, and layer 0's for
    reference; bit-equal to the CPU plain version, which adds in edge
-   order, and to a second run, and within ``rtol=atol=1e-5`` of the card
-   plain version, whose ``index_add_`` adds in atomic order; at most 3
-   card operations a call at layer 1, counted by ``torch.profiler``)
-   against their plain versions on the card, with their times beside
-   ``torch.sort`` and ``index_add_``.
+   order, and to a second run, and within ``rtol=atol=1e-5`` (layer 0:
+   ``1e-4``) of the card plain version, whose ``index_add_`` adds in
+   atomic order; at most 3 card operations a call at both layers, counted
+   in a captured CUDA graph; each card op's own time from
+   ``torch.profiler``; beside its byte bound, the order's own floor: the
+   longest run of the batch's sources times 4 cycles of one dependent
+   float add at the card's maximum SM clock) against their plain versions
+   on the card, with their times beside ``torch.sort`` and
+   ``index_add_``.
 
 6. Decode serving: gemma2-2b (``configs/gemma2_2b.py``) at its full width
    and depth in bfloat16, weights from a seeded ``torch.Generator`` on
@@ -502,6 +506,33 @@ def device_ops(torch, fn) -> list:
             kinds.append(_NODE_TYPES[kind.value])
     del graph
     return kinds
+
+
+#: cycles of one dependent float add on the card, for the order's floor
+ADD_CYCLES = 4
+
+
+def max_sm_mhz() -> float:
+    """The card's maximum SM clock (``nvidia-smi clocks.max.sm``), MHz."""
+    p = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return float(p.stdout.strip().splitlines()[0])
+
+
+def op_times_ms(torch, fn, calls: int = 20) -> dict:
+    """Each card op's own time a ``fn()`` call, by kernel name (its first
+    50 characters), from ``torch.profiler`` over ``calls`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:50]: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S):
@@ -1485,10 +1516,17 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
             return gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
                                              fanout=fo)
         ops = device_ops(torch, call)
+        longest = int(torch.bincount(src[msk]).max().item()) \
+            if unmasked else 0
         r = {"what": what, "err": (got - want).abs().max().item(),
              "bound": bound_ms(nbytes, 2 * unmasked * d),
+             # the order's floor: each column's chain of dependent adds is
+             # as long as the longest run, and edge order forbids a tree
+             "order_floor_ms": longest * ADD_CYCLES / (max_sm_mhz() * 1e3),
+             "longest_run": longest,
              "ms": device_ms(torch, call),
              "ms_in_a_graph": device_ms_per_call(torch, call, calls=10),
+             "op_ms": op_times_ms(torch, call),
              "plain_ms": device_ms(torch, lambda: gather_agg_bwd_ref(
                  g, src, msk, m_max, nd, fo)),
              "library_ms": device_ms(torch, library),
@@ -1498,15 +1536,18 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
         log(f"gather_agg_bwd {what}: {r['shape']} ms={r['ms']:.4f} "
             f"({r['ms_in_a_graph']:.4f} a call in a graph of 10) plain_ms="
             f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"(index_add_) bound_ms={r['bound'][0]:.4f}; {len(ops)} card "
-            f"ops a call ({', '.join(ops)}); "
-            f"max_abs_err={r['err']:.3e} against the card plain version, "
+            f"(index_add_) bound_ms={r['bound'][0]:.4f} (bytes), the "
+            f"order's floor {r['order_floor_ms']:.4f} (longest run "
+            f"{longest} x {ADD_CYCLES} cycles at {max_sm_mhz():.0f} MHz); "
+            f"{len(ops)} card ops a call ({', '.join(ops)}), each op's ms "
+            f"{json.dumps({k: round(v, 4) for k, v in r['op_ms'].items()})}"
+            f"; max_abs_err={r['err']:.3e} against the card plain version, "
             f"bit-equal to the CPU plain version and to a second run")
+        if len(ops) > 3:
+            raise RuntimeError(f"gather_agg_bwd ran {len(ops)} card "
+                               f"operations a call at {what}: {ops}")
         return r
     bwd1 = bwd_row(1, cfg.hidden_dim, "layer 1 (the path)", 1e-5)
-    if bwd1["device_ops"] > 3:
-        raise RuntimeError(f"gather_agg_bwd ran {bwd1['device_ops']} card "
-                           f"operations a call at layer 1: {bwd1['ops']}")
     # layer 0's hub rows sum thousands of terms: the card's atomic order
     # moves the plain version by more than 1e-5 there
     bwd0 = bwd_row(0, cfg.in_dim, "layer 0 (for reference, not launched "

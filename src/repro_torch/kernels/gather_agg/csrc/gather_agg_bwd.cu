@@ -7,114 +7,137 @@
 // (`_kernel_bwd`, one segment_sum of the scaled messages over edge_src).
 // A scatter-add with float atomics would sum each row in whatever order
 // the atomics land, so two runs could differ in the last bit. Here the
-// sum is a gather: each row's edges are listed, put in edge order, and
-// added in that order, so the result is the sequential scatter-add in
-// edge order, bit for bit. Edges are dst-major, so edge order is
-// ascending dst row, and two edges of one row with the same dst row add
-// the same term: a row's edges sorted by dst row are in edge order.
+// sum is a gather: each row's edges are listed in edge order and added in
+// that order, so the result is the sequential scatter-add in edge order,
+// bit for bit. No float is ever added atomically; threads share only
+// integer counts and slots.
 //
 // Bound: bytes. The (m, d) float32 output written once is nearly all of
-// them (21.6 MB at the training path's layer 1, 6.5 us at 3.35 TB/s);
-// g (1 MB) and the edge lists are small. What held the first design back
-// was everything before the output: twelve launches (a sentinel key
-// array, a six-launch multi-block radix sort, a count pass, a pass of
-// m + 1 binary searches) and then one block per (row, 128 columns), more
-// than half of them writing only zeros. On this card each dependent trip
-// to memory costs microseconds while the output streams out, so the
-// design counts trips. Two launches, for up to 16,384 edges and 32,768
-// rows:
+// them at the training path's layer 1 (21.6 MB, 6.5 us at 3.35 TB/s), and
+// most of it is the zeros of rows no edge reads. At layer 0 (115,550 edges
+// of 602 floats) the quotient rows the sums gather are 278 MB, read
+// through L2, and one row is read by 3,847 edges: its sum is a chain of
+// 3,847 dependent adds a column, which no order but edge order may
+// shorten. Two launches, one route at every size:
 //
-//   1. order_kernel, one block a multiprocessor. Block 0 is a counting
-//      sort by source in shared memory: it reads edge_src and edge_mask
-//      directly, counts each source's and each dst row's unmasked edges,
-//      scans the source counts into each row's first slot, places each
-//      edge in its source's run at a slot an integer atomic hands out (so
-//      in no fixed order), and writes the runs out once, coalesced: each
-//      edge's dst row, count and source. Meanwhile the other blocks sum
-//      the hub rows (more than kWarpRun edges), whose sums are long
-//      chains of dependent adds: each block counts the sources itself
-//      and, for its share of (hub row, kHubCols columns; kWideCols for a
-//      row of at most kWideRun edges, whose chain is short), counts the
-//      row's dst rows from the edge list (a histogram over dst rows, so
-//      they come out in order), loads and divides all the row's values
-//      into shared memory at once, and adds them one thread a column.
-//   2. row_sum_kernel. Some warps take windows of kWindow placed edges:
-//      a warp loads the 32 edges from its window's start at once, keeps
-//      the runs that begin in the window (at most kWarpRun edges each, so
-//      they end among the 32), sorts their edges by (run, dst row) across
-//      its lanes (a bitonic network) and sums them in that order, kBatch
-//      edges' rows in flight and float4 columns a lane, storing each row
-//      as it completes. The other warps write the rows no edge reads, 32
-//      rows at a time, as float4 stores of zero.
+//   1. order_kernel: the by-source order, a counting sort spread over a
+//      thread block cluster (launched with cudaLaunchKernelEx, `cluster`
+//      blocks). Each cluster owns a tile of `tile_rows` sources (as many
+//      tiles as fill the card in one wave, each at most kMaxTileRows
+//      sources, one block's histogram); block b of the cluster reads the
+//      b-th slice of the dst rows (whole rows, in edge order) and counts
+//      its edges whose source lies in the tile into its own shared
+//      histogram, besides the valid edges below the tile and in all, and
+//      the unmasked edges of its own share of the dst rows. While the
+//      cluster meets (a split barrier), each block writes the quotients
+//      q = g / max(cnt, 1) of that share, once a (dst row, column), the
+//      plain version's g / cnt, in rows padded to 16 bytes for the TMA.
+//      Each block then owns a 1/cluster share of the tile's sources: it
+//      reads their counts from every block's histogram through distributed
+//      shared memory, scans them, and writes back into each block's
+//      histogram the first slot of each (source, block) pair; the blocks'
+//      per-owner counts, exchanged the same way, place the share, and the
+//      blocks' counts below the tile place the tile. The owners write each
+//      row's first slot (`begin`), for each sum block the row (and its
+//      first slot) where its share of the work starts, and, by TMA bulk
+//      stores from a zeroed shared tile, the zeros of the rows no edge
+//      reads, which stream out while the block places its edges: a round
+//      of 4,096 edges is compacted into shared memory by owner warp
+//      (source % 16) and, within an owner, in edge order (four ballots of
+//      the owner's bits), and warp w places its sources' edges 32 at a
+//      time, ranked by __match_any_sync from each source's cursor. One warp
+//      places all of a source's edges of a slice, in edge order, and the
+//      slices are in edge order, so each source's run comes out in edge
+//      order: no re-sort, no second count. A placed edge is its dst row.
+//   2. sum_kernel: the placed edges are cut into equal shares, one a block
+//      over the whole card, so that a tile of many edges costs no more
+//      than one of few; a row that straddles two shares is cut by columns
+//      in proportion. A block lays out a window of its rows (their first
+//      slots and placed edges in shared memory, one round trip) and sums
+//      them in chunks of (placed edges x columns) quotients: warp 0 loads
+//      each slot's q row by a TMA bulk copy into a ring of three 64 KB
+//      buffers (full and empty mbarriers), the other 15 warps add, a row
+//      to a group of threads (a thread a column, or two), in edge order,
+//      and store it after its last edge. A run longer than a chunk is cut
+//      into pieces whose sums carry from piece to piece, so that each
+//      column's chain of adds runs as fast as the loads feed it. A long row
+//      cut to a narrow column range (a hub row's share of a few columns),
+//      where a TMA request a slot would fetch a few columns, is taken by
+//      the whole block after the ring, every thread copying 16-byte cells
+//      with cp.async into two buffers while all add.
 //
-// Larger edge lists (layer 0's 115,550) take the multi-block seg_sort
-// route: the wrapper sorts (src or INT32_MAX, e) with it, runs_kernel
-// lays out the same runs (in edge order) and lists the hub rows,
-// hub_kernel sums those, and the same row_sum_kernel the rest. Threads
-// share only integer counters (counts, slots); no float is ever added
-// atomically.
+// Every row and every scratch entry is written before it is read: no
+// memset. A refused launch (too much shared memory, a cluster size the
+// card refuses) is returned to the wrapper, which raises.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 
-constexpr int kOrderThreads = 1024;
-constexpr int kMaxRounds = 16;  // edges a thread takes in the order kernel
-constexpr int kOrderMaxEdges = kOrderThreads * kMaxRounds;
-constexpr int kOrderMaxRows = 32768;
-// a placed edge is (source << kEdgeBits) | edge: 15 + 14 bits
-constexpr int kEdgeBits = 14;
-static_assert(kOrderMaxEdges <= (1 << kEdgeBits), "edge index bits");
-constexpr int kWarpRun = 16;    // longer runs are hub rows
+// --- order_kernel -----------------------------------------------------------
+constexpr int kMaxTileRows = 16384;  // a tile's sources: one histogram
+constexpr int kMinCluster = 8;
+constexpr int kMaxCluster = 16;
+constexpr int kMaxOwn = kMaxTileRows / kMinCluster + 1;  // a block's share
+constexpr int kPer = 8;                  // edges a thread places at once
+constexpr int kRound = kThreads * kPer;  // edges a placement round takes
+constexpr int kOwners = 16;  // a tile source's placing warp: source % 16
+static_assert(kOwners == kWarps, "one placing warp a bucket");
+constexpr int kBuckets = kOwners * kPer * kWarps;  // (owner, u, warp) counts
+constexpr int kQBatch = 16;  // quotients a thread has in flight
+constexpr int kQRows = 1024;  // quotient rows whose counts 1. takes
+constexpr int kZeroBytes = 16 * 1024;  // a zeroed tile TMA stores from
+constexpr size_t kOrderSmem =
+    kZeroBytes +
+    sizeof(uint32_t) * (kMaxTileRows + kMaxOwn + 1 + 2 * kRound + kBuckets);
 
-// hub rows: a block item is kHubCols columns of a row with more than
-// kWideRun edges, or kWideCols columns of a shorter one; one column a
-// thread; dst rows counted kHubChunk at a time; a row's list of edges
-// taken kHubList at a time and staged in shared memory (kHubList x
-// kHubCols floats)
-constexpr int kHubCols = 64;
-constexpr int kWideRun = 32;
-constexpr int kWideCols = 256;
-constexpr int kHubChunk = 4096;
-constexpr int kHubList = 512;
-constexpr int kHubUnroll = 8;  // loads a thread has in flight there
-constexpr size_t kStageBytes = sizeof(float) * kHubList * kHubCols;
-constexpr size_t kListBytes = (sizeof(int) + sizeof(float)) * kHubList;
+// --- sum_kernel -------------------------------------------------------------
+constexpr int kWin = 1024;   // rows a sum block lays out at once
+constexpr int kSeg = 4096;   // placed edges whose dst rows it holds
+constexpr int kConsumers = kThreads - 32;  // all warps but the loader
+constexpr int kMaxCols = 2 * kConsumers;   // vector columns a pass takes
+constexpr int kStages = 3;                 // chunks the loader keeps ahead
+constexpr int kStageBytes = 64 * 1024;     // each stage buffer
+constexpr int kBarBytes = 128;  // the ring's barriers, then the buffers
+constexpr int kBulkMin = 1024;  // a slot's stage row bytes worth a TMA copy
+constexpr int kBlockRun = 64;   // a narrow cut row's edges for the block
+constexpr size_t kSumSmem = kBarBytes +
+                            kStages * static_cast<size_t>(kStageBytes) +
+                            sizeof(int32_t) * ((kWin + 1) + kSeg);
 
-// block 0: slot counters (m + 1), the placed edges (n_edges) and the dst
-// counts (nd <= n_edges, 16 bits each), at the most
-constexpr size_t kOrderBytes = sizeof(uint32_t) * (kOrderMaxRows + 1) +
-                               sizeof(int32_t) * kOrderMaxEdges +
-                               sizeof(uint16_t) * kOrderMaxEdges;
-// the hub blocks: source counts, later the stage; dst row counts; the
-// list; dst counts; the hub rows
-constexpr size_t kCountBytes = sizeof(uint32_t) * (kOrderMaxRows + 1);
-constexpr size_t kRegionA = kCountBytes > kStageBytes ? kCountBytes
-                                                      : kStageBytes;
-constexpr size_t kHubBytes = kRegionA + sizeof(uint32_t) * kHubChunk +
-                             kListBytes + sizeof(uint16_t) * kOrderMaxEdges +
-                             sizeof(int32_t) * (kOrderMaxEdges / 17 + 1);
-constexpr size_t kOrderSmem = kOrderBytes > kHubBytes ? kOrderBytes
-                                                      : kHubBytes;
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
 
-constexpr int kHubThreads = 1024;   // hub_kernel, the seg_sort route's
-constexpr int kSumThreads = 256;
-constexpr int kSumWarps = kSumThreads / 32;
-constexpr int kWindow = 16;    // placed edges a warp starts runs in
-constexpr int kBatch = 8;      // edges' rows a lane has in flight
-constexpr int kChunks = 2;     // vectors a lane owns in one column pass
-constexpr int kThreads = 256;
+// n / d for 32-bit n and 1 <= d < 2^31 by a multiply and shifts
+// (Granlund and Montgomery), set up once a kernel: a hardware division
+// costs tens of instructions.
+struct FastDiv {
+  uint32_t mul;
+  int s1, s2;
+  __device__ explicit FastDiv(uint32_t d) {
+    const int l = d > 1 ? 32 - __clz(d - 1) : 0;
+    mul = static_cast<uint32_t>(((1ull << 32) * ((1ull << l) - d)) / d + 1);
+    s1 = min(l, 1);
+    s2 = max(l - 1, 0);
+  }
+  __device__ uint32_t operator()(uint32_t n) const {
+    const uint32_t t = __umulhi(mul, n);
+    return (t + ((n - t) >> s1)) >> s2;
+  }
+};
 
-// exclusive scan of v over the block (blockDim.x a multiple of 32, at
-// most 1024); *total gets the sum. Two barriers.
-__device__ __forceinline__ uint32_t block_scan(uint32_t v,
-                                               uint32_t* __restrict__ tot,
+// Exclusive scan of v over the block; *total gets the sum. Two barriers.
+__device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* tot,
                                                uint32_t* total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
   uint32_t inc = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -124,7 +147,7 @@ __device__ __forceinline__ uint32_t block_scan(uint32_t v,
   if (lane == 31) tot[warp] = inc;
   __syncthreads();
   if (warp == 0) {
-    const uint32_t t = lane < warps ? tot[lane] : 0u;
+    const uint32_t t = lane < kWarps ? tot[lane] : 0u;
     uint32_t ti = t;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -139,333 +162,401 @@ __device__ __forceinline__ uint32_t block_scan(uint32_t v,
   return tot[warp] + inc - v;
 }
 
-// Each dst row's unmasked edges, a thread a row, its mask bytes loaded at
-// once (an atomic an edge would meet fanout lanes on one address).
-__device__ __forceinline__ void dst_counts(const uint8_t* __restrict__ mask,
-                                           int nd, int fanout,
-                                           uint16_t* __restrict__ dcnt) {
-  for (int i = threadIdx.x; i < nd; i += blockDim.x) {
-    const uint8_t* mk = mask + static_cast<size_t>(i) * fanout;
-    uint32_t c = 0;
-    if (fanout <= 32) {
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-        if (j < fanout) c += mk[j] ? 1u : 0u;
-    } else {
-      for (int j = 0; j < fanout; ++j) c += mk[j] ? 1u : 0u;
-    }
-    dcnt[i] = static_cast<uint16_t>(c);
-  }
+// The two halves of a cluster barrier, for work between them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// The sources of a thread's edges tid + r * kOrderThreads, loaded at
-// once: -1 for a masked, absent or out-of-range one.
-__device__ __forceinline__ void load_edges(const int32_t* __restrict__ src,
-                                           const uint8_t* __restrict__ mask,
-                                           int n_edges, int m,
-                                           int (&src_r)[kMaxRounds]) {
-  uint32_t on = 0;
-#pragma unroll
-  for (int r = 0; r < kMaxRounds; ++r) {
-    const int e = threadIdx.x + r * kOrderThreads;
-    src_r[r] = e < n_edges ? __ldg(src + e) : -1;
-    on |= (e < n_edges && mask[e] ? 1u : 0u) << r;
-  }
-#pragma unroll
-  for (int r = 0; r < kMaxRounds; ++r)
-    if (src_r[r] >= m || !((on >> r) & 1u)) src_r[r] = -1;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// acc += g[list_i[e], c0 + tid] / list_c[e] for e in [0, n), in order,
-// for the first `cols` threads (n * cols <= kHubList * kHubCols): all
-// the block's threads load and divide the values into stage, kHubUnroll
-// loads each in flight, then one thread a column adds them.
-__device__ __forceinline__ void stage_sum(const float* __restrict__ g, int d,
-                                          const int* __restrict__ list_i,
-                                          const float* __restrict__ list_c,
-                                          int n, int c0, int cols,
-                                          float* __restrict__ stage,
-                                          float& acc) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int cells = n * cols;
-  for (int f0 = tid; f0 < cells; f0 += nt * kHubUnroll) {
-    float q[kHubUnroll];
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
 #pragma unroll
-    for (int u = 0; u < kHubUnroll; ++u) {
-      const int f = f0 + u * nt;
-      const int e = f / cols, col = c0 + f % cols;
-      q[u] = f < cells && col < d
-                 ? __ldg(g + static_cast<size_t>(list_i[e]) * d + col)
-                 : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kHubUnroll; ++u) {
-      const int f = f0 + u * nt;
-      if (f < cells) stage[f] = q[u] / list_c[f / cols];
-    }
-  }
-  __syncthreads();
-  if (tid < cols)
-    for (int e = 0; e < n; ++e) acc += stage[e * cols + tid];
-  __syncthreads();
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
 }
 
-// Block 0 of order_kernel: the counting sort.
-__device__ __forceinline__ void order_block(
+// The sources and mask bits of edges e0 + u * kThreads + tid, u < N.
+template <int N>
+__device__ __forceinline__ void load_round(
     const int32_t* __restrict__ edge_src,
-    const uint8_t* __restrict__ edge_mask, int n_edges, int nd, int fanout,
-    int m, int32_t* __restrict__ ord_i, float* __restrict__ ord_c,
-    int32_t* __restrict__ ord_s, int32_t* __restrict__ begin,
-    uint32_t* __restrict__ smem, uint32_t* __restrict__ tot) {
-  uint32_t* hist = smem;                                       // [m + 1]
-  int32_t* placed = reinterpret_cast<int32_t*>(hist + m + 1);  // [n_edges]
-  uint16_t* dcnt = reinterpret_cast<uint16_t*>(placed + n_edges);  // [nd]
-  const int tid = threadIdx.x;
-  for (int s = tid; s <= m; s += kOrderThreads) hist[s] = 0;
-  dst_counts(edge_mask, nd, fanout, dcnt);
-  int src_r[kMaxRounds];
-  load_edges(edge_src, edge_mask, n_edges, m, src_r);
-  __syncthreads();
-  // 1. each source's edges (integer atomics: a count is order-free)
+    const uint8_t* __restrict__ edge_mask, long long e0, long long e1,
+    int (&src)[N], bool (&on)[N]) {
 #pragma unroll
-  for (int r = 0; r < kMaxRounds; ++r)
-    if (src_r[r] >= 0) atomicAdd(hist + src_r[r], 1u);
-  __syncthreads();
-  // 2. exclusive scan of hist[0..m], `per` entries a thread
-  {
-    const int per = (m + 1 + kOrderThreads - 1) / kOrderThreads;
-    const int f0 = min(tid * per, m + 1);
-    const int f1 = min(f0 + per, m + 1);
-    uint32_t sum = 0;
-    for (int f = f0; f < f1; ++f) sum += hist[f];
-    uint32_t total;
-    uint32_t run = block_scan(sum, tot, &total);
-    for (int f = f0; f < f1; ++f) {
-      const uint32_t c = hist[f];
-      hist[f] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
-  // 3. each row's first slot (row m's is the total)
-  for (int s = tid; s <= m; s += kOrderThreads)
-    begin[s] = static_cast<int32_t>(hist[s]);
-  __syncthreads();
-  // 4. each edge into its source's run (slot order is free), as
-  //    (source << kEdgeBits) | edge
-#pragma unroll
-  for (int r = 0; r < kMaxRounds; ++r)
-    if (src_r[r] >= 0)
-      placed[atomicAdd(hist + src_r[r], 1u)] =
-          (src_r[r] << kEdgeBits) | (tid + r * kOrderThreads);
-  __syncthreads();
-  // 5. the runs out, coalesced: each edge's dst row, count and source
-  const int n_placed = static_cast<int>(hist[m]);
-  for (int k = tid; k < n_placed; k += kOrderThreads) {
-    const int p = placed[k];
-    const int i = (p & ((1 << kEdgeBits) - 1)) / fanout;
-    ord_i[k] = i;
-    ord_c[k] = fmaxf(static_cast<float>(dcnt[i]), 1.0f);
-    ord_s[k] = p >> kEdgeBits;
+  for (int u = 0; u < N; ++u) {
+    const long long e = e0 + static_cast<long long>(u) * kThreads +
+                        threadIdx.x;
+    const bool in = e < e1;
+    src[u] = in ? __ldg(edge_src + e) : -1;
+    on[u] = in && __ldg(edge_mask + e) != 0;
   }
 }
 
-// Blocks 1.. of order_kernel: the hub rows, straight from the edge list.
-__device__ __forceinline__ void hub_block(
-    const int32_t* __restrict__ edge_src,
-    const uint8_t* __restrict__ edge_mask, int n_edges, int nd, int fanout,
-    int m, const float* __restrict__ g, int d, float* __restrict__ dh,
-    uint32_t* __restrict__ smem, uint32_t* __restrict__ tot) {
-  uint8_t* base = reinterpret_cast<uint8_t*>(smem);
-  uint32_t* hist = smem;                            // region A: counts,
-  float* stage = reinterpret_cast<float*>(smem);    // later the stage
-  uint32_t* mult = reinterpret_cast<uint32_t*>(base + kRegionA);
-  int* list_i = reinterpret_cast<int*>(mult + kHubChunk);
-  float* list_c = reinterpret_cast<float*>(list_i + kHubList);
-  uint16_t* dcnt = reinterpret_cast<uint16_t*>(list_c + kHubList);
-  int* hubs = reinterpret_cast<int*>(dcnt + kOrderMaxEdges);
-  const int tid = threadIdx.x;
-  for (int s = tid; s < m; s += kOrderThreads) hist[s] = 0;
-  dst_counts(edge_mask, nd, fanout, dcnt);
-  // the thread's edges, kept for counting each hub row's dst rows
-  int src_r[kMaxRounds];
-  load_edges(edge_src, edge_mask, n_edges, m, src_r);
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < kMaxRounds; ++r)
-    if (src_r[r] >= 0) atomicAdd(hist + src_r[r], 1u);
-  __syncthreads();
-  // the hub rows, ascending: those with more than kWideRun edges first,
-  // kHubCols columns an item, then the others, kWideCols columns an item
-  uint32_t n_long, n_hubs;
-  {
-    const int per = (m + kOrderThreads - 1) / kOrderThreads;
-    const int f0 = min(tid * per, m);
-    const int f1 = min(f0 + per, m);
-    uint32_t c_long = 0, c_mid = 0;
-    for (int f = f0; f < f1; ++f) {
-      c_long += hist[f] > static_cast<uint32_t>(kWideRun) ? 1u : 0u;
-      c_mid += hist[f] > static_cast<uint32_t>(kWarpRun) &&
-               hist[f] <= static_cast<uint32_t>(kWideRun) ? 1u : 0u;
-    }
-    uint32_t p = block_scan(c_long, tot, &n_long);
-    __syncthreads();  // tot is read by every thread before it is reused
-    uint32_t n_mid;
-    uint32_t q = n_long + block_scan(c_mid, tot, &n_mid);
-    n_hubs = n_long + n_mid;
-    for (int f = f0; f < f1; ++f) {
-      if (hist[f] > static_cast<uint32_t>(kWideRun)) hubs[p++] = f;
-      else if (hist[f] > static_cast<uint32_t>(kWarpRun)) hubs[q++] = f;
-    }
+// Rows [ra, rb) of dh (m, d) set to zeros: the 16-byte aligned bytes by
+// TMA bulk stores from the zeroed shared tile, the ends by plain stores.
+__device__ __forceinline__ void zero_rows(float* __restrict__ dh, int d,
+                                          int ra, int rb,
+                                          const uint8_t* zeros) {
+  uint8_t* out = reinterpret_cast<uint8_t*>(dh);
+  const long long a = static_cast<long long>(ra) * d * 4;
+  const long long e = static_cast<long long>(rb) * d * 4;
+  const long long a16 = min((a + 15) & ~15ll, e), e16 = max(e & ~15ll, a16);
+  for (long long x = a; x < a16; x += 4)
+    *reinterpret_cast<float*>(out + x) = 0.f;
+  for (long long x = a16; x < e16; x += kZeroBytes) {
+    const uint32_t n = static_cast<uint32_t>(
+        min(static_cast<long long>(kZeroBytes), e16 - x));
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            out + x),
+        "r"(smem_addr(zeros)), "r"(n)
+        : "memory");
   }
-  __syncthreads();
-  const int n_cc = (d + kHubCols - 1) / kHubCols;
-  const int n_wide = (d + kWideCols - 1) / kWideCols;
-  const int long_items = static_cast<int>(n_long) * n_cc;
-  const int items = long_items + static_cast<int>(n_hubs - n_long) * n_wide;
-  for (int it = blockIdx.x - 1; it < items; it += gridDim.x - 1) {
-    const bool wide = it >= long_items;
-    const int cols = wide ? kWideCols : kHubCols;
-    const int s = wide ? hubs[n_long + (it - long_items) / n_wide]
-                       : hubs[it / n_cc];
-    const int c0 = (wide ? (it - long_items) % n_wide : it % n_cc) * cols;
-    float acc = 0.f;
-    for (int a = 0; a < nd; a += kHubChunk) {
-      const int width = min(kHubChunk, nd - a);
-      __syncthreads();
-      for (int j = tid; j < kHubChunk; j += kOrderThreads) mult[j] = 0;
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < kMaxRounds; ++r) {
-        if (src_r[r] == s) {
-          const int i = (tid + r * kOrderThreads) / fanout - a;
-          if (i >= 0 && i < width) atomicAdd(mult + i, 1u);
-        }
-      }
-      __syncthreads();
-      constexpr int kPer = kHubChunk / kOrderThreads;
-      uint32_t mine[kPer];
-      uint32_t sum = 0;
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        mine[j] = mult[tid * kPer + j];
-        sum += mine[j];
-      }
-      uint32_t total;
-      const uint32_t pos = block_scan(sum, tot, &total);
-      for (uint32_t lb = 0; lb < total; lb += kHubList) {
-        __syncthreads();
-        uint32_t p = pos;
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) {
-          const int i = a + tid * kPer + j;
-          for (uint32_t r = 0; r < mine[j]; ++r, ++p) {
-            if (p >= lb && p < lb + kHubList) {
-              list_i[p - lb] = i;
-              list_c[p - lb] = fmaxf(static_cast<float>(dcnt[i]), 1.0f);
-            }
-          }
-        }
-        __syncthreads();
-        stage_sum(g, d, list_i, list_c,
-                  static_cast<int>(min(total - lb,
-                                       static_cast<uint32_t>(kHubList))),
-                  c0, cols, stage, acc);
-      }
-    }
-    if (tid < cols && c0 + tid < d)
-      dh[static_cast<size_t>(s) * d + c0 + tid] = acc;
-  }
+  for (long long x = e16; x < e; x += 4)
+    *reinterpret_cast<float*>(out + x) = 0.f;
 }
 
-__global__ void __launch_bounds__(kOrderThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 order_kernel(const int32_t* __restrict__ edge_src,
-             const uint8_t* __restrict__ edge_mask, int n_edges, int nd,
-             int fanout, int m, int32_t* __restrict__ ord_i,
-             float* __restrict__ ord_c, int32_t* __restrict__ ord_s,
-             int32_t* __restrict__ begin, const float* __restrict__ g, int d,
-             float* __restrict__ dh) {
+             const uint8_t* __restrict__ edge_mask, int nd, int fanout,
+             int m, int tile_rows, int sum_blocks,
+             const float* __restrict__ g, int d, float* __restrict__ q,
+             int32_t* __restrict__ ord, int32_t* __restrict__ begin,
+             int32_t* __restrict__ bounds, float* __restrict__ dh) {
   extern __shared__ __align__(16) uint32_t smem[];
+  uint8_t* zeros = reinterpret_cast<uint8_t*>(smem);  // kZeroBytes
+  uint32_t* hist = smem + kZeroBytes / 4;  // [tile_rows]: counts, then
+                                           // each source's cursor
+  uint32_t* own = hist + kMaxTileRows;  // [kMaxOwn + 1]
+  uint32_t* bufs = own + kMaxOwn + 1;   // [kRound]: compacted sources
+  int32_t* bufi = reinterpret_cast<int32_t*>(bufs + kRound);  // dst rows
+  uint32_t* bcnt = reinterpret_cast<uint32_t*>(bufi + kRound);  // [kBuckets]
   __shared__ uint32_t tot[33];
-  if (blockIdx.x == 0)
-    order_block(edge_src, edge_mask, n_edges, nd, fanout, m, ord_i, ord_c,
-                ord_s, begin, smem, tot);
-  else
-    hub_block(edge_src, edge_mask, n_edges, nd, fanout, m, g, d, dh, smem,
-              tot);
-}
+  __shared__ uint32_t ocnt[kMaxCluster];  // the slice's edges by owner
+  __shared__ uint32_t s_below, s_valid;
+  __shared__ uint32_t s_off, s_base, s_nvalid;
 
-// The seg_sort route's runs, from keys sorted by source (sentinels, >= m,
-// last): every row's first slot by a binary search, each edge's dst row,
-// count and source, and the hub rows (n_hubs cleared before).
-__global__ void runs_kernel(const int32_t* __restrict__ sorted_src,
-                            const int32_t* __restrict__ sorted_edge,
-                            const uint8_t* __restrict__ edge_mask,
-                            int n_edges, int fanout, int m,
-                            int32_t* __restrict__ ord_i,
-                            float* __restrict__ ord_c,
-                            int32_t* __restrict__ ord_s,
-                            int32_t* __restrict__ begin,
-                            int32_t* __restrict__ n_hubs,
-                            int32_t* __restrict__ hubs) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t <= m) {
-    int lo = 0, hi = n_edges;
-    while (lo < hi) {
-      const int mid = lo + ((hi - lo) >> 1);
-      if (__ldg(sorted_src + mid) < t) lo = mid + 1; else hi = mid;
-    }
-    begin[t] = lo;
-    if (t < m && lo + kWarpRun < n_edges &&
-        __ldg(sorted_src + lo + kWarpRun) == t)
-      hubs[atomicAdd(n_hubs, 1)] = t;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int b = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = static_cast<int>(blockIdx.x / C) * tile_rows;
+  const int s1 = min(m, s0 + tile_rows);
+  const int rt = s1 - s0;
+  // this block's slice: dst rows [i_lo, i_hi), whole rows in edge order
+  const long long i_lo = static_cast<long long>(nd) * b / C;
+  const long long i_hi = static_cast<long long>(nd) * (b + 1) / C;
+  const long long e_lo = i_lo * fanout, e_hi = i_hi * fanout;
+  // block r of the cluster owns the tile's sources [oa(r), oa(r + 1))
+  auto oa = [&](int r) { return rt * r / C; };
+  // this block's quotients: dst rows [qa, qb), its tile's share of the
+  // slice; their first cells' values of g loaded now, in flight through 1.
+  const int T = static_cast<int>(gridDim.x) / C;
+  const int tile = static_cast<int>(blockIdx.x) / C;
+  const long long qa = i_lo + (i_hi - i_lo) * tile / T;
+  const long long qb = i_lo + (i_hi - i_lo) * (tile + 1) / T;
+  const bool q_fast = qb - qa <= kQRows;  // counts taken in 1.
+  const long long q_cells = (qb - qa) * d;
+  float qv[kQBatch];
+#pragma unroll
+  for (int u = 0; u < kQBatch; ++u) {
+    const long long f = tid + static_cast<long long>(u) * kThreads;
+    qv[u] = q_fast && f < q_cells ? __ldg(g + qa * d + f) : 0.f;
   }
-  if (t < n_edges) {
-    const int s = __ldg(sorted_src + t);
-    if (s >= 0 && s < m) {
-      const int i = __ldg(sorted_edge + t) / fanout;
-      const uint8_t* mk = edge_mask + static_cast<size_t>(i) * fanout;
-      int c = 0;
-      for (int j = 0; j < fanout; ++j) c += mk[j] ? 1 : 0;
-      ord_i[t] = i;
-      ord_c[t] = fmaxf(static_cast<float>(c), 1.0f);
-      ord_s[t] = s;
-    }
-  }
-}
+  uint32_t* cntq = bufs;  // [kQRows], free till 3.
+  const FastDiv by_fanout(static_cast<uint32_t>(fanout));
 
-// The seg_sort route's hub rows, a block per (hub row, kHubCols columns):
-// their runs are already in edge order.
-__global__ void __launch_bounds__(kHubThreads)
-hub_kernel(const float* __restrict__ g, int d,
-           const int32_t* __restrict__ ord_i,
-           const float* __restrict__ ord_c,
-           const int32_t* __restrict__ begin,
-           const int32_t* __restrict__ n_hubs,
-           const int32_t* __restrict__ hubs, float* __restrict__ dh) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  float* stage = reinterpret_cast<float*>(smem);
-  int* list_i = reinterpret_cast<int*>(stage + kHubList * kHubCols);
-  float* list_c = reinterpret_cast<float*>(list_i + kHubList);
-  const int n_cc = (d + kHubCols - 1) / kHubCols;
-  const int items = __ldg(n_hubs) * n_cc;
-  for (int it = blockIdx.x; it < items; it += gridDim.x) {
-    const int s = __ldg(hubs + it / n_cc), c0 = (it % n_cc) * kHubCols;
-    const int rb = __ldg(begin + s), re = __ldg(begin + s + 1);
-    float acc = 0.f;
-    for (int lb = rb; lb < re; lb += kHubList) {
-      const int n = min(kHubList, re - lb);
+  // 1. count the slice: per tile source, below the tile, valid in all
+  for (int t = tid; t < rt; t += kThreads) hist[t] = 0;
+  if (tid < kMaxCluster) ocnt[tid] = 0;
+  if (tid == 0) {
+    s_below = 0;
+    s_valid = 0;
+  }
+  for (int k = tid; k < kQRows; k += kThreads) cntq[k] = 0;
+  for (int k = tid; k < kZeroBytes / 16; k += kThreads)
+    reinterpret_cast<float4*>(zeros)[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the zeros are read by the TMA's proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  uint32_t below = 0, valid = 0;
+  int src[kPer];
+  bool on[kPer];
+  load_round(edge_src, edge_mask, e_lo, e_hi, src, on);
+  for (long long e0 = e_lo; e0 < e_hi; e0 += kRound) {
+    int nsrc[kPer];  // the next round's edges, in flight meanwhile
+    bool non[kPer];
+    load_round(edge_src, edge_mask, e0 + kRound, e_hi, nsrc, non);
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      if (on[u] && static_cast<unsigned>(src[u]) < static_cast<unsigned>(m)) {
+        ++valid;
+        if (src[u] < s0) ++below;
+        else if (src[u] < s1) atomicAdd(hist + (src[u] - s0), 1u);
+      }
+      if (on[u] && q_fast) {  // the unmasked edges of a quotient row
+        const long long i = by_fanout(static_cast<uint32_t>(
+            e0 + static_cast<long long>(u) * kThreads + tid));
+        if (i >= qa && i < qb) atomicAdd(cntq + (i - qa), 1u);
+      }
+      src[u] = nsrc[u];
+      on[u] = non[u];
+    }
+  }
+  below = warp_sum(below);
+  valid = warp_sum(valid);
+  if (lane == 0) {
+    atomicAdd(&s_below, below);
+    atomicAdd(&s_valid, valid);
+  }
+  __syncthreads();
+  // the slice's edges of each owner's sources (a thread's contiguous
+  // stretch of the histogram meets few owners)
+  {
+    const int per = (rt + kThreads - 1) / kThreads;
+    const int t0 = min(tid * per, rt), t1 = min(t0 + per, rt);
+    int r = 0;
+    while (r + 1 < C && oa(r + 1) <= t0) ++r;
+    uint32_t acc = 0;
+    for (int t = t0; t < t1; ++t) {
+      while (r + 1 < C && oa(r + 1) <= t) {
+        if (acc) atomicAdd(ocnt + r, acc);
+        acc = 0;
+        ++r;
+      }
+      acc += hist[t];
+    }
+    if (acc) atomicAdd(ocnt + r, acc);
+  }
+  cluster_arrive();
+  // while the cluster meets: the quotients q = g / max(count, 1) of rows
+  // [qa, qb), stored in rows of dq floats (16-byte aligned for the sums'
+  // TMA copies): the loaded cells, then any more, kQBatch loads a thread
+  // in flight; rows beyond kQRows count their edges a warp a row
+  const FastDiv by_d(static_cast<uint32_t>(d));
+  const int dq = (d + 3) & ~3;
+  if (q_fast) {
+    for (long long f0 = tid; f0 < q_cells; f0 += kThreads * kQBatch) {
+      if (f0 != tid) {
+#pragma unroll
+        for (int u = 0; u < kQBatch; ++u) {
+          const long long f = f0 + static_cast<long long>(u) * kThreads;
+          qv[u] = f < q_cells ? __ldg(g + qa * d + f) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kQBatch; ++u) {
+        const long long f = f0 + static_cast<long long>(u) * kThreads;
+        if (f < q_cells) {
+          const uint32_t r = by_d(static_cast<uint32_t>(f));
+          q[(qa + r) * dq + (f - static_cast<long long>(r) * d)] =
+              qv[u] / fmaxf(static_cast<float>(cntq[r]), 1.0f);
+        }
+      }
+    }
+  } else {
+    float* cnts = reinterpret_cast<float*>(bufs);  // [kRound], free till 3.
+    const long long rows = max(1, min(kRound, (1 << 30) / d));
+    for (long long r0 = qa; r0 < qb; r0 += rows) {
+      const int nr = static_cast<int>(min(rows, qb - r0));
       __syncthreads();
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        list_i[j] = __ldg(ord_i + lb + j);
-        list_c[j] = __ldg(ord_c + lb + j);
+      for (int r = warp; r < nr; r += kWarps) {
+        const uint8_t* mk = edge_mask + (r0 + r) * fanout;
+        uint32_t c = 0;
+        for (int j = lane; j < fanout; j += 32) c += mk[j] ? 1u : 0u;
+        c = warp_sum(c);
+        if (lane == 0) cnts[r] = fmaxf(static_cast<float>(c), 1.0f);
       }
       __syncthreads();
-      stage_sum(g, d, list_i, list_c, n, c0, kHubCols, stage, acc);
+      const long long cells = static_cast<long long>(nr) * d;
+      for (long long f = tid; f < cells; f += kThreads) {
+        const uint32_t r = by_d(static_cast<uint32_t>(f));
+        q[(r0 + r) * dq + (f - static_cast<long long>(r) * d)] =
+            __ldg(g + r0 * d + f) / cnts[r];
+      }
     }
-    if (threadIdx.x < kHubCols && c0 + threadIdx.x < d)
-      dh[static_cast<size_t>(s) * d + c0 + threadIdx.x] = acc;
   }
+  cluster_wait();
+
+  // 2. the block's share of the tile's sources, [oa(b), oa(b + 1)): their
+  //    counts over the cluster, scanned; where the share starts in the
+  //    tile, where the tile starts, the valid edges in all
+  if (warp == 0) {
+    uint32_t off = 0, base = 0, nv = 0;
+    if (lane < C) {
+      const uint32_t* oc = cluster.map_shared_rank(ocnt, lane);
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < b) off += oc[r];
+      base = *cluster.map_shared_rank(&s_below, lane);
+      nv = *cluster.map_shared_rank(&s_valid, lane);
+    }
+    off = warp_sum(off);
+    base = warp_sum(base);
+    nv = warp_sum(nv);
+    if (lane == 0) {
+      s_off = off;
+      s_base = base;
+      s_nvalid = nv;
+    }
+  }
+  const int ob = oa(b), n_own = oa(b + 1) - ob;
+  const int per = (n_own + kThreads - 1) / kThreads;
+  const int f0 = min(tid * per, n_own), f1 = min(f0 + per, n_own);
+  uint32_t sum = 0;
+  for (int f = f0; f < f1; ++f) {
+    uint32_t L = 0;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < C) L += cluster.map_shared_rank(hist, r)[ob + f];
+    own[f] = L;
+    sum += L;
+  }
+  uint32_t total;
+  uint32_t run = block_scan(sum, tot, &total);  // its barriers publish s_*
+  const uint32_t tile_base = s_base;
+  {
+    const uint32_t n_valid = s_nvalid;
+    const long long units = n_valid;  // the sums' work: a placed edge each
+    const long long G = sum_blocks;
+    run += s_off;
+    for (int f = f0; f < f1; ++f) {
+      const uint32_t L = own[f];
+      const uint32_t st = run;  // the row's first slot in the tile
+      run += L;
+      uint32_t c[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < C) c[r] = cluster.map_shared_rank(hist, r)[ob + f];
+      uint32_t cur = st;  // each (source, block)'s first slot in the tile
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        if (r < C) {
+          cluster.map_shared_rank(hist, r)[ob + f] = cur;
+          cur += c[r];
+        }
+      }
+      const int s = s0 + ob + f;
+      const uint32_t bg = tile_base + st;
+      begin[s] = static_cast<int32_t>(bg);
+      if (s == m - 1) begin[m] = static_cast<int32_t>(n_valid);
+      // the sum blocks whose share starts in this row's edges
+      if (L > 0) {
+        const long long u0 = bg, u1 = u0 + L;
+        for (long long j = (u0 * G + units - 1) / units;
+             j < G && j * units / G < u1; ++j) {
+          bounds[2 * j] = s;
+          bounds[2 * j + 1] = static_cast<int32_t>(bg);
+        }
+      }
+    }
+  }
+  cluster_arrive();  // every cursor written; no remote access after this
+  cluster_wait();
+  // the zeros of the share's rows no edge reads: the last warp finds their
+  // runs (32 rows at a time) and stores them by TMA bulk stores from the
+  // zeroed tile, streaming out while the block places its edges
+  if (warp == kWarps - 1) {
+    for (int f0 = 0; f0 < n_own; f0 += 32) {
+      const int f = f0 + lane;
+      const unsigned zs = __ballot_sync(kFull, f < n_own && own[f] == 0);
+      const bool head =
+          ((zs >> lane) & 1u) && (lane == 0 || !((zs >> (lane - 1)) & 1u));
+      if (head) {
+        const unsigned after = ~zs & ~(0xffffffffu >> (31 - lane));
+        const int len =
+            (after ? __ffs(after) - 1 : min(32, n_own - f0)) - lane;
+        zero_rows(dh, d, s0 + ob + f, s0 + ob + f + len, zeros);
+      }
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+
+  // 3. place the slice's edges of the tile, in edge order: a round's
+  //    edges are compacted by owner (source % 16) and, within an owner, in
+  //    edge order; owner warp w then places its edges, a source at a time
+  load_round(edge_src, edge_mask, e_lo, e_hi, src, on);
+  for (long long e0 = e_lo; e0 < e_hi; e0 += kRound) {
+    for (int k = tid; k < kBuckets; k += kThreads) bcnt[k] = 0;
+    __syncthreads();
+    unsigned same[kPer];
+    uint32_t tl[kPer];
+    uint32_t placed;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const bool ok = on[u] && src[u] >= s0 && src[u] < s1;
+      const uint32_t t = ok ? static_cast<uint32_t>(src[u] - s0) : 0u;
+      unsigned sm = __ballot_sync(kFull, ok);
+#pragma unroll
+      for (int bit = 0; bit < 4; ++bit) {  // the lanes of the same owner
+        const unsigned bb = __ballot_sync(kFull, (t >> bit) & 1u);
+        sm &= ((t >> bit) & 1u) ? bb : ~bb;
+      }
+      same[u] = ok ? sm : 0u;
+      tl[u] = t;
+      if (ok && (sm & lanes_below(lane)) == 0)
+        bcnt[(t % kOwners) * kPer * kWarps + u * kWarps + warp] = __popc(sm);
+    }
+    // the next round's edges, in flight while this one is placed
+    load_round(edge_src, edge_mask, e0 + kRound, e_hi, src, on);
+    __syncthreads();
+    {  // exclusive scan of the counts: owner, then round order, then warp
+      constexpr int kEach = kBuckets / kThreads;
+      uint32_t v[kEach], t = 0;
+#pragma unroll
+      for (int r = 0; r < kEach; ++r) {
+        v[r] = bcnt[tid * kEach + r];
+        t += v[r];
+      }
+      uint32_t p = block_scan(t, tot, &placed);
+#pragma unroll
+      for (int r = 0; r < kEach; ++r) {
+        bcnt[tid * kEach + r] = p;
+        p += v[r];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      if ((same[u] >> lane) & 1u) {
+        const int k =
+            static_cast<int>(bcnt[(tl[u] % kOwners) * kPer * kWarps +
+                                  u * kWarps + warp]) +
+            __popc(same[u] & lanes_below(lane));
+        bufs[k] = tl[u];
+        bufi[k] = static_cast<int32_t>(by_fanout(static_cast<uint32_t>(
+            e0 + static_cast<long long>(u) * kThreads + tid)));
+      }
+    }
+    const int kb = warp + 1 < kOwners
+                       ? static_cast<int>(bcnt[(warp + 1) * kPer * kWarps])
+                       : static_cast<int>(placed);
+    const int ka = static_cast<int>(bcnt[warp * kPer * kWarps]);
+    __syncthreads();
+    // owner warp w places its edges 32 at a time: the lanes of a source
+    // ranked in edge order from the source's cursor
+    for (int k0 = ka; k0 < kb; k0 += 32) {
+      const int k = k0 + lane;
+      const bool in = k < kb;
+      const uint32_t sl = in ? bufs[k] : 0xffffffffu;
+      const unsigned peers = __match_any_sync(kFull, sl);
+      const int head = __ffs(peers) - 1;
+      uint32_t base = 0;
+      if (in && lane == head) {
+        base = hist[sl];
+        hist[sl] = base + __popc(peers);
+      }
+      base = __shfl_sync(kFull, base, head);
+      if (in)
+        ord[tile_base + base + __popc(peers & lanes_below(lane))] = bufi[k];
+    }
+    __syncthreads();
+  }
+
 }
 
 template <int VEC>
@@ -474,295 +565,617 @@ template <>
 struct Vec<4> {
   using T = float4;
   __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static void add_div(float* a, const T& v, float c) {
-    a[0] += v.x / c; a[1] += v.y / c; a[2] += v.z / c; a[3] += v.w / c;
-  }
-  __device__ static T pack(const float* a) {
-    return make_float4(a[0], a[1], a[2], a[3]);
+  __device__ static T add(const T& a, const T& v) {
+    return make_float4(a.x + v.x, a.y + v.y, a.z + v.z, a.w + v.w);
   }
 };
 template <>
 struct Vec<2> {
   using T = float2;
   __device__ static T zero() { return make_float2(0.f, 0.f); }
-  __device__ static void add_div(float* a, const T& v, float c) {
-    a[0] += v.x / c; a[1] += v.y / c;
+  __device__ static T add(const T& a, const T& v) {
+    return make_float2(a.x + v.x, a.y + v.y);
   }
-  __device__ static T pack(const float* a) { return make_float2(a[0], a[1]); }
 };
 template <>
 struct Vec<1> {
   using T = float;
   __device__ static T zero() { return 0.f; }
-  __device__ static void add_div(float* a, const T& v, float c) {
-    a[0] += v / c;
-  }
-  __device__ static T pack(const float* a) { return a[0]; }
+  __device__ static T add(const T& a, const T& v) { return a + v; }
 };
 
-// Sort (key, cv, row) ascending by key across the warp's 32 lanes
-// (bitonic).
-__device__ __forceinline__ void warp_sort(int& key, float& cv, int& row,
-                                          int lane) {
-#pragma unroll
-  for (int k = 2; k <= 32; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const int ok = __shfl_xor_sync(kFull, key, j);
-      const float oc = __shfl_xor_sync(kFull, cv, j);
-      const int orow = __shfl_xor_sync(kFull, row, j);
-      const bool up = (lane & k) == 0, low = (lane & j) == 0;
-      if (low == up ? ok < key : ok > key) {
-        key = ok;
-        cv = oc;
-        row = orow;
-      }
-    }
-  }
-}
+// A row's share of this block's units: the vector columns [c0, c1) of
+// its nv, in proportion to where [u_lo, u_hi) cuts its L units (none for
+// a row no edge reads).
+struct RowPart {
+  int c0, c1, L;
+};
 
-// Sums the n <= 32 edges held by lanes 0..n-1 in order, (dst row i in the
-// key's low 24 bits, count cv, output row), storing a row after its last
-// edge: kBatch edges' rows in flight, float4 columns a lane.
-template <int VEC>
-__device__ __forceinline__ void warp_sweep(const float* __restrict__ g,
-                                           int d, int key, float cv, int row,
-                                           int n, int lane,
-                                           float* __restrict__ dh) {
-  using V = typename Vec<VEC>::T;
-  const int nvec = d / VEC;
-  for (int c0 = 0; c0 < nvec; c0 += 32 * kChunks) {
-    float acc[kChunks][VEC];
-#pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch)
-#pragma unroll
-      for (int q = 0; q < VEC; ++q) acc[ch][q] = 0.f;
-    for (int j0 = 0; j0 < n; j0 += kBatch) {
-      V v[kBatch][kChunks];
-      float cj[kBatch];
-      int rj[kBatch], next[kBatch];
-#pragma unroll
-      for (int jj = 0; jj < kBatch; ++jj) {
-        const int src_lane = (j0 + jj) & 31;
-        const int ij = __shfl_sync(kFull, key, src_lane) & 0xffffff;
-        cj[jj] = __shfl_sync(kFull, cv, src_lane);
-        rj[jj] = __shfl_sync(kFull, row, src_lane);
-        next[jj] = __shfl_sync(kFull, row, (j0 + jj + 1) & 31);
-        const V* gr = reinterpret_cast<const V*>(g + static_cast<size_t>(ij) *
-                                                 d);
-#pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch) {
-          const int col = c0 + ch * 32 + lane;
-          v[jj][ch] = (j0 + jj < n && col < nvec) ? __ldg(gr + col)
-                                                  : Vec<VEC>::zero();
-        }
-      }
-      // added in order, after all kBatch loads were issued; a row is
-      // stored after its last edge
-#pragma unroll
-      for (int jj = 0; jj < kBatch; ++jj) {
-        const int j = j0 + jj;
-        if (j < n) {
-#pragma unroll
-          for (int ch = 0; ch < kChunks; ++ch)
-            Vec<VEC>::add_div(acc[ch], v[jj][ch], cj[jj]);
-          if (j + 1 == n || next[jj] != rj[jj]) {
-            V* out = reinterpret_cast<V*>(dh + static_cast<size_t>(rj[jj]) *
-                                          d);
-#pragma unroll
-            for (int ch = 0; ch < kChunks; ++ch) {
-              const int col = c0 + ch * 32 + lane;
-              if (col < nvec) out[col] = Vec<VEC>::pack(acc[ch]);
-#pragma unroll
-              for (int q = 0; q < VEC; ++q) acc[ch][q] = 0.f;
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-// The runs that begin in placed edges [w0, w0 + kWindow) and are not hub
-// rows: the 32 edges from w0, loaded one a lane, hold them whole (a run
-// of at most kWarpRun edges beginning in the window ends by lane 31);
-// they are sorted by (run, dst row) and summed in that order.
-template <int VEC>
-__device__ __forceinline__ void warp_window(
-    const float* __restrict__ g, int d, const int32_t* __restrict__ ord_i,
-    const float* __restrict__ ord_c, const int32_t* __restrict__ ord_s,
-    int n_placed, int w0, int lane, float* __restrict__ dh) {
-  static_assert(kWindow + kWarpRun <= 32, "a window's runs fit the warp");
-  const int k = w0 + lane;
-  const bool valid = k < n_placed;
-  const int s = valid ? __ldg(ord_s + k) : -1;
-  const int prev = valid && k > 0 ? __ldg(ord_s + k - 1) : -2;
-  const int i = valid ? __ldg(ord_i + k) : 0;
-  const float c = valid ? __ldg(ord_c + k) : 1.f;
-  // a run begins where the source changes, and ends where the next begins
-  const unsigned starts = __ballot_sync(kFull, !valid || s != prev);
-  const unsigned upto = starts & (0xffffffffu >> (31 - lane));
-  const int st = upto ? 31 - __clz(upto) : -1;          // my run's start
-  const unsigned after = st >= 0 ? starts & ~(0xffffffffu >> (31 - st)) : 0;
-  const int en = after ? __ffs(after) - 1 : 32;         // the next start
-  const bool mine = valid && st >= 0 && st < kWindow && en - st <= kWarpRun;
-  int key = mine ? (st << 24) | i : INT_MAX;
-  float cv = c;
-  int row = s;
-  warp_sort(key, cv, row, lane);
-  warp_sweep<VEC>(g, d, key, cv, row, __popc(__ballot_sync(kFull, mine)),
-                  lane, dh);
-}
-
-// Rows t0 .. t0 + 31 that no edge reads: zeros.
-template <int VEC>
-__device__ __forceinline__ void warp_zeros(const int32_t* __restrict__ begin,
-                                           int m, int d, int t0, int lane,
-                                           float* __restrict__ dh) {
-  using V = typename Vec<VEC>::T;
-  const int s = t0 + lane;
-  const bool empty = s < m && __ldg(begin + s) == __ldg(begin + s + 1);
-  unsigned rows = __ballot_sync(kFull, empty);
-  const int nvec = d / VEC;
-  while (rows) {
-    const int j = __ffs(rows) - 1;
-    rows &= rows - 1;
-    V* out = reinterpret_cast<V*>(dh + static_cast<size_t>(t0 + j) * d);
-    for (int col = lane; col < nvec; col += 32) out[col] = Vec<VEC>::zero();
-  }
-}
-
-// Warps [0, window_warps) take the windows of placed edges; the others
-// the empty rows, 32 at a time.
-template <int VEC>
-__global__ void __launch_bounds__(kSumThreads)
-row_sum_kernel(const float* __restrict__ g, int d,
-               const int32_t* __restrict__ ord_i,
-               const float* __restrict__ ord_c,
-               const int32_t* __restrict__ ord_s,
-               const int32_t* __restrict__ begin, int m, int window_warps,
-               float* __restrict__ dh) {
-  const int lane = threadIdx.x & 31;
-  const int warp = blockIdx.x * kSumWarps + (threadIdx.x >> 5);
-  const int n_placed = __ldg(begin + m);
-  if (warp < window_warps) {
-    for (int w0 = warp * kWindow; w0 < n_placed; w0 += window_warps * kWindow)
-      warp_window<VEC>(g, d, ord_i, ord_c, ord_s, n_placed, w0, lane, dh);
+__device__ __forceinline__ RowPart row_part(const int32_t* __restrict__ wb,
+                                            int w, int s, long long u_lo,
+                                            long long u_hi, int nv) {
+  RowPart p;
+  p.L = wb[w + 1] - wb[w];
+  const long long u0 = wb[w];
+  const long long n = p.L;
+  const long long lo = max(u0, u_lo), hi = min(u0 + n, u_hi);
+  if (lo < hi) {
+    p.c0 = static_cast<int>((lo - u0) * nv / n);
+    p.c1 = static_cast<int>((hi - u0) * nv / n);
   } else {
-    const int zw = warp - window_warps;
-    const int n_zero = gridDim.x * kSumWarps - window_warps;
-    for (int t0 = zw * 32; t0 < m; t0 += n_zero * 32)
-      warp_zeros<VEC>(begin, m, d, t0, lane, dh);
+    p.c0 = p.c1 = 0;
+  }
+  return p;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from global `src` (16-byte aligned) into
+// shared `dst`, counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The sums of a window are passes over up to three groups of rows: the
+// first row's columns, the whole rows between, the last row's columns.
+struct Groups {
+  int r0[3], r1[3], c0[3], c1[3];
+  // group g's field, by selects (no indexed local memory)
+  __device__ static int pick(const int (&f)[3], int g) {
+    return g == 0 ? f[0] : g == 1 ? f[1] : f[2];
+  }
+};
+
+// Where the chunks of a window have got to: group g's pass from vector
+// column cs, at row r, slot k.
+struct Pos {
+  int g, cs, r, k;
+};
+
+// A chunk: rows [r0, r1) whole (their slots [k0, k0 + ne)), or `piece`:
+// slots [k0, k0 + ne) of row r0 alone, a run longer than a chunk holds.
+// A slot's stage row is `row_bytes` of the q row from byte `a0`, the pass's
+// columns from vector `off` of it.
+struct Chunk {
+  int g, cs, nc, r0, r1, k0, ne, a0, off, row_bytes;
+  bool piece;
+};
+
+// The pass of group g from column cs, within the held slots [lo, hi):
+// its first position and the layout of its stage rows.
+template <int VEC>
+__device__ __forceinline__ void pass_layout(const Groups& G, int g, int cs,
+                                            Chunk& c) {
+  constexpr int kV = VEC * 4;  // bytes a vector
+  c.g = g;
+  c.cs = cs;
+  c.nc = min(kMaxCols, Groups::pick(G.c1, g) - cs);
+  c.a0 = (cs * kV) & ~15;
+  c.off = (cs * kV - c.a0) / kV;
+  c.row_bytes = (((cs + c.nc) * kV + 15) & ~15) - c.a0;
+}
+
+// The chunk at `p` (false past the last): a run longer than a chunk holds
+// is cut into pieces; shorter ones are taken whole, as many as fit. Then
+// `p` moves past it: the next row, the next pass of the group (or only
+// the pass cs_only >= 0), the next group.
+template <int VEC>
+__device__ __forceinline__ bool next_chunk(const Groups& G,
+                                           const int32_t* __restrict__ wb,
+                                           int lo, int hi, int cs_only,
+                                           Pos& p, Chunk& c) {
+  while (true) {
+    if (p.g > 2) return false;
+    const int r1 = Groups::pick(G.r1, p.g);
+    const int c0 = Groups::pick(G.c0, p.g), c1 = Groups::pick(G.c1, p.g);
+    if (c1 <= c0 || p.cs >= c1 || p.r >= r1 || p.k >= hi) {
+      // the group's pass is done: the next pass, else the next group
+      if (cs_only < 0 && c1 > c0 && p.cs + kMaxCols < c1) {
+        p.cs += kMaxCols;
+      } else {
+        ++p.g;
+        if (p.g > 2) return false;
+        p.cs = cs_only >= 0 ? cs_only : Groups::pick(G.c0, p.g);
+      }
+      p.r = Groups::pick(G.r0, p.g);
+      p.k = max(lo, wb[p.r]);
+      continue;
+    }
+    pass_layout<VEC>(G, p.g, p.cs, c);
+    const int per = kStageBytes / c.row_bytes;  // slots a chunk holds
+    const int end = min(hi, wb[p.r + 1]);
+    if (wb[p.r + 1] - wb[p.r] > per) {  // a piece of a long run
+      c.piece = true;
+      c.r0 = p.r;
+      c.r1 = p.r + 1;
+      c.k0 = p.k;
+      c.ne = min(per, end - p.k);
+      p.k += c.ne;
+      if (p.k >= wb[p.r + 1]) ++p.r;
+      return true;
+    }
+    // whole rows from p.r: the most whose slots fit
+    int lo2 = p.r + 1, hi2 = r1;
+    while (lo2 < hi2) {
+      const int mid = (lo2 + hi2 + 1) >> 1;
+      if (wb[mid] - wb[p.r] <= per && wb[mid] <= hi) lo2 = mid;
+      else hi2 = mid - 1;
+    }
+    c.piece = false;
+    c.r0 = p.r;
+    c.r1 = lo2;
+    c.k0 = wb[p.r];
+    c.ne = wb[lo2] - wb[p.r];
+    p.r = lo2;
+    p.k = wb[lo2];
+    if (c.ne == 0) continue;  // rows no edge reads: stored as zeros
+    return true;
   }
 }
 
-cudaError_t run_row_sum(const float* g, int d, const int32_t* ord_i,
-                        const float* ord_c, const int32_t* ord_s,
-                        const int32_t* begin, int m, int n_edges, float* dh,
-                        int vec, int sms, cudaStream_t st) {
-  const int window_warps = max(1, min((n_edges + kWindow - 1) / kWindow,
-                                      sms * kSumWarps * 2));
-  const int zero_warps = max(1, min((m + 31) / 32, sms * kSumWarps));
-  const int grid = (window_warps + zero_warps + kSumWarps - 1) / kSumWarps;
-  if (vec == 4)
-    row_sum_kernel<4><<<grid, kSumThreads, 0, st>>>(
-        g, d, ord_i, ord_c, ord_s, begin, m, window_warps, dh);
-  else if (vec == 2)
-    row_sum_kernel<2><<<grid, kSumThreads, 0, st>>>(
-        g, d, ord_i, ord_c, ord_s, begin, m, window_warps, dh);
-  else
-    row_sum_kernel<1><<<grid, kSumThreads, 0, st>>>(
-        g, d, ord_i, ord_c, ord_s, begin, m, window_warps, dh);
-  return cudaGetLastError();
+// The consumers' running sums of a long run cut into pieces (two columns
+// a thread, kConsumers apart).
+template <int VEC>
+struct Carry {
+  typename Vec<VEC>::T a0, a1;
+};
+
+// a0 (and a1, gsize columns on) += the stage rows [ka, kb)'s vectors,
+// in order, four rows' loads issued ahead of their adds.
+template <int VEC>
+__device__ __forceinline__ void add_run(const uint8_t* base, int row_bytes,
+                                        int ka, int kb, int gsize, bool two,
+                                        typename Vec<VEC>::T& a0,
+                                        typename Vec<VEC>::T& a1) {
+  using V = typename Vec<VEC>::T;
+  int k = ka;
+  for (; k + 4 <= kb; k += 4) {
+    V v[4], w[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const V* row = reinterpret_cast<const V*>(base + (k + h) * row_bytes);
+      v[h] = row[0];
+      if (two) w[h] = row[gsize];
+    }
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      a0 = Vec<VEC>::add(a0, v[h]);
+      if (two) a1 = Vec<VEC>::add(a1, w[h]);
+    }
+  }
+  for (; k < kb; ++k) {
+    const V* row = reinterpret_cast<const V*>(base + k * row_bytes);
+    a0 = Vec<VEC>::add(a0, row[0]);
+    if (two) a1 = Vec<VEC>::add(a1, row[gsize]);
+  }
 }
 
-// the dynamic shared-memory limits, raised once so that a CUDA-graph
-// capture never calls cudaFuncSetAttribute
+// Adds a chunk: whole rows go to groups of threads (a thread a column, or
+// two where the pass is wider than the consumers), a row to a group in
+// turn, each adding its row's quotients in edge order and storing it; a
+// piece of a long run goes to the first group, which carries its sums to
+// the run's next piece.
+template <int VEC>
+__device__ __forceinline__ void add_chunk(const int32_t* __restrict__ wb,
+                                          int s, int d, const Chunk& c,
+                                          const uint8_t* stage, Carry<VEC>& cy,
+                                          int ct, int ncons,
+                                          float* __restrict__ dh) {
+  using V = typename Vec<VEC>::T;
+  // ct of the ncons threads adding; two columns a thread where the pass is
+  // wider than they, or where that gives more groups (rows at once) to a
+  // chunk of whole rows (a piece has one group: its chain is the run)
+  const int cpt = c.nc > ncons || (!c.piece && ncons / ((c.nc + 1) / 2) >
+                                                   ncons / c.nc)
+                      ? 2
+                      : 1;
+  const int gsize = (c.nc + cpt - 1) / cpt;
+  const int P = c.piece ? 1 : ncons / gsize;
+  const int j = ct / gsize, t = ct - j * gsize;
+  if (j >= P) return;
+  const bool two = cpt == 2 && t + gsize < c.nc;
+  const uint8_t* base = stage + (c.off + t) * sizeof(V);
+  if (c.piece) {
+    V a0 = cy.a0, a1 = cy.a1;
+    if (c.k0 == wb[c.r0]) a0 = a1 = Vec<VEC>::zero();
+    add_run<VEC>(base, c.row_bytes, 0, c.ne, gsize, two, a0, a1);
+    cy.a0 = a0;
+    cy.a1 = a1;
+    if (c.k0 + c.ne == wb[c.r0 + 1]) {
+      V* out = reinterpret_cast<V*>(dh + static_cast<size_t>(s + c.r0) * d) +
+               c.cs + t;
+      out[0] = a0;
+      if (two) out[gsize] = a1;
+    }
+    return;
+  }
+  for (int r = c.r0 + j; r < c.r1; r += P) {
+    const int ka = wb[r] - c.k0, kb = wb[r + 1] - c.k0;
+    if (ka == kb) continue;  // no edge reads the row: stored as zeros
+    V a0 = Vec<VEC>::zero(), a1 = Vec<VEC>::zero();
+    add_run<VEC>(base, c.row_bytes, ka, kb, gsize, two, a0, a1);
+    V* out = reinterpret_cast<V*>(dh + static_cast<size_t>(s + r) * d) +
+             c.cs + t;
+    out[0] = a0;
+    if (two) out[gsize] = a1;
+  }
+}
+
+// Every chunk of the held slots [lo, hi) (their dst rows in ordw from
+// lo): warp 0 loads each chunk's q rows by TMA bulk copies, a lane a
+// slot, into the stage ring (kStages buffers, full and empty barriers);
+// the other warps add them. `n` counts the block's chunks, so that the
+// ring's phases carry from one call to the next.
+template <int VEC>
+__device__ __forceinline__ void run_chunks(
+    const float* __restrict__ q, int dq, int d, const Groups& G,
+    const int32_t* __restrict__ wb, const int32_t* __restrict__ ordw, int s,
+    int lo, int hi, uint8_t* stage, uint64_t* full, uint64_t* empty, int& n,
+    Carry<VEC>& cy, float* __restrict__ dh) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  Pos p;
+  p.g = 0;
+  p.cs = G.c0[0];
+  p.r = G.r0[0];
+  p.k = max(lo, wb[p.r]);
+  Chunk c;
+  int i = n;
+  while (next_chunk<VEC>(G, wb, lo, hi, -1, p, c)) {
+    const int st = i % kStages;
+    const uint32_t fill = static_cast<uint32_t>(i / kStages);
+    uint8_t* buf = stage + st * kStageBytes;
+    if (warp == 0) {
+      mbar_wait(empty + st, (fill & 1u) ^ 1u);  // the buffer is free
+      if (lane == 0) mbar_expect(full + st, c.ne * c.row_bytes);
+      __syncwarp();
+      for (int k = lane; k < c.ne; k += 32) {
+        const int row = ordw[c.k0 - lo + k];
+        bulk_load(buf + k * c.row_bytes,
+                  reinterpret_cast<const uint8_t*>(q) +
+                      static_cast<size_t>(row) * dq * 4 + c.a0,
+                  c.row_bytes, full + st);
+      }
+    } else {
+      mbar_wait(full + st, fill & 1u);
+      add_chunk<VEC>(wb, s, d, c, buf, cy, threadIdx.x - 32, kConsumers, dh);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);
+    }
+    ++i;
+  }
+  n = i;
+}
+
+// The chunks of the groups whose stage rows are narrow (fewer than
+// kBulkMin bytes: a TMA request a slot would cost more than its bytes) by
+// the whole block: every thread copies 16-byte cells with cp.async into
+// one of two stage buffers while all add the other, as the consumers do.
+// The sums of a long run carry in `cy` (this mapping's own).
+template <int VEC>
+__device__ __forceinline__ void coop_chunks(
+    const float* __restrict__ q, int dq, int d, const Groups& G,
+    const int32_t* __restrict__ wb, const int32_t* __restrict__ ordw, int s,
+    int lo, int hi, int cs_only, uint8_t* stage, Carry<VEC>& cy,
+    float* __restrict__ dh) {
+  const int tid = threadIdx.x;
+  Pos p;
+  p.g = 0;
+  p.cs = cs_only >= 0 ? cs_only : G.c0[0];
+  p.r = G.r0[0];
+  p.k = max(lo, wb[p.r]);
+  Chunk c, nx;
+  if (!next_chunk<VEC>(G, wb, lo, hi, cs_only, p, c)) return;
+  auto issue = [&](const Chunk& ch, uint8_t* buf) {
+    const int cpr = ch.row_bytes / 16;  // cells a slot
+    for (int f = tid; f < ch.ne * cpr; f += kThreads) {
+      const int k = f / cpr, x = f - k * cpr;
+      const uint8_t* src = reinterpret_cast<const uint8_t*>(q) +
+                           static_cast<size_t>(ordw[ch.k0 - lo + k]) * dq * 4 +
+                           ch.a0 + x * 16;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_addr(buf + k * ch.row_bytes + x * 16)),
+                   "l"(src)
+                   : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  __syncthreads();  // the stage buffers are free
+  issue(c, stage);
+  int bi = 0;
+  while (true) {
+    const bool more = next_chunk<VEC>(G, wb, lo, hi, cs_only, p, nx);
+    if (more) {
+      issue(nx, stage + (bi ^ 1) * kStageBytes);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    add_chunk<VEC>(wb, s, d, c, stage + bi * kStageBytes, cy, tid, kThreads,
+                   dh);
+    __syncthreads();
+    if (!more) break;
+    c = nx;
+    bi ^= 1;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ bool narrow(const Groups& G, int g) {
+  Chunk c;
+  pass_layout<VEC>(G, g, G.c0[g], c);
+  return c.row_bytes < kBulkMin;
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+sum_kernel(const float* __restrict__ q, int d,
+           const int32_t* __restrict__ ord,
+           const int32_t* __restrict__ begin,
+           const int32_t* __restrict__ bounds, int m,
+           float* __restrict__ dh) {
+  using V = typename Vec<VEC>::T;
+  extern __shared__ __align__(128) uint8_t smem_b[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_b);  // [kStages]
+  uint64_t* empty = full + kStages;                       // [kStages]
+  uint8_t* stage = smem_b + kBarBytes;                    // [kStages]
+  int32_t* wb = reinterpret_cast<int32_t*>(stage + kStages * kStageBytes);
+  int32_t* ordw = wb + kWin + 1;                          // [kSeg]
+
+  const int tid = threadIdx.x;
+  const int nv = d / VEC, dq = (d + 3) & ~3;
+  // the share's first row and its first slot, loaded beside the count
+  const int first_row = __ldcg(bounds + 2 * blockIdx.x);
+  const int first_slot = __ldcg(bounds + 2 * blockIdx.x + 1);
+  const long long units = __ldcg(begin + m);  // a placed edge each
+  const long long G = gridDim.x;
+  const long long u_lo = blockIdx.x * units / G;
+  const long long u_hi = (blockIdx.x + 1) * units / G;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kWarps - 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  int s = u_lo < u_hi ? first_row : m;
+  int ka = first_slot;  // the window's first placed edge
+  int n = 0;
+  Carry<VEC> cyc;  // the whole block's running sums of a long run
+  Carry<VEC> cy;
+  while (s < m) {
+    const int nr = min(kWin, m - s);
+    __syncthreads();
+    // the window's first slots, at once with the rows (kSeg, or to the end)
+    const int seg = static_cast<int>(min(static_cast<long long>(kSeg),
+                                         units - ka));
+    for (int r = tid; r <= nr; r += kThreads) wb[r] = __ldcg(begin + s + r);
+    for (int k = tid; k < seg; k += kThreads) ordw[k] = __ldcg(ord + ka + k);
+    __syncthreads();
+    // the window: its rows in the share, [0, n_in), each starting before
+    // u_hi, and no more than kSeg placed edges (or one row)
+    int lo = 0, hi = nr;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (wb[mid - 1] < u_hi && wb[mid] - wb[0] <= kSeg) lo = mid;
+      else hi = mid - 1;
+    }
+    const int n_in = max(lo, 1);
+    const bool more_rows = s + n_in < m && wb[n_in] < u_hi;
+    const RowPart first = row_part(wb, 0, s, u_lo, u_hi, nv);
+    const RowPart last = row_part(wb, n_in - 1, s, u_lo, u_hi, nv);
+    const bool part_first = !(first.c0 == 0 && first.c1 == nv);
+    const bool part_last = n_in > 1 && !(last.c0 == 0 && last.c1 == nv);
+    Groups gs;
+    gs.r0[0] = 0;
+    gs.r1[0] = 1;
+    gs.c0[0] = first.c0;
+    gs.c1[0] = part_first ? first.c1 : first.c0;
+    gs.r0[1] = part_first ? 1 : 0;
+    gs.r1[1] = part_last ? n_in - 1 : n_in;
+    gs.c0[1] = 0;
+    gs.c1[1] = nv;
+    gs.r0[2] = n_in - 1;
+    gs.r1[2] = n_in;
+    gs.c0[2] = last.c0;
+    gs.c1[2] = part_last ? last.c1 : last.c0;
+    const int kb = wb[n_in];
+    if (kb - ka <= kSeg) {
+      // the rows by the TMA ring, but for a long row cut to a narrow
+      // column range (a hub row's share of a few columns): by the whole
+      // block, after; a TMA request a slot would fetch a few columns
+      Groups ring = gs, block = gs;
+      for (int g = 0; g < 3; g += 2) {
+        Chunk c;
+        pass_layout<VEC>(gs, g, gs.c0[g], c);
+        if (gs.c1[g] > gs.c0[g] && c.row_bytes < kBulkMin &&
+            wb[gs.r1[g]] - wb[gs.r0[g]] > kBlockRun)
+          ring.c1[g] = ring.c0[g];
+        else
+          block.c1[g] = block.c0[g];
+      }
+      block.c1[1] = block.c0[1];
+      run_chunks<VEC>(q, dq, d, ring, wb, ordw, s, ka, kb, stage, full, empty,
+                      n, cy, dh);
+      coop_chunks<VEC>(q, dq, d, block, wb, ordw, s, ka, kb, -1, stage, cyc,
+                       dh);
+    } else {
+      // one row of more than kSeg edges: each pass over its placed edges a
+      // segment at a time, by the whole block, the running sums carried
+      const int g = part_first ? 0 : 1;
+      for (int cs = gs.c0[g]; cs < gs.c1[g]; cs += kMaxCols) {
+        for (int lo2 = ka; lo2 < kb; lo2 += kSeg) {
+          const int hi2 = min(kb, lo2 + kSeg);
+          __syncthreads();
+          for (int k = tid; k < hi2 - lo2; k += kThreads)
+            ordw[k] = __ldcg(ord + lo2 + k);
+          coop_chunks<VEC>(q, dq, d, gs, wb, ordw, s, lo2, hi2, cs, stage,
+                           cyc, dh);
+        }
+      }
+    }
+    if (!more_rows) break;
+    s += n_in;
+    ka = kb;
+  }
+
+}
+
+// the dynamic shared-memory limits and the cluster size above 8, raised
+// once so that a CUDA-graph capture never calls cudaFuncSetAttribute
 cudaError_t set_limits() {
   static bool done = false;
   if (done) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
       order_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kOrderSmem));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(hub_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kStageBytes + kListBytes));
-  if (err != cudaSuccess) return err;
-  done = true;
-  return cudaSuccess;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        order_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  // both kernels at the sum kernel's shared-memory carveout, so that no
+  // multiprocessor reconfigures its L1 between them
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(order_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sum_kernel<4>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSumSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sum_kernel<4>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sum_kernel<2>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSumSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sum_kernel<2>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sum_kernel<1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSumSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sum_kernel<1>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               100);
+  if (err == cudaSuccess) done = true;
+  return err;
+}
+
+cudaLaunchConfig_t order_config(int blocks, cudaLaunchAttribute* attr,
+                                int cluster, cudaStream_t st) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kOrderSmem;
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
-// The one-block route (n_edges <= 16,384, m <= 32,768, fanout < 65,536;
-// checked by the wrapper). g (nd, d) float32; edge_src (n_edges,) int32;
-// edge_mask (n_edges,) bool; scratch ord_i, ord_s (n_edges,) int32, ord_c
-// (n_edges,) float32, begin (m + 1,) int32; dh (m, d) float32, every row
-// written; vec (4, 2 or 1) the float vector width d and the pointers
-// allow; sms the card's multiprocessor count.
-extern "C" int repro_gather_agg_bwd(const void* g, int d, const void* edge_src,
-                                    const void* edge_mask, int nd, int fanout,
-                                    int m, void* ord_i, void* ord_c,
-                                    void* ord_s, void* begin, void* dh,
-                                    int vec, int sms, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// Clusters of `cluster` order blocks the card runs at once (*out), for
+// the wrapper's plan of tiles.
+extern "C" int repro_gather_agg_bwd_clusters(int cluster, int* out) {
   cudaError_t err = set_limits();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_edges = nd * fanout;
-  if (n_edges > kOrderMaxEdges || m > kOrderMaxRows || fanout > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // one block a multiprocessor: block 0 orders, the others sum hub rows
-  order_kernel<<<sms > 1 ? sms : 2, kOrderThreads, kOrderSmem, st>>>(
-      static_cast<const int32_t*>(edge_src),
-      static_cast<const uint8_t*>(edge_mask), n_edges, nd, fanout, m,
-      static_cast<int32_t*>(ord_i), static_cast<float*>(ord_c),
-      static_cast<int32_t*>(ord_s), static_cast<int32_t*>(begin),
-      static_cast<const float*>(g), d, static_cast<float*>(dh));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(run_row_sum(
-      static_cast<const float*>(g), d, static_cast<const int32_t*>(ord_i),
-      static_cast<const float*>(ord_c), static_cast<const int32_t*>(ord_s),
-      static_cast<const int32_t*>(begin), m, n_edges,
-      static_cast<float*>(dh), vec, sms, st));
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = order_config(cluster, attr, cluster, nullptr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, order_kernel, &cfg));
 }
 
-// The seg_sort route: sorted_src/sorted_edge (n_edges,) int32 from the
-// by-source sort (key src, INT32_MAX for masked edges; payload the edge
-// index); n_hubs (1,) and hubs (n_edges / 17 + 1,) int32 scratch; the
-// rest as above.
-extern "C" int repro_gather_agg_bwd_sorted(
-    const void* g, int d, const void* sorted_src, const void* sorted_edge,
-    const void* edge_mask, int nd, int fanout, int m, void* ord_i,
-    void* ord_c, void* ord_s, void* begin, void* n_hubs, void* hubs,
-    void* dh, int vec, int sms, void* stream) {
+// g (nd, d) float32; edge_src (nd * fanout,) int32; edge_mask
+// (nd * fanout,) bool; the plan (gather_agg.py `plan_backward`): `cluster`
+// blocks a cluster (8 to 16), `tiles` clusters of `tile_rows` sources
+// (tile_rows <= 16,384, the last tile holding row m - 1), `sum_blocks` sum
+// blocks; scratch q (nd, dq) float32 (dq = d rounded up to 4), ord
+// (nd * fanout,) int32, begin (m + 1,) int32, bounds (2 * sum_blocks,)
+// int32 (each sum block's first row and that row's first slot), all
+// written before read; dh (m, d) float32, every row written; vec (4, 2 or
+// 1) the float vector width d and dh's address allow.
+extern "C" int repro_gather_agg_bwd(const void* g, int d, const void* edge_src,
+                                    const void* edge_mask, int nd, int fanout,
+                                    int m, int cluster, int tiles,
+                                    int tile_rows, int sum_blocks, void* q,
+                                    void* ord, void* begin, void* bounds,
+                                    void* dh, int vec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = set_limits();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_edges = nd * fanout;
-  err = cudaMemsetAsync(n_hubs, 0, sizeof(int32_t), st);
+  if (tile_rows < 1 || tile_rows > kMaxTileRows || cluster < kMinCluster ||
+      cluster > kMaxCluster ||
+      static_cast<long long>(tiles) * tile_rows < m ||
+      static_cast<long long>(tiles - 1) * tile_rows >= m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = order_config(tiles * cluster, attr, cluster, st);
+  err = cudaLaunchKernelEx(&cfg, order_kernel,
+                           static_cast<const int32_t*>(edge_src),
+                           static_cast<const uint8_t*>(edge_mask), nd, fanout,
+                           m, tile_rows, sum_blocks,
+                           static_cast<const float*>(g), d,
+                           static_cast<float*>(q), static_cast<int32_t*>(ord),
+                           static_cast<int32_t*>(begin),
+                           static_cast<int32_t*>(bounds),
+                           static_cast<float*>(dh));
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = (n_edges > m + 1 ? n_edges : m + 1);
-  runs_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      static_cast<const int32_t*>(sorted_src),
-      static_cast<const int32_t*>(sorted_edge),
-      static_cast<const uint8_t*>(edge_mask), n_edges, fanout, m,
-      static_cast<int32_t*>(ord_i), static_cast<float*>(ord_c),
-      static_cast<int32_t*>(ord_s), static_cast<int32_t*>(begin),
-      static_cast<int32_t*>(n_hubs), static_cast<int32_t*>(hubs));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  hub_kernel<<<2 * sms, kHubThreads, kStageBytes + kListBytes, st>>>(
-      static_cast<const float*>(g), d, static_cast<const int32_t*>(ord_i),
-      static_cast<const float*>(ord_c), static_cast<const int32_t*>(begin),
-      static_cast<const int32_t*>(n_hubs),
-      static_cast<const int32_t*>(hubs), static_cast<float*>(dh));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(run_row_sum(
-      static_cast<const float*>(g), d, static_cast<const int32_t*>(ord_i),
-      static_cast<const float*>(ord_c), static_cast<const int32_t*>(ord_s),
-      static_cast<const int32_t*>(begin), m, n_edges,
-      static_cast<float*>(dh), vec, sms, st));
+  const float* qp = static_cast<const float*>(q);
+  const int32_t* op = static_cast<const int32_t*>(ord);
+  const int32_t* bp = static_cast<const int32_t*>(begin);
+  const int32_t* np = static_cast<const int32_t*>(bounds);
+  float* out = static_cast<float*>(dh);
+  if (vec == 4)
+    sum_kernel<4><<<sum_blocks, kThreads, kSumSmem, st>>>(qp, d, op, bp, np,
+                                                         m, out);
+  else if (vec == 2)
+    sum_kernel<2><<<sum_blocks, kThreads, kSumSmem, st>>>(qp, d, op, bp, np,
+                                                         m, out);
+  else
+    sum_kernel<1><<<sum_blocks, kThreads, kSumSmem, st>>>(qp, d, op, bp, np,
+                                                         m, out);
+  return static_cast<int>(cudaGetLastError());
 }

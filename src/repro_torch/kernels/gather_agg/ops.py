@@ -16,11 +16,10 @@ atomics, so the result is deterministic and bit-equal to ``ref.py``.
 VJP (``repro/kernels/gather_agg/ops.py:27``) makes it: the backward is
 ``gather_agg_bwd``, the scatter-add of ``g / max(count, 1)`` over
 ``edge_src``, done as a by-source order and an ordered per-row gather,
-so it is deterministic too. Up to ``ONE_BLOCK_EDGES`` edges one block
-builds each row's list of edges (``one_block``); above that the
-``seg_sort`` kernel sorts the edges first. The edge operands carry no
-gradient, and no backward runs when ``h`` needs none (the input
-features of layer 0).
+so it is deterministic too: two launches at every size (a counting sort
+spread over thread block clusters, then the row sums over the card).
+The edge operands carry no gradient, and no backward runs when ``h``
+needs none (the input features of layer 0).
 
 CPU tensors (or ``interpret=True``) take the plain versions in
 ``ref.py``; CUDA tensors launch the kernels or raise.
@@ -32,27 +31,12 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels._build import LaunchCount, expect, use_plain
 from repro_torch.kernels.gather_agg.gather_agg import (
-    launch_gather_agg, launch_gather_agg_bwd, launch_gather_agg_bwd_sorted)
+    launch_gather_agg, launch_gather_agg_bwd)
 from repro_torch.kernels.gather_agg.ref import (gather_agg_bwd_ref,
                                                 gather_agg_ref)
-from repro_torch.kernels.seg_sort.ops import seg_sort
 
 LAUNCHES = LaunchCount("gather_agg")
 BWD_LAUNCHES = LaunchCount("gather_agg_bwd")
-
-SENTINEL = 2 ** 31 - 1
-
-#: the most edges and rows the backward's one-block order takes
-ONE_BLOCK_EDGES = 16384
-ONE_BLOCK_ROWS = 32768
-
-
-def one_block(n_edges: int, m: int, fanout: int = 1) -> bool:
-    """Whether the backward orders its edges in one block (a counting
-    sort by source in shared memory, dst counts in 16 bits) rather than
-    with ``seg_sort``."""
-    return n_edges <= ONE_BLOCK_EDGES and m <= ONE_BLOCK_ROWS and \
-        fanout < 2 ** 16
 
 
 def _check_edges(edge_src: torch.Tensor, edge_mask: torch.Tensor, nd: int,
@@ -92,20 +76,11 @@ def gather_agg_bwd(g: torch.Tensor, edge_src: torch.Tensor,
     dh = torch.empty((m, g.shape[1]), dtype=torch.float32, device=g.device)
     if m == 0 or g.shape[1] == 0:
         return dh
-    if nd >= 2 ** 24:
+    if nd >= 2 ** 24 or edge_src.shape[0] >= 2 ** 31:
         raise ValueError(f"gather_agg_bwd kernel takes fewer than 2^24 dst "
-                         f"rows, got nd = {nd}")
-    if one_block(edge_src.shape[0], m, fanout):
-        launch_gather_agg_bwd(g, edge_src, edge_mask, nd, fanout, dh)
-    else:
-        keys = torch.where(edge_mask, edge_src,
-                           torch.full_like(edge_src, SENTINEL))
-        edge_ids = torch.arange(keys.shape[0], dtype=torch.int32,
-                                device=g.device)
-        sorted_src, sorted_edge = seg_sort(
-            keys, edge_ids, num_bits=max((m - 1).bit_length(), 1))
-        launch_gather_agg_bwd_sorted(g, sorted_src, sorted_edge, edge_mask,
-                                     nd, fanout, dh)
+                         f"rows and 2^31 edges, got nd = {nd}, "
+                         f"{edge_src.shape[0]} edges")
+    launch_gather_agg_bwd(g, edge_src, edge_mask, nd, fanout, dh)
     BWD_LAUNCHES.bump()
     return dh
 

@@ -159,8 +159,15 @@ BWD_CASES = {
     "all_masked": (4, 3, 10, 5, "masked"),
     "d_602": (20, 25, 500, 602, "random"),
     "layer1_like": (100, 10, 2000, 256, "hub"),
-    # 16,390 edges: just above the one-block order's 16,384
+    # 16,390 edges (the size the one-block order of an earlier design
+    # stopped at)
     "above_one_block": (1639, 10, 3000, 8, "hub"),
+    # over 100,000 edges, sources crowded at low rows as at training's
+    # layer 0 (runs of thousands of edges), at the path's m
+    "edges_above_100k": (10_240, 10, 21_093, 3, "skew"),
+    # more rows than one block's histogram holds (16,384), and more tiles
+    # than an H100 runs clusters at once
+    "rows_above_tiles": (500, 4, 300_000, 2, "random"),
 }
 
 
@@ -173,7 +180,8 @@ BWD_FULL_CASES = {
 def bwd_case(name):
     """-> (g (nd, d), edge_src, edge_mask, m, nd, fanout) for the
     gather_agg backward: zero-count dst rows, rows of h no edge reads,
-    repeated sources, and a hub row that half the edges read."""
+    repeated sources, and a hub row that half the edges read ("hub") or
+    sources crowded at the low rows ("skew")."""
     rng = np.random.default_rng(zlib.crc32(name.encode()))
     nd, fo, m, d, kind = {**BWD_CASES, **BWD_FULL_CASES}[name]
     g = rng.normal(size=(nd, d)).astype(np.float32)
@@ -182,6 +190,8 @@ def bwd_case(name):
     mask[:fo] = False                     # a zero-count dst row
     if kind == "hub":
         src[rng.random(nd * fo) < 0.5] = 7
+    if kind == "skew":
+        src = (m * rng.random(nd * fo) ** 4).astype(np.int32)
     if kind == "masked":
         mask[:] = False
     return g, src, mask, m, nd, fo

@@ -5,20 +5,24 @@ The kernels themselves run only on the card; what is tested here is the
 arithmetic their designs commit to, so that a fault in the plan shows
 without a GPU.
 
-``gather_agg`` backward. Up to ``ONE_BLOCK_EDGES`` edges one block
-counts each source's unmasked edges, scans the counts into each row's
-run, and places each edge's (dst row, count) pair in its run at a slot
-an integer atomic hands out, so in no fixed order; above that size
-``seg_sort`` orders the edges (masked ones, key ``INT32_MAX``, last) and
-the pairs land in edge order. Either way the row sums first put each
-run in ascending dst row (a bitonic sort across a warp's lanes for a run
-of at most 32 edges, a count over dst rows for a hub row), which is edge
-order because the edges are dst-major, and then add g[i] / count[i] in
-that order from +0. The emulation below places the pairs in a random order within each
-run (two different ones), as the atomics may. The runs put in dst order
-must equal the stable sort by source with masked edges last; the row
-sums must equal ``gather_agg_bwd_ref`` on the CPU bit for bit (both add
-the same float32 quotients in edge order), whatever the placement, and
+``gather_agg`` backward. The order kernel cuts the sources into tiles,
+one a thread block cluster (``plan_backward``), and the dst rows into
+slices, one a block of the cluster (``slice_rows``): each block counts
+its slice's edges of the tile, the counts are scanned into each
+(source, block) pair's first slot, and each block places its slice's
+edges round by round from those cursors, ranked among a round's edges of
+the same source in edge order (one warp places all of a source's edges
+of a round). The emulation below does the same, with the blocks placing
+in a random order (they run in no order): each run must come out in
+edge order, the stable sort by source with masked edges left out. The
+sum kernel cuts the placed edges into equal shares (``unit_share``), a
+row that straddles two shares by columns (``row_columns``): every (row,
+column) of a row some edge reads must fall in exactly one share (the
+order kernel writes the zeros of the others), and each block's first
+row, as the order kernel's owners write it, must be the row its share
+starts in. The row sums add g[i] / count[i] in run
+order from +0, so they must equal ``gather_agg_bwd_ref`` on the CPU bit
+for bit (both add the same float32 quotients in edge order), and
 ``jax.vjp`` through the JAX ``gather_agg`` (Pallas kernel in interpret
 mode) within the reference's cross-program tolerance ``rtol=1e-4,
 atol=1e-5`` (XLA's ``segment_sum`` adds in its own order).
@@ -48,7 +52,7 @@ import jax
 import jax.numpy as jnp
 
 from _torch_cases import (BWD_CASES, BWD_FULL_CASES, FLASH_DECODE_CASES,
-                          SENTINEL, as_dtype, bwd_case, flash_decode_case,
+                          as_dtype, bwd_case, flash_decode_case,
                           to_t)
 from repro.kernels.flash_decode.flash_decode import DEFAULT_TS
 from repro.kernels.flash_decode.ops import flash_decode as j_flash_decode
@@ -59,8 +63,8 @@ from repro_torch.kernels.flash_decode.flash_decode import (
     split_range)
 from repro_torch.kernels.flash_decode.ref import (combine,
                                                   flash_decode_batched_ref)
-from repro_torch.kernels.gather_agg.ops import (ONE_BLOCK_EDGES,
-                                                ONE_BLOCK_ROWS, one_block)
+from repro_torch.kernels.gather_agg.gather_agg import (
+    MAX_TILE_ROWS, plan_backward, row_columns, slice_rows, unit_share)
 from repro_torch.kernels.gather_agg.ref import gather_agg_bwd_ref
 
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -74,30 +78,75 @@ ALL_BWD = sorted({**BWD_CASES, **BWD_FULL_CASES})
 # gather_agg backward: the by-source order and the ordered row sums
 # ---------------------------------------------------------------------------
 
+#: order clusters of 8 blocks an H100 runs at once
+#: (``cudaOccupancyMaxActiveClusters`` for the order kernel)
+H100_CLUSTERS = 16
+#: the order kernel's rounds (edges compacted and placed at once) and
+#: chunks (dst rows whose counts it holds), as in gather_agg_bwd.cu
+ORDER_ROUND = 4096
+ORDER_CHUNK_ROWS = 2048
+
+
+def bwd_plan(m):
+    return plan_backward(m, H100_SMS, H100_CLUSTERS)
+
+
+def stable_ranks(keys):
+    """Each entry's rank among the earlier entries of the same key."""
+    order = np.argsort(keys, kind="stable")
+    ranked = np.arange(keys.size) - np.searchsorted(keys[order],
+                                                    keys[order])
+    out = np.empty(keys.size, np.int64)
+    out[order] = ranked
+    return out
+
+
 def placed_runs(src, mask, m, fanout, seed):
     """(begin, end) of each row and the dst rows of the placed pairs, as
-    the backward leaves them on the card: the one-block route's counting
-    placement in a random order within each run, or the seg_sort route's
-    edge order."""
-    n = src.size
+    the order kernel leaves them: per tile, each block's counts of its
+    slice, each (source, block)'s first slot from the scan, then each
+    block's slice placed round by round from its cursors, the blocks in
+    an order drawn from ``seed``."""
+    nd = src.size // fanout
+    cluster, tiles, tile_rows, _ = bwd_plan(m)
     valid = mask & (src >= 0) & (src < m)
-    counts = np.bincount(src[valid], minlength=m)
-    begin = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    if one_block(n, m):
-        rng = np.random.default_rng(seed)
-        order = np.flatnonzero(valid)[rng.permutation(int(valid.sum()))]
-        order = order[np.argsort(src[order], kind="stable")]
-    else:
-        keys = np.where(mask, src, SENTINEL).astype(np.int64)
-        order = np.argsort(keys, kind="stable")[:int(valid.sum())]
-    return begin, begin + counts, order // fanout
+    placed = np.full(int(valid.sum()), -1, np.int64)
+    begin = np.empty(m + 1, np.int64)
+    rng = np.random.default_rng(seed)
+    for t in range(tiles):
+        s0, s1 = t * tile_rows, min(m, (t + 1) * tile_rows)
+        hist = np.zeros((cluster, s1 - s0), np.int64)
+        below = 0
+        for b in range(cluster):
+            lo, hi = slice_rows(nd, cluster, b)
+            s, v = src[lo * fanout:hi * fanout], valid[lo * fanout:hi * fanout]
+            below += int((v & (s < s0)).sum())
+            inn = v & (s >= s0) & (s < s1)
+            hist[b] = np.bincount(s[inn] - s0, minlength=s1 - s0)
+        runs = hist.sum(0)
+        start = np.cumsum(runs) - runs
+        cursor = start + np.cumsum(hist, 0) - hist        # (block, source)
+        begin[s0:s1] = below + start
+        for b in rng.permutation(cluster):
+            lo, hi = slice_rows(nd, cluster, b)
+            for c0 in range(lo, hi, ORDER_CHUNK_ROWS):
+                ce1 = min(hi, c0 + ORDER_CHUNK_ROWS) * fanout
+                for e0 in range(c0 * fanout, ce1, ORDER_ROUND):
+                    e = np.arange(e0, min(e0 + ORDER_ROUND, ce1))
+                    e = e[valid[e] & (src[e] >= s0) & (src[e] < s1)]
+                    sl = src[e] - s0
+                    slots = cursor[b, sl] + stable_ranks(sl)
+                    assert (placed[below + slots] == -1).all()
+                    placed[below + slots] = e // fanout
+                    np.add.at(cursor[b], sl, 1)
+    begin[m] = placed.size
+    assert (placed >= 0).all()
+    return begin[:-1], begin[1:], placed
 
 
-def runs_in_dst_order(begin, end, dst_rows):
-    """Each run's dst rows in ascending order, as the row sums take them
-    (a bitonic sort for a short run, a count for a long one: both give
-    the sorted multiset)."""
-    return [np.sort(dst_rows[b:e], kind="stable") for b, e in zip(begin, end)]
+def runs_of(begin, end, dst_rows):
+    """Each row's run of dst rows, in the order the row sums take them."""
+    return [dst_rows[b:e] for b, e in zip(begin, end)]
 
 
 def ordered_row_sums(g, mask, nd, fo, runs):
@@ -113,6 +162,36 @@ def ordered_row_sums(g, mask, nd, fo, runs):
         rows = np.flatnonzero(length > step)
         dh[rows] = dh[rows] + quot[[runs[r][step] for r in rows]]
     return dh
+
+
+def sum_shares(begin, end, vec, nv):
+    """The sum kernel's cells: per block j, its first row as the order
+    kernel's owners write it (``bounds``), then (row, c0, c1) for each row
+    its share of the placed edges reaches, as ``row_columns`` cuts them."""
+    m, blocks = begin.size, H100_SMS
+    run = end - begin
+    units = int(end[-1]) if m else 0
+    # owner s (run > 0) writes bounds[j] for ceil(b G / U) <= j <
+    # ceil(e G / U), [b, e) its placed edges
+    first_j = -(-begin * blocks // max(units, 1))
+    last_j = np.minimum(-(-end * blocks // max(units, 1)), blocks)
+    bounds = np.repeat(np.arange(m), np.where(run > 0, last_j - first_j, 0))
+    assert bounds.size == (blocks if units else 0)
+    parts = []
+    for j in range(bounds.size):
+        lo, hi = unit_share(units, blocks, j)
+        assert bounds[j] == np.searchsorted(end, lo, "right")
+        s = int(bounds[j])
+        while lo < hi and s < m and begin[s] < hi:
+            c0, c1 = row_columns(int(begin[s]), int(run[s]), lo, hi, nv)
+            if c1 > c0:
+                parts.append((j, s, c0, c1))
+            s += 1
+    return parts
+
+
+def _vec(d):
+    return 4 if d % 4 == 0 else 2 if d % 2 == 0 else 1
 
 
 def _jax_vjp(g, src, mask, m, nd, fo):
@@ -132,9 +211,7 @@ def test_backward_runs_are_the_stable_sort_by_source(name):
     stable = stable[key[stable] < m]                        # masked last
     for seed in (0, 1):
         begin, end, dst_rows = placed_runs(src, mask, m, fo, seed)
-        runs = runs_in_dst_order(begin, end, dst_rows)
-        assert np.array_equal(np.concatenate(runs + [np.zeros(0, int)]),
-                              stable // fo)
+        assert np.array_equal(dst_rows, stable // fo)
         assert np.array_equal(end - begin, np.bincount(src[mask],
                                                        minlength=m))
 
@@ -143,27 +220,93 @@ def test_backward_runs_are_the_stable_sort_by_source(name):
 def test_backward_row_sums_equal_plain_version_and_jax(name):
     g, src, mask, m, nd, fo = bwd_case(name)
     plain = gather_agg_bwd_ref(*to_t(g, src, mask), m, nd, fo).numpy()
-    sums = [ordered_row_sums(g, mask, nd, fo, runs_in_dst_order(
-        *placed_runs(src, mask, m, fo, seed))) for seed in (0, 1)]
-    for dh in sums:
+    vec = _vec(g.shape[1])
+    for seed in (0, 1):
+        begin, end, dst_rows = placed_runs(src, mask, m, fo, seed)
+        whole = ordered_row_sums(g, mask, nd, fo,
+                                 runs_of(begin, end, dst_rows))
+        # the order kernel writes the zeros of the rows no edge reads;
+        # each sum block its cells of the rows its share reaches
+        dh = np.full_like(whole, np.nan)
+        dh[end == begin] = 0.0
+        for _, s, c0, c1 in sum_shares(begin, end, vec, g.shape[1] // vec):
+            dh[s, c0 * vec:c1 * vec] = whole[s, c0 * vec:c1 * vec]
         np.testing.assert_array_equal(dh, plain)
-    np.testing.assert_allclose(sums[0], _jax_vjp(g, src, mask, m, nd, fo),
-                               **TOL)
+    np.testing.assert_allclose(dh, _jax_vjp(g, src, mask, m, nd, fo), **TOL)
 
 
-def test_backward_routes_by_size():
-    """The path's shape (10,000 edges into 21,093 rows) and every case
-    up to 16,384 edges take the one-block order; more edges, or more
-    than 32,768 rows, take seg_sort."""
-    assert one_block(10_000, 21_093)
-    assert one_block(ONE_BLOCK_EDGES, ONE_BLOCK_ROWS)
-    assert not one_block(ONE_BLOCK_EDGES + 1, 1)
-    assert not one_block(3, ONE_BLOCK_ROWS + 1)
-    for name in ALL_BWD:
-        _, _, _, m, nd, fo = bwd_case(name)
-        assert one_block(nd * fo, m) == (nd * fo <= ONE_BLOCK_EDGES)
+@pytest.mark.parametrize("name", ALL_BWD)
+def test_backward_sum_shares_cover_each_cell_once(name):
+    """Every (row, vector column) of dh is written once: the rows no edge
+    reads by the order kernel, every other cell in exactly one sum
+    block's share (shares meet inside a row only at adjacent columns); a
+    block's share holds about edges / blocks placed edges."""
+    g, src, mask, m, nd, fo = bwd_case(name)
+    vec = _vec(g.shape[1])
+    nv = g.shape[1] // vec
+    begin, end, _ = placed_runs(src, mask, m, fo, 0)
+    cover = np.zeros((m, nv), np.int32)
+    cover[end == begin] += 1
+    for _, s, c0, c1 in sum_shares(begin, end, vec, nv):
+        cover[s, c0:c1] += 1
+    assert (cover == 1).all()
+    units = int(end[-1])
+    sizes = [np.subtract(*unit_share(units, H100_SMS, j)[::-1])
+             for j in range(H100_SMS)]
+    assert sum(sizes) == units and max(sizes) - min(sizes) <= 1
+
+
+#: (nd, fanout, m): the training path's layers, the rank-0 dry-run's,
+#: tiny, ragged and huge row counts
+PLAN_SHAPES = {
+    "layer1": (1000, 10, 21_093),
+    "layer0": (4777, 25, 21_093),
+    "dryrun_rank0": (1000, 25, 26_000),
+    "one_row": (3, 4, 1),
+    "fewer_dst_rows_than_blocks": (5, 3, 64),
+    "no_dst_rows": (0, 5, 10),
+    "rows_above_tiles": (500, 4, 300_000),
+    "ragged": (1639, 10, 16_385),
+    "max_rows_a_wave": (7, 2, 16 * MAX_TILE_ROWS),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_SHAPES))
+def test_backward_plan_cuts_edges_into_slices_and_sources_into_tiles(name):
+    """Every edge lies in exactly one block's slice, the slices in edge
+    order and made of whole dst rows; the tiles cover [0, m) once, each
+    at most one block's histogram, and no more tiles than one wave of
+    clusters unless m needs them."""
+    nd, fo, m = PLAN_SHAPES[name]
+    cluster, tiles, tile_rows, sum_blocks = bwd_plan(m)
+    assert cluster == 8 and sum_blocks == H100_SMS
+    cuts = [slice_rows(nd, cluster, b) for b in range(cluster)]
+    edges = [e for lo, hi in cuts for e in range(lo * fo, hi * fo)]
+    assert edges == list(range(nd * fo))
+    assert cuts[0][0] == 0 and cuts[-1][1] == nd
+    assert all(a[1] == b[0] for a, b in zip(cuts, cuts[1:]))
+    assert 1 <= tile_rows <= MAX_TILE_ROWS
+    assert (tiles - 1) * tile_rows < m <= tiles * tile_rows
+    assert tiles <= max(H100_CLUSTERS, -(-m // MAX_TILE_ROWS))
+    if m >= H100_CLUSTERS:
+        assert tiles >= H100_CLUSTERS - 1 or tile_rows == MAX_TILE_ROWS
+
+
+def test_backward_plan_is_a_function_of_shapes_only():
+    """The plan reads m and the card (multiprocessors, clusters a wave),
+    never the edges: the path's two layers share one plan."""
+    assert list(inspect.signature(plan_backward).parameters) == [
+        "m", "sms", "clusters"]
+    assert list(inspect.signature(slice_rows).parameters) == [
+        "nd", "cluster", "b"]
+    assert bwd_plan(21_093) == (8, 16, 1319, H100_SMS) == bwd_plan(21_093)
+    assert bwd_plan(1) == (8, 1, 1, H100_SMS)
+    assert bwd_plan(300_000)[1:3] == (19, MAX_TILE_ROWS)
     hub = bwd_case("hub")
     assert np.bincount(hub[1][hub[2]]).max() > 300           # a hub row
+    skew = bwd_case("edges_above_100k")
+    assert skew[1].size > 100_000 and np.bincount(skew[1]).max() > 2000
+    assert bwd_case("rows_above_tiles")[3] > MAX_TILE_ROWS
     assert bwd_case("all_masked")[2].sum() == 0
 
 
