@@ -520,19 +520,38 @@ def max_sm_mhz() -> float:
     return float(p.stdout.strip().splitlines()[0])
 
 
-def op_times_ms(torch, fn, calls: int = 20) -> dict:
-    """Each card op's own time a ``fn()`` call, by kernel name (its first
-    50 characters), from ``torch.profiler`` over ``calls`` calls."""
+def op_times_ms(torch, fn, calls: int = 20, tries: int = 3) -> dict:
+    """Each card op's own time a ``fn()`` call, in launch order, by kernel
+    name (its first 50 characters; `` #i`` added for the i-th launch of a
+    name a call makes more than once, such as one kernel a sort pass),
+    from ``torch.profiler`` over ``calls`` calls (traced again, up to
+    ``tries`` times, where the trace lost an op)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:50]: e.self_device_time_total / 1e3 / calls
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        per = len(ops) // calls
+        names = [e.name[:50] for e in ops[:per]]
+        if ops and [e.name[:50] for e in ops] == names * calls:
+            break
+    else:
+        raise RuntimeError(f"the profiler saw {len(ops)} card ops over "
+                           f"{calls} calls, not the same ops a call")
+    keys = [f"{k} #{names[:i].count(k)}" if names.count(k) > 1 else k
+            for i, k in enumerate(names)]
+    out = dict.fromkeys(keys, 0.0)
+    for i, e in enumerate(ops):
+        out[keys[i % per]] += (e.time_range.end - e.time_range.start) \
+            / 1e3 / calls
+    return out
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S):
@@ -1404,6 +1423,7 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
     from repro_torch.kernels.gather_agg.ref import gather_agg_bwd_ref
     from repro_torch.kernels.seg_sort import ops as sort_ops
     from repro_torch.kernels.seg_sort.ref import seg_sort_ref
+    from repro_torch.kernels.seg_sort.seg_sort import CLUSTER, TILE, passes
 
     sentinel = 2 ** 31 - 1
     _, cb = captured[0]
@@ -1419,7 +1439,7 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
         if payload is not None:
             _equal(torch, got[1], want[1])
         n = keys.shape[0]
-        passes = -(-min(num_bits + 1, 32) // 8)    # 8-bit digits
+        n_pass = passes(num_bits)
         width = 4 if payload is None else 8        # bytes a key carries
 
         def call():
@@ -1428,10 +1448,10 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
         ops = device_ops(torch, call)
         r = {"what": what, "n": n, "num_bits": num_bits,
              # each key read once and written once (the row's bound) ...
-             "bound": bound_ms(n * 2 * width, n * passes),
+             "bound": bound_ms(n * 2 * width, n * n_pass),
              # ... and this design's own floor: read by the histogram and
              # by every pass, written by every pass
-             "design_floor_ms": bound_ms(n * width * (1 + 2 * passes),
+             "design_floor_ms": bound_ms(n * width * (1 + 2 * n_pass),
                                          0)[0],
              "ms": device_ms(torch, call),
              "ms_in_a_graph": device_ms_per_call(torch, call, calls=10),
@@ -1439,17 +1459,20 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
                  keys, payload)),
              "library_ms": device_ms(torch, lambda: torch.sort(
                  keys, stable=True)),
-             "passes": passes, "device_ops": len(ops), "ops": ops}
+             "op_ms": op_times_ms(torch, call),
+             "passes": n_pass, "device_ops": len(ops), "ops": ops}
         log(f"seg_sort {what}: n={n} num_bits={num_bits} "
             f"ms={r['ms']:.4f} ({r['ms_in_a_graph']:.4f} a call in a graph "
             f"of 10) plain_ms={r['plain_ms']:.4f} library_ms="
             f"{r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} (read and "
             f"write once; the design's floor {r['design_floor_ms']:.4f}); "
-            f"{len(ops)} card ops a call ({', '.join(ops)}) for {passes} "
-            f"passes; bit-equal to its plain version")
-        if len(ops) > 1 + passes:
+            f"{len(ops)} card ops a call ({', '.join(ops)}) for {n_pass} "
+            f"passes in clusters of {CLUSTER} tiles, each op's ms "
+            f"{json.dumps({k: round(v, 4) for k, v in r['op_ms'].items()})}"
+            f"; bit-equal to its plain version and to a second call")
+        if len(ops) > 1 + n_pass:
             raise RuntimeError(f"seg_sort {what}: {len(ops)} card operations "
-                               f"a call, at most 1 + {passes} expected")
+                               f"a call, at most 1 + {n_pass} expected")
         return r
 
     # the forward at training's two layer shapes, from the captured batch:
@@ -1553,10 +1576,14 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
     bwd0 = bwd_row(0, cfg.in_dim, "layer 0 (for reference, not launched "
                                   "in training)", 1e-4)
 
-    # awkward shapes
+    # awkward shapes: around a tile and a cluster of tiles
     gen = torch.Generator(device="cpu").manual_seed(9)
+    span = CLUSTER * TILE
     for n, bits, payload in ((1, 3, True), (4095, 20, True),
-                             (4097, 31, False), (700, 1, True)):
+                             (4097, 31, False), (TILE - 1, 20, True),
+                             (TILE + 1, 31, False), (700, 1, True),
+                             (span - 1, 20, True), (span, 21, False),
+                             (span + 1, 22, True), (3 * span + 1, 20, False)):
         keys = torch.randint(0, 1 << bits, (n,), generator=gen,
                              dtype=torch.int32)
         keys[::5] = sentinel
@@ -1569,6 +1596,16 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
         _equal(torch, got[0], want[0])
         if pay is not None:
             _equal(torch, got[1], want[1])
+    # keys and payload 4 and 12 bytes past a 16-byte boundary (views)
+    big = torch.randint(0, 1 << 20, (span + 9,), generator=gen,
+                        dtype=torch.int32)
+    big[::7] = sentinel
+    big = big.to(device)
+    keys, pay = big[1:span + 6], big.flip(0)[3:span + 8]
+    got = sort_ops.seg_sort(keys, pay, num_bits=20)
+    want = seg_sort_ref(keys, pay)
+    _equal(torch, got[0], want[0])
+    _equal(torch, got[1], want[1])
     same = torch.full((3000,), 5, dtype=torch.int32, device=device)
     order = torch.arange(3000, dtype=torch.int32, device=device)
     _equal(torch, sort_ops.seg_sort(same, order, num_bits=4)[1], order)
@@ -1581,9 +1618,12 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
     if not torch.equal(got.cpu(), gather_agg_bwd_ref(
             hub_g.cpu(), hub_src.cpu(), hub_msk.cpu(), 9, 40, 10)):
         raise RuntimeError("gather_agg_bwd hub row differs")
-    log("awkward shapes: seg_sort (n=1, 4095, 4097, all keys equal, "
-        "num_bits 1/3/20/31, sentinels between keys) and gather_agg_bwd "
-        "(one hub row, a zero-count dst row) equal to their plain versions")
+    log(f"awkward shapes: seg_sort (n=1, 4095, 4097, a tile {TILE} +- 1, "
+        f"a cluster of {CLUSTER} tiles {span} +- 1, {3 * span + 1}, all keys equal, num_bits "
+        f"1/3/20/21/22/31, sentinels between keys, with and without "
+        f"payload, views 4 and 12 bytes past 16-byte alignment) and "
+        f"gather_agg_bwd (one hub row, a zero-count dst row) "
+        f"equal to their plain versions")
     torch.cuda.synchronize()
 
     rows = [{

@@ -14,10 +14,10 @@ kernel's VMEM bound ``MAX_VMEM_N`` has no counterpart in HBM.
 
 On the card a call is ``1 + passes`` launches (``seg_sort.passes``, 3
 passes for 20-bit keys): a histogram of every pass's digits, then one
-one-sweep launch a pass, each tile finding its offsets by a decoupled
-look-back over the tiles before it. Bound: bytes, each key (and payload)
-read once and written once; the design reads the keys ``1 + passes``
-times and writes them ``passes`` times.
+one-sweep launch a pass in thread block clusters (``seg_sort.py``).
+Bound: bytes, each key (and payload) read once and written once; the
+design reads the keys ``1 + passes`` times and writes them ``passes``
+times.
 """
 from __future__ import annotations
 

@@ -5,16 +5,13 @@ Replaces the TPU kernel ``repro/kernels/seg_sort/seg_sort.py``
 ``_radix_pass_kernel`` / ``radix_sort``, which keeps the whole key
 vector in VMEM (at most 2^19 keys) and runs one grid step per 4-bit
 pass. Here the keys stay in HBM and a call is ``1 + passes(num_bits)``
-launches: one reads the keys once and counts every 8-bit pass's digits
-into a per-card histogram with integer atomics; then one launch a pass
-ranks each tile of ``TILE`` keys stably (``THREADS`` threads, each warp
-a contiguous run of ``32 * ROUNDS`` keys), finds the tile's offsets by
-a decoupled look-back over the earlier tiles' published digit counts
-(``LOOKBACK`` status words a step), and writes the tile in sorted
-order.
-No size limit. Bound: bytes, each key read and written once; the
-design's own floor reads the keys once more for the histograms,
-``4 * (1 + 2 * passes)`` bytes a key.
+launches: one counts every 8-bit pass's digits into a per-card
+histogram; then one launch a pass in clusters of ``CLUSTER`` blocks,
+each block a tile of ``TILE`` keys (one TMA bulk copy), ranked stably
+(``THREADS`` threads, a warp a run of ``32 * ROUNDS`` keys). A
+cluster's tiles scan their digit counts through distributed shared
+memory, and a decoupled look-back over the earlier clusters gives the
+cluster's offsets. No size limit; bound: bytes.
 """
 from __future__ import annotations
 
@@ -28,12 +25,11 @@ from repro_torch.kernels._build import (check, library, multiprocessors,
 
 FAMILY = "seg_sort"
 
-#: the kernel's plan (csrc/radix_sort.cu): threads a block and keys a
-#: thread (a tile), status words a look-back step reads
+#: the kernel's plan, compiled into csrc/radix_sort.cu (mirrored here)
 THREADS = 256
-ROUNDS = 16
+ROUNDS = 18
 TILE = THREADS * ROUNDS
-LOOKBACK = 4
+CLUSTER = 8
 DIGIT_BITS = 8
 
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -45,18 +41,17 @@ _hist: Dict[int, torch.Tensor] = {}
 
 
 def passes(num_bits: int) -> int:
-    """8-bit passes over ``num_bits``-bit keys plus the bit that ranks
-    every key at or above ``2^num_bits`` last."""
+    """``DIGIT_BITS``-bit passes over ``num_bits``-bit keys plus the bit
+    that ranks every key at or above ``2^num_bits`` last."""
     return -(-min(num_bits + 1, 32) // DIGIT_BITS)
 
 
-def _hist_buffer(device: torch.device) -> torch.Tensor:
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
+def _hist_buffer() -> torch.Tensor:
+    idx = torch.cuda.current_device()
     if idx not in _hist:
         fn = library(FAMILY).repro_radix_sort_hist_len
         fn.restype = ctypes.c_int
-        _hist[idx] = torch.zeros(fn(), dtype=torch.int32, device=device)
+        _hist[idx] = torch.zeros(fn(), dtype=torch.int32, device=idx)
     return _hist[idx]
 
 
@@ -66,18 +61,18 @@ def launch_radix_sort(keys: torch.Tensor, payload: Optional[torch.Tensor],
                       num_bits: int) -> None:
     """Enqueue the launches on the current stream; inputs pre-checked by
     the wrapper (n >= 1, 1 <= num_bits <= 31, int32 contiguous, one
-    device). Scratch (the look-back status words, the tile tickets and a
-    ping-pong copy of keys and payload) comes from PyTorch's allocator."""
+    device). Scratch (the look-back status words, the cluster tickets and
+    a ping-pong copy of keys and payload) comes from PyTorch's
+    allocator."""
     n = keys.shape[0]
     lib = library(FAMILY)
     size = lib.repro_radix_sort_scratch_bytes
-    size.argtypes = [ctypes.c_int, ctypes.c_int]
+    size.argtypes = [ctypes.c_int] * 2
     size.restype = ctypes.c_longlong
-    scratch = torch.empty(-(-size(n, num_bits) // 8), dtype=torch.int64,
-                          device=keys.device)
+    scratch = torch.empty(-(-size(n, num_bits) // 8),
+                          dtype=torch.int64, device=keys.device)
     keys_tmp = torch.empty_like(keys)
     pay_tmp = None if payload is None else torch.empty_like(payload)
-    hist = _hist_buffer(keys.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -85,8 +80,11 @@ def launch_radix_sort(keys: torch.Tensor, payload: Optional[torch.Tensor],
     fn.argtypes = _ARGS
     fn.restype = ctypes.c_int
     with torch.cuda.device(keys.device):
+        hist = _hist_buffer()
         err = fn(keys.data_ptr(), ptr(payload), keys_out.data_ptr(),
                  ptr(payload_out), keys_tmp.data_ptr(), ptr(pay_tmp),
                  scratch.data_ptr(), hist.data_ptr(), n, num_bits,
                  multiprocessors(keys.device), stream_handle(keys.device))
+        if err:  # a refused pass may leave counts: the next call starts anew
+            _hist.pop(torch.cuda.current_device())
     check(FAMILY, "radix_sort", err)

@@ -39,6 +39,7 @@ from repro_torch.kernels.flash_decode.ref import (combine,
 from repro_torch.kernels.gather_agg import ops as t_gather_ops
 from repro_torch.kernels.gather_agg.ref import gather_agg_ref as t_gather_ref
 from repro_torch.kernels.seg_sort import ops as t_sort_ops
+from repro_torch.kernels.seg_sort.seg_sort import CLUSTER, TILE
 
 
 def device_kernels(torch_fn):
@@ -273,25 +274,34 @@ def test_seg_sort_kernel_equals_plain_on_card(cuda, name):
     assert t_sort_ops.LAUNCHES.value == before + (1 if keys.size else 0)
 
 
+#: keys a cluster of tiles takes
+SPAN = CLUSTER * TILE
+
 SORT_TILE_CASES = {
-    # name: (n, num_bits, payload); a tile is 4,096 keys
-    "tile_minus_one": (4095, 20, True),
-    "tile": (4096, 20, False),
-    "tile_plus_one": (4097, 20, True),
-    "two_tiles_plus_one_bits_31": (8193, 31, True),
-    "many_tiles_bits_3": (3 * 4096 + 5, 3, True),
+    # name: (n, num_bits, payload); a tile is TILE keys
+    "tile_minus_one": (TILE - 1, 20, True),
+    "tile": (TILE, 20, False),
+    "tile_plus_one": (TILE + 1, 20, True),
+    "two_tiles_plus_one_bits_31": (2 * TILE + 1, 31, True),
+    "many_tiles_bits_3": (3 * TILE + 5, 3, True),
     "bits_1": (5000, 1, False),
     "all_equal": (10000, 20, True),
     "two_to_20_plus_3": (2 ** 20 + 3, 20, True),
+    "cluster_minus_one": (SPAN - 1, 20, True),
+    "cluster_minus_one_keys_only": (SPAN - 1, 21, False),
+    "cluster": (SPAN, 22, True),
+    "cluster_plus_one": (SPAN + 1, 20, True),
+    "cluster_plus_one_keys_only": (SPAN + 1, 31, False),
+    "three_clusters_plus_one": (3 * SPAN + 1, 20, False),
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(SORT_TILE_CASES))
 def test_seg_sort_tiles_on_card(cuda, name):
-    """Across tile boundaries, with sentinels between real keys: bit-equal
-    to the plain version and to a second run, payload included, in at
-    most 1 + passes card operations a call."""
+    """Across tile and cluster boundaries, with sentinels between real
+    keys: bit-equal to the plain version and to a second run, payload
+    included, in at most 1 + passes card operations a call."""
     from repro_torch.kernels.seg_sort.seg_sort import passes
     n, num_bits, with_payload = SORT_TILE_CASES[name]
     rng = np.random.default_rng(n + num_bits)
@@ -312,6 +322,63 @@ def test_seg_sort_tiles_on_card(cuda, name):
     n_ops = device_kernels(lambda: t_sort_ops.seg_sort(
         tk, tp, num_bits=num_bits))
     assert n_ops <= 1 + passes(num_bits), n_ops
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("key_off,pay_off", [(1, 3), (2, 0), (3, 1)])
+def test_seg_sort_unaligned_views_on_card(cuda, key_off, pay_off):
+    """Keys and payload that start 4, 8 or 12 bytes past a 16-byte
+    boundary (views into larger tensors): each tile's ends come by
+    threads, its aligned body by the bulk copy; bit-equal to the plain
+    version."""
+    n, num_bits = SPAN + 2 * TILE + 5, 20
+    rng = np.random.default_rng(key_off * 4 + pay_off)
+    keys = rng.integers(0, 1 << num_bits, size=n + 4).astype(np.int32)
+    keys[rng.random(n + 4) < 0.2] = 2 ** 31 - 1
+    pay = rng.permutation(n + 4).astype(np.int32)
+    tk = torch.from_numpy(keys).to(cuda)[key_off:key_off + n]
+    tp = torch.from_numpy(pay).to(cuda)[pay_off:pay_off + n]
+    assert tk.data_ptr() % 16 == 4 * key_off and tp.is_contiguous()
+    sk, sp = t_sort_ops.seg_sort(tk, tp, num_bits=num_bits)
+    wk, wp = t_sort_ops.seg_sort(tk.cpu(), tp.cpu(), num_bits=num_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(sk.cpu(), wk) and torch.equal(sp.cpu(), wp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_payload", [False, True])
+def test_seg_sort_graph_replays_on_card(cuda, with_payload):
+    """A call captured in a CUDA graph and replayed twice, over new keys
+    each time, is bit-equal to the plain version both times: the per-card
+    state (the histogram every call leaves zero) is fit for the next
+    call."""
+    n, num_bits = 3 * SPAN + 17, 20
+    rng = np.random.default_rng(29 + with_payload)
+
+    def draw():
+        keys = rng.integers(0, 1 << num_bits, size=n).astype(np.int32)
+        keys[rng.random(n) < 0.2] = 2 ** 31 - 1
+        return torch.from_numpy(keys), torch.from_numpy(
+            rng.permutation(n).astype(np.int32))
+    k0, p0 = draw()
+    tk = k0.to(cuda)
+    tp = p0.to(cuda) if with_payload else None
+    t_sort_ops.seg_sort(tk, tp, num_bits=num_bits)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sk, sp = t_sort_ops.seg_sort(tk, tp, num_bits=num_bits)
+    for _ in range(2):
+        k, p = draw()
+        tk.copy_(k)
+        if with_payload:
+            tp.copy_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        wk, wp = t_sort_ops.seg_sort(k, p if with_payload else None,
+                                     num_bits=num_bits)
+        assert torch.equal(sk.cpu(), wk)
+        assert (sp is None and wp is None) or torch.equal(sp.cpu(), wp)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,5 @@
-"""The work plans of the ``gather_agg`` forward and the one-sweep
-``seg_sort`` kernels, emulated on the CPU and held against the JAX
+"""The work plans of the ``gather_agg`` forward and the clustered
+one-sweep ``seg_sort`` kernels, emulated on the CPU and held against the JAX
 package and the port's plain versions.
 
 The kernels run only on the card; what is tested here is the arithmetic
@@ -20,19 +20,22 @@ within the reference's cross-program tolerance ``rtol=1e-4, atol=1e-5``
 of the JAX ``gather_agg`` (the Pallas kernel in interpret mode).
 
 ``seg_sort`` (``csrc/radix_sort.cu``). One histogram of every pass's
-digits, then per 8-bit pass: each tile of ``TILE`` keys ranks its keys
-(warp w a contiguous run of ``32 * ROUNDS`` keys, round by round, lanes
-in order), publishes each digit's tile count as an "aggregate", and
-looks back over its predecessors' status words, ``LOOKBACK`` a step,
-until an "inclusive" one, publishing its own inclusive prefix when its
-walk ends; tile 0 publishes the global histogram's exclusive scan plus
-its count at once. The emulation runs the look-back under random
-interleavings (tiles publish in random orders and each digit's walk
-advances on its own), so walks read partial ("aggregate") predecessors;
-whatever the order, the sort must equal ``seg_sort_ref`` bit for bit,
-payload included, and the JAX ``radix_sort`` (interpret mode) where
-sentinels stand only at the tail, which is the reference's own contract
-(``ROADMAP.md`` Queue 3, "Sentinel ranking").
+digits, then per ``DIGIT_BITS``-bit pass: each tile of ``TILE`` keys
+ranks its keys (warp w a contiguous run of ``32 * ROUNDS`` keys, round
+by round, lanes in order); clusters of ``CLUSTER`` tiles (the last one
+partial) scan each digit's tile counts across the cluster, and each
+cluster publishes its count of each digit as an "aggregate" and looks
+back over the earlier clusters' status words, a group of lanes a digit
+reading one word a lane a step, until an "inclusive" one, publishing its
+own inclusive prefix when its walk ends; cluster 0 publishes the global
+histogram's exclusive scan plus its count at once. The emulation runs
+the look-back under random interleavings (clusters publish in random
+orders and each digit's walk advances on its own), so walks read partial
+("aggregate") predecessors; whatever the order, the sort must equal
+``seg_sort_ref`` bit for bit, payload included, and the JAX
+``radix_sort`` (interpret mode) where sentinels stand only at the tail,
+which is the reference's own contract (``ROADMAP.md`` Queue 3,
+"Sentinel ranking").
 """
 import numpy as np
 import pytest
@@ -47,7 +50,7 @@ from repro_torch.kernels.gather_agg.gather_agg import (plan_forward,
                                                        vec_width)
 from repro_torch.kernels.gather_agg.ref import gather_agg_ref
 from repro_torch.kernels.seg_sort.ref import seg_sort_ref
-from repro_torch.kernels.seg_sort.seg_sort import (DIGIT_BITS, LOOKBACK,
+from repro_torch.kernels.seg_sort.seg_sort import (CLUSTER, DIGIT_BITS,
                                                    ROUNDS, THREADS, TILE,
                                                    passes)
 
@@ -181,18 +184,20 @@ def test_forward_plan_at_the_path_shapes():
 
 
 # ---------------------------------------------------------------------------
-# seg_sort: one histogram launch, then one one-sweep launch a pass
+# seg_sort: one histogram launch, then one clustered one-sweep launch a pass
 # ---------------------------------------------------------------------------
 
-def tile_ranks(u, shift, warps, rounds):
+def tile_ranks(u, shift, warps, rounds, bits=DIGIT_BITS):
     """One tile's digits -> (count per digit, each key's slot in the
     tile's sorted order), as the kernel ranks them: warp w owns keys
     [w*32*rounds, (w+1)*32*rounds), round r lanes 0..31; a key's rank is
-    the earlier keys of its digit in its warp; warps take slots in order
-    within each digit, digits in order."""
-    d = (u >> shift) & 0xFF
+    the earlier keys of its digit in its warp (a round whose lanes share
+    one digit takes ranks in lane order at once, which is the same);
+    warps take slots in order within each digit, digits in order."""
+    digits = 1 << bits
+    d = (u >> shift) & (digits - 1)
     n = d.size
-    warp_count = np.zeros((warps, 256), np.int64)
+    warp_count = np.zeros((warps, digits), np.int64)
     rank = np.zeros(n, np.int64)
     for w in range(warps):
         for r in range(rounds):
@@ -210,88 +215,104 @@ def tile_ranks(u, shift, warps, rounds):
     return count, tile_off[d] + first[warp_of, d] + rank
 
 
-def look_back(counts, global_excl, rng, stats, window=LOOKBACK):
-    """Every tile's exclusive prefix per digit under one random
-    interleaving: tiles publish their counts as aggregates in a random
-    order (tile 0: its inclusive prefix, from the global offsets at
-    once); each digit of a published tile walks back over its
-    predecessors' words, `window` a step, on its own (a random subset of
-    the walks takes a step at a time), summing aggregates until an
-    inclusive word, a word not yet published ending the step; then it
-    publishes its inclusive prefix."""
-    tiles = counts.shape[0]
-    flag = np.zeros((tiles, 256), np.int8)        # 0 none, 1 agg, 2 incl
-    value = np.zeros((tiles, 256), np.int64)
-    ptr = np.tile(np.arange(tiles)[:, None] - 1, (1, 256))
-    total = np.zeros((tiles, 256), np.int64)
-    done = np.zeros((tiles, 256), bool)
-    excl = np.zeros((tiles, 256), np.int64)
-    order = list(rng.permutation(tiles))
-    published = np.zeros(tiles, bool)
+def look_back(agg, global_excl, lanes, rng, stats):
+    """Every cluster's exclusive prefix per digit under one random
+    interleaving: clusters publish their counts ("aggregates") in a random
+    order (cluster 0: its inclusive prefix, from the global offsets at
+    once); each digit of a published cluster is walked by a group of
+    `lanes` lanes, lane g reading the (g + 1)-th nearest predecessor, on
+    its own (a random subset of the walks takes a step at a time): the
+    aggregates before the nearest inclusive word are summed with it and
+    end the walk, or, where an unpublished word comes first, the
+    aggregates before it are summed and the next step starts from it;
+    then the cluster publishes its inclusive prefix."""
+    clusters, digits = agg.shape
+    flag = np.zeros((clusters, digits), np.int8)   # 0 none, 1 agg, 2 incl
+    value = np.zeros((clusters, digits), np.int64)
+    ptr = np.tile(np.arange(clusters)[:, None] - 1, (1, digits))
+    total = np.zeros((clusters, digits), np.int64)
+    done = np.zeros((clusters, digits), bool)
+    excl = np.zeros((clusters, digits), np.int64)
+    order = list(rng.permutation(clusters))
+    published = np.zeros(clusters, bool)
+    g = np.arange(lanes)
     while not done.all():
         walking = np.flatnonzero(published & ~done.all(1))
         pick = rng.integers(int(bool(order)) + walking.size)
-        if order and pick == 0:                    # a tile publishes
-            t = order.pop()
-            published[t] = True
-            if t == 0:
+        if order and pick == 0:                    # a cluster publishes
+            c = order.pop()
+            published[c] = True
+            if c == 0:
                 excl[0] = global_excl
-                value[0], flag[0] = global_excl + counts[0], 2
+                value[0], flag[0] = global_excl + agg[0], 2
                 done[0] = True
             else:
-                value[t], flag[t] = counts[t], 1
+                value[c], flag[c] = agg[c], 1
             continue
-        t = walking[pick - int(bool(order))]
-        digits = np.flatnonzero(~done[t] & (rng.random(256) < 0.5))
-        j = ptr[t, digits]
-        stop = np.zeros(digits.size, bool)
-        fin = np.zeros(digits.size, bool)
-        step = np.zeros(digits.size, int)
-        for q in range(window):                    # one step's words
-            jj = np.maximum(j - q, 0)
-            f = np.where(~stop & (j - q >= 0), flag[jj, digits], 0)
-            take = ~stop & (f > 0)
-            total[t, digits] += np.where(take, value[jj, digits], 0)
-            step += take
-            stats["aggregate_reads"] += int((take & (f == 1)).sum())
-            fin |= take & (f == 2)
-            stop |= (f == 0) | fin
-        ptr[t, digits] -= step
-        d = digits[fin]
-        excl[t, d] = total[t, d]
-        value[t, d], flag[t, d] = total[t, d] + counts[t, d], 2
-        done[t, d] = True
+        c = walking[pick - int(bool(order))]
+        for dg in np.flatnonzero(~done[c] & (rng.random(digits) < 0.5)):
+            at = ptr[c, dg] - g                    # one word a lane
+            f = np.where(at >= 0, flag[np.maximum(at, 0), dg], 2)
+            v = np.where(at >= 0, value[np.maximum(at, 0), dg], 0)
+            stop = np.flatnonzero(f != 1)
+            first = stop[0] if stop.size else lanes
+            fin = first < lanes and f[first] == 2
+            take = first + 1 if fin else first
+            total[c, dg] += v[:take].sum()
+            stats["aggregate_reads"] += int((f[:take] == 1).sum())
+            if fin:
+                excl[c, dg] = total[c, dg]
+                value[c, dg], flag[c, dg] = total[c, dg] + agg[c, dg], 2
+                done[c, dg] = True
+            else:
+                ptr[c, dg] -= take
     return excl
 
 
 def onesweep(keys, payload, num_bits, *, warps=WARPS, rounds=ROUNDS,
-             seed=0, stats=None):
-    """The one-sweep plan -> (sorted keys, payload or None)."""
+             cluster=CLUSTER, bits=DIGIT_BITS, seed=0, stats=None):
+    """The clustered one-sweep plan -> (sorted keys, payload or None):
+    tiles of warps * 32 * rounds keys, clusters of `cluster` tiles (the
+    last one partial, its missing tiles empty), each block's offset within
+    its cluster scanned from the cluster's tile counts, the cluster's
+    offsets from the look-back over clusters (a digit's group has
+    cluster / (digits / THREADS) lanes)."""
     stats = {"aggregate_reads": 0} if stats is None else stats
     rng = np.random.default_rng(seed)
+    digits = 1 << bits
+    lanes = cluster * THREADS // digits
     tile = warps * 32 * rounds
     n = keys.size
     clamp = 1 << num_bits
+    n_pass = -(-min(num_bits + 1, 32) // bits)
     u = np.minimum(keys.astype(np.int64), clamp)
     k, p = keys.copy(), None if payload is None else payload.copy()
     # launch 1: every pass's digit counts, summed over blocks
-    hist = [sum(np.bincount((c >> (DIGIT_BITS * q)) & 0xFF, minlength=256)
-                for c in np.array_split(u, 3)) for q in range(
-                    passes(num_bits))]
-    for q in range(passes(num_bits)):
-        shift = DIGIT_BITS * q
+    hist = [sum(np.bincount((c >> (bits * q)) & (digits - 1),
+                            minlength=digits)
+                for c in np.array_split(u, 3)) for q in range(n_pass)]
+    for q in range(n_pass):
+        shift = bits * q
         u = np.minimum(k.astype(np.int64), clamp)
         tiles = -(-n // tile)
+        clusters = -(-tiles // cluster)
         ranked = [tile_ranks(u[t * tile:(t + 1) * tile], shift, warps,
-                             rounds) for t in range(tiles)]
-        counts = np.stack([c for c, _ in ranked])
-        assert (counts.sum(0) == hist[q]).all()
-        excl = look_back(counts, np.cumsum(hist[q]) - hist[q], rng, stats)
+                             rounds, bits) for t in range(tiles)]
+        counts = np.zeros((clusters * cluster, digits), np.int64)
+        for t, (c, _) in enumerate(ranked):
+            counts[t] = c
+        counts = counts.reshape(clusters, cluster, digits)
+        assert (counts.sum((0, 1)) == hist[q]).all()
+        below = np.cumsum(counts, axis=1) - counts      # within the cluster
+        excl = look_back(counts.sum(1), np.cumsum(hist[q]) - hist[q],
+                         lanes, rng, stats)
         dst = np.empty(n, np.int64)
         for t, (count, slot) in enumerate(ranked):
-            d = (u[t * tile:(t + 1) * tile] >> shift) & 0xFF
+            c, b = divmod(t, cluster)
+            d = (u[t * tile:(t + 1) * tile] >> shift) & (digits - 1)
             tile_off = np.cumsum(count) - count
-            dst[t * tile:(t + 1) * tile] = excl[t, d] - tile_off[d] + slot
+            base = excl[c] + below[c, b]
+            dst[t * tile:(t + 1) * tile] = base[d] - tile_off[d] + slot
         assert np.array_equal(np.sort(dst), np.arange(n))
         nk = np.empty_like(k)
         nk[dst] = k
@@ -303,8 +324,11 @@ def onesweep(keys, payload, num_bits, *, warps=WARPS, rounds=ROUNDS,
     return k, p
 
 
+#: keys a full cluster of tiles takes (36,864)
+SPAN = CLUSTER * TILE
+
 SORT_PLAN_CASES = {
-    # name: (n, num_bits, kind, payload); TILE = 4,096 keys
+    # name: (n, num_bits, kind, payload); TILE = 4,608 keys, SPAN a cluster
     "one": (1, 3, "random", True),
     "tile_minus_one": (TILE - 1, 20, "tail", True),
     "tile_plus_one": (TILE + 1, 31, "random", False),
@@ -313,6 +337,14 @@ SORT_PLAN_CASES = {
     "num_bits_1": (TILE + 7, 1, "interspersed", True),
     "num_bits_3": (3 * TILE, 3, "random", False),
     "seventeen_tiles": (16 * TILE + 1, 20, "interspersed", True),
+    "fewer_tiles_than_a_cluster": (5 * TILE + 3, 20, "random", True),
+    "cluster_minus_one": (SPAN - 1, 20, "tail", False),
+    "cluster": (SPAN, 20, "interspersed", True),
+    "partial_last_cluster": (SPAN + 3 * TILE + 5, 20, "interspersed",
+                             False),
+    "num_bits_21": (2 * TILE + 9, 21, "interspersed", True),
+    "num_bits_22": (2 * TILE + 9, 22, "interspersed", False),
+    "num_bits_31": (2 * TILE + 9, 31, "interspersed", True),
 }
 
 
@@ -343,18 +375,19 @@ def test_onesweep_plan_equals_plain_version(name):
         np.testing.assert_array_equal(k, want[0].numpy())
         if payload is not None:
             np.testing.assert_array_equal(p, want[1].numpy())
-    if keys.size > 4 * TILE:
+    if -(-keys.size // SPAN) > 2:                 # walks past cluster 1
         assert stats["aggregate_reads"] > 0
 
 
-#: 128-key tiles: many per input, long look-back walks
-SMALL_TILE = dict(warps=2, rounds=2)
+#: 128-key tiles in clusters of 2: many clusters per input, look-back
+#: walks over partial predecessors
+SMALL_TILE = dict(warps=2, rounds=2, cluster=2)
 
 
 @pytest.mark.parametrize("n,num_bits", [(1, 1), (127, 3), (129, 20),
                                         (2000, 20), (1500, 31)])
 def test_onesweep_plan_with_small_tiles_equals_jax(n, num_bits):
-    """Many tiles, look-back walks over partial predecessors; the
+    """Many clusters, look-back walks over partial predecessors; the
     sentinels stand at the tail, so the JAX radix sort (interpret mode)
     sorts them as the kernel does."""
     rng = np.random.default_rng(n + num_bits)
@@ -381,7 +414,7 @@ def test_onesweep_launches_and_ranks_sentinels_last():
     """1 + passes launches a call (4 at the compiler's 20-bit keys); a
     sentinel between real keys sorts after every real key, even after
     2^num_bits - 1, where the JAX kernel would tie it."""
-    assert (TILE, THREADS, LOOKBACK) == (4096, 256, 4)
+    assert (TILE, THREADS, CLUSTER, DIGIT_BITS) == (4608, 256, 8, 8)
     assert [passes(b) for b in (1, 3, 7, 8, 15, 20, 23, 24, 31)] == \
         [1, 1, 1, 2, 2, 3, 3, 4, 4]
     keys = np.array([SENTINEL, 7, 3, SENTINEL, 7, 0], np.int32)
