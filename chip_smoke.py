@@ -282,7 +282,7 @@ Phases (any failure raises, so the exit code is non-zero):
    atol=1e-4`` of the CPU, a second card run bit-equal. Each part prints
    its wall.
 
-14. The dry-run, last. (a) ``launch.dryrun.run_one`` of all 10 archs x
+14. The dry-run. (a) ``launch.dryrun.run_one`` of all 10 archs x
    4 input shapes on the 16x16 and the 2x16x16 production meshes, shape
    only (``meta`` tensors), one spawned process a CPU core; FLOPs by
    ``run_one``'s exact extrapolation from traces at 0 and 1 repeats of
@@ -304,6 +304,38 @@ Phases (any failure raises, so the exit code is non-zero):
    second run equal in counted bytes and launches, ``assemble``,
    ``gather_agg`` and ``gather_agg_bwd`` launched.
 
+15. The paper's configurations the earlier phases do not run, last. (a)
+   The training launcher's own settings (``launch/train.py``: 4 metis
+   parts, batch 1000, 3 epochs, n_hot 4096, fan-outs (25, 10)) on
+   ``ogbn_products_sim`` (sage rapidgnn on the numpy and the ``device``
+   schedule compiler, the baseline, GCN) and ``ogbn_papers_sim``: the
+   ``device`` schedule bit-equal to the numpy one (and its curve to the
+   numpy run's), a second card run bit-equal, the first 3 losses within
+   ``rtol=1e-4, atol=1e-5`` of the same run on the CPU (plain versions;
+   its later steps fetch without training), ``rpc_count``,
+   ``remote_bytes``, ``hit_rate`` and the per-epoch misses equal to the
+   CPU run's, the loss falling. (b) ``full_grid()``'s
+   ``ogbn_products_sim``, batch-100, n_hot-32768 scenario, cut to 1 of
+   its 2 epochs: rapidgnn, dgl-metis, dgl-random and gcn (fan-outs 50,
+   50) through ``run_host_cell``, every differential check, the report;
+   the gcn cell again bit-equal and its first steps against the CPU.
+   (c) the runner on ``reddit_sim`` at 8 workers, flat twice and
+   ``2x4``, beside 4 workers flat (ms a step, exchange ms, wire bytes,
+   launches), with phase 8's gates; the device campaign pair at 8
+   workers, flat and ``2x4``, with phase 9's. (d) the reduced float32
+   gemma2-2b and granite-3-2b at ``long_500k`` against the CPU
+   (``rtol=1e-4, atol=1e-4``); then each at full width and depth in
+   bf16, B = 1, caches filled from a seed (gemma2-2b's global layers
+   524,288 slots, granite-3-2b an 8192-slot window), one ``serve_step``
+   at position 524,287: one ``flash_decode`` a layer, a second step
+   bit-equal, the ring slots the reference's, each layer's launch within
+   ``rtol=1e-4, atol=1e-5`` of its plain version on its own inputs, the
+   logits within ``LONG_LOGIT_SHARE`` of the largest of the step through
+   the plain version (the bf16 floor, ``tools/bf16_logit_floor.py``). New
+   shapes timed: the ``gather_agg`` forward at d 100 and 128 and at
+   fan-out 50, its backward at the products and gcn layer 1, ``seg_sort``
+   at the products schedule; two ``flash_decode`` rows. Prints its wall.
+
 Output: one ``kernel {...}`` line per kernel row (phase 11 adds
 ``flash_attention_g16``/``flash_decode_g16`` and ``flash_attention_g8``/
 ``flash_decode_g8``, the same two kernels at recurrentgemma-9b's 16 and
@@ -312,7 +344,9 @@ qwen3-moe-30b-a3b's 8 q heads a kv head; phase 12
 ``flash_attention_cross``, ``flash_attention_g8_s8192``,
 ``flash_decode_g1_self``, ``flash_decode_g8_h64`` and ``flash_decode_g1``,
 the last over the cross caches; phase 13 ``flash_decode_sharded``;
-phase 14 adds its launches to the rows of the kernels it ran), the
+phase 14 and 15 add their launches to the rows of the kernels they
+ran, phase 15 ``flash_decode_gemma2-2b_long_500k`` and
+``flash_decode_granite-3-2b_long_500k``), the script's wall, the
 card's name and power limit, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -320,6 +354,7 @@ no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1221,13 +1256,17 @@ def check_schedules_equal(ref, dev, n_epochs: int) -> None:
                            f"{dev.pad_bounds()}")
 
 
-def train_run(torch, device, exp, cfg, ws, pg, capture: int = 0):
-    """``RapidGNNRunner`` over the schedule with the port's train step on
-    ``device``, parameters from ``exp.s0``. -> per-step losses, the run's
+def train_run(torch, device, exp, cfg, ws, pg, capture: int = 0,
+              system: str = "rapidgnn", train_steps=None):
+    """``RapidGNNRunner`` (``BaselineRunner`` for ``system="baseline"``)
+    over the schedule with the port's train step on ``device``,
+    parameters from ``exp.s0``; with ``train_steps``, only the first
+    that many steps train and the rest fetch alone (the runner's fetch
+    counters do not depend on the step). -> per-step losses, the run's
     metrics and wall time, the first ``capture`` (features, batch)
     pairs the step was given, and per-step (H2D, step) host seconds."""
-    from repro_torch.core import (NetworkModel, RapidGNNRunner,
-                                  ShardedFeatureStore)
+    from repro_torch.core import (BaselineRunner, NetworkModel,
+                                  RapidGNNRunner, ShardedFeatureStore)
     from repro_torch.models.gnn import (batch_to_device, init_params,
                                         make_train_step)
     from repro_torch.train import AdamW
@@ -1243,6 +1282,8 @@ def train_run(torch, device, exp, cfg, ws, pg, capture: int = 0):
             torch.cuda.synchronize()
 
     def train_fn(feats, cb):
+        if train_steps is not None and len(hist) >= train_steps:
+            return 0.0
         if len(captured) < capture:
             captured.append((feats.copy(), cb))
         t0 = time.perf_counter()
@@ -1256,22 +1297,26 @@ def train_run(torch, device, exp, cfg, ws, pg, capture: int = 0):
 
     store = ShardedFeatureStore(pg, worker=WORKER,
                                 net=NetworkModel(enabled=False))
-    runner = RapidGNNRunner(ws, store, batch_size=exp.batch_size, Q=exp.Q,
-                            train_fn=train_fn)
+    if system == "baseline":
+        runner = BaselineRunner(ws, store, batch_size=exp.batch_size,
+                                train_fn=train_fn)
+    else:
+        runner = RapidGNNRunner(ws, store, batch_size=exp.batch_size,
+                                Q=exp.Q, train_fn=train_fn)
     t0 = time.perf_counter()
     metrics = runner.run()
     return hist, metrics, time.perf_counter() - t0, captured, split
 
 
-def cpu_losses(torch, exp, cfg, captured):
+def cpu_losses(torch, seed: int, cfg, captured):
     """The first steps again on the CPU (plain versions), from the same
-    parameters and the same batches."""
+    parameters (drawn from ``seed``) and the same batches."""
     from repro_torch.models.gnn import (batch_to_device, init_params,
                                         make_train_step)
     from repro_torch.train import AdamW
 
     cpu = torch.device("cpu")
-    params = init_params(cfg, torch.Generator().manual_seed(exp.s0), cpu)
+    params = init_params(cfg, torch.Generator().manual_seed(seed), cpu)
     opt = AdamW(lr=TRAIN_LR)
     state, step, out = opt.init(params), make_train_step(cfg, opt), []
     for feats, cb in captured:
@@ -1367,7 +1412,7 @@ def train_phase(torch, device, g, pg, counters):
         raise RuntimeError(f"gather_agg_bwd launched "
                            f"{launches['gather_agg_bwd']} times in {steps} "
                            f"steps (once a step, at layer 1, expected)")
-    cpu = cpu_losses(torch, exp, cfg, captured)
+    cpu = cpu_losses(torch, exp.s0, cfg, captured)
     np.testing.assert_allclose(hist[:CPU_LOSS_STEPS], cpu, rtol=1e-4,
                                atol=1e-5)
     again, _, wall2, _, _ = train_run(torch, device, exp, cfg, ws, pg)
@@ -1414,6 +1459,143 @@ def train_phase(torch, device, g, pg, counters):
     return out, sort_input, captured, m_max, cfg
 
 
+def seg_sort_row(torch, keys, payload, num_bits, what):
+    """``seg_sort`` at one stream: bit-equal to its plain version and to a
+    second call, at most 1 + passes card operations, timed beside the
+    plain version, ``torch.sort`` and the bounds."""
+    from repro_torch.kernels.seg_sort import ops as sort_ops
+    from repro_torch.kernels.seg_sort.ref import seg_sort_ref
+    from repro_torch.kernels.seg_sort.seg_sort import CLUSTER, passes
+
+    got = sort_ops.seg_sort(keys, payload, num_bits=num_bits)
+    want = seg_sort_ref(keys, payload)
+    _equal(torch, got[0], want[0])
+    if payload is not None:
+        _equal(torch, got[1], want[1])
+    n = keys.shape[0]
+    n_pass = passes(num_bits)
+    width = 4 if payload is None else 8        # bytes a key carries
+
+    def call():
+        return sort_ops.seg_sort(keys, payload, num_bits=num_bits)
+    _equal(torch, call()[0], got[0])
+    ops = device_ops(torch, call)
+    r = {"what": what, "n": n, "num_bits": num_bits,
+         # each key read once and written once (the row's bound) ...
+         "bound": bound_ms(n * 2 * width, n * n_pass),
+         # ... and this design's own floor: read by the histogram and
+         # by every pass, written by every pass
+         "design_floor_ms": bound_ms(n * width * (1 + 2 * n_pass),
+                                     0)[0],
+         "ms": device_ms(torch, call),
+         "ms_in_a_graph": device_ms_per_call(torch, call, calls=10),
+         "plain_ms": device_ms(torch, lambda: seg_sort_ref(
+             keys, payload)),
+         "library_ms": device_ms(torch, lambda: torch.sort(
+             keys, stable=True)),
+         "op_ms": op_times_ms(torch, call),
+         "passes": n_pass, "device_ops": len(ops), "ops": ops}
+    log(f"seg_sort {what}: n={n} num_bits={num_bits} "
+        f"ms={r['ms']:.4f} ({r['ms_in_a_graph']:.4f} a call in a graph "
+        f"of 10) plain_ms={r['plain_ms']:.4f} library_ms="
+        f"{r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} (read and "
+        f"write once; the design's floor {r['design_floor_ms']:.4f}); "
+        f"{len(ops)} card ops a call ({', '.join(ops)}) for {n_pass} "
+        f"passes in clusters of {CLUSTER} tiles, each op's ms "
+        f"{json.dumps({k: round(v, 4) for k, v in r['op_ms'].items()})}"
+        f"; bit-equal to its plain version and to a second call")
+    if len(ops) > 1 + n_pass:
+        raise RuntimeError(f"seg_sort {what}: {len(ops)} card operations "
+                           f"a call, at most 1 + {n_pass} expected")
+    return r
+
+
+def gather_bwd_row(torch, device, cb, fanouts, m_max, layer, d, what, tol):
+    """The kernel must equal the plain version on the CPU bit for bit
+    (both add each row's quotients in edge order from +0) and give
+    the same bits twice; ``tol`` (rtol = atol) bounds its distance
+    from the plain version on the card, whose ``index_add_`` sums
+    with atomics in no fixed order. ``cb``: a collated batch, whose
+    layer ``layer`` gives the edges; g is drawn at width ``d``."""
+    import numpy as np
+    from repro_torch.kernels.gather_agg import ops as gather_ops
+    from repro_torch.kernels.gather_agg.ref import gather_agg_bwd_ref
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    fo = fanouts[layer]
+    src, msk = t(cb.edge_src[layer]), t(cb.edge_mask[layer])
+    nd = src.shape[0] // fo
+    gen = torch.Generator(device="cpu").manual_seed(layer)
+    g = torch.randn((nd, d), generator=gen).to(device)
+    got = gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
+                                    fanout=fo)
+    again = gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
+                                      fanout=fo)
+    want = gather_agg_bwd_ref(g, src, msk, m_max, nd, fo)
+    cpu = gather_agg_bwd_ref(g.cpu(), src.cpu(), msk.cpu(), m_max, nd,
+                             fo)
+    if not torch.equal(got.cpu(), cpu):
+        raise RuntimeError(
+            f"gather_agg_bwd {what} is not the CPU plain version bit for "
+            f"bit: max abs diff {(got.cpu() - cpu).abs().max().item()}")
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise RuntimeError(f"gather_agg_bwd {what} differs from its "
+                           f"plain version on the card")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"gather_agg_bwd {what}: two runs differ")
+    cnt = msk.reshape(nd, fo).sum(1).float().clamp(min=1.0)
+    msg = (g / cnt[:, None])[:, None, :].expand(nd, fo, d) \
+        .reshape(nd * fo, d) * msk[:, None].float()
+    src_l = src.long()
+
+    def library():
+        return torch.zeros((m_max, d), device=device).index_add_(
+            0, src_l, msg)
+    if not torch.allclose(library().cpu(), cpu, rtol=tol, atol=tol):
+        raise RuntimeError("index_add_ yardstick computes another "
+                           "function")
+    unmasked = int(msk.sum().item())
+    nbytes = nd * d * 4 + src.shape[0] * 5 + m_max * d * 4
+
+    def call():
+        return gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
+                                         fanout=fo)
+    ops = device_ops(torch, call)
+    longest = int(torch.bincount(src[msk]).max().item()) \
+        if unmasked else 0
+    r = {"what": what, "err": (got - want).abs().max().item(),
+         "bound": bound_ms(nbytes, 2 * unmasked * d),
+         # the order's floor: each column's chain of dependent adds is
+         # as long as the longest run, and edge order forbids a tree
+         "order_floor_ms": longest * ADD_CYCLES / (max_sm_mhz() * 1e3),
+         "longest_run": longest,
+         "ms": device_ms(torch, call),
+         "ms_in_a_graph": device_ms_per_call(torch, call, calls=10),
+         "op_ms": op_times_ms(torch, call),
+         "plain_ms": device_ms(torch, lambda: gather_agg_bwd_ref(
+             g, src, msk, m_max, nd, fo)),
+         "library_ms": device_ms(torch, library),
+         "cpu_err": 0.0, "device_ops": len(ops), "ops": ops,
+         "shape": f"g=({nd},{d}) m={m_max} fanout={fo} "
+                  f"unmasked={unmasked}"}
+    log(f"gather_agg_bwd {what}: {r['shape']} ms={r['ms']:.4f} "
+        f"({r['ms_in_a_graph']:.4f} a call in a graph of 10) plain_ms="
+        f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+        f"(index_add_) bound_ms={r['bound'][0]:.4f} (bytes), the "
+        f"order's floor {r['order_floor_ms']:.4f} (longest run "
+        f"{longest} x {ADD_CYCLES} cycles at {max_sm_mhz():.0f} MHz); "
+        f"{len(ops)} card ops a call ({', '.join(ops)}), each op's ms "
+        f"{json.dumps({k: round(v, 4) for k, v in r['op_ms'].items()})}"
+        f"; max_abs_err={r['err']:.3e} against the card plain version, "
+        f"bit-equal to the CPU plain version and to a second run")
+    if len(ops) > 3:
+        raise RuntimeError(f"gather_agg_bwd ran {len(ops)} card "
+                           f"operations a call at {what}: {ops}")
+    return r
+
+
 def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
                        launches):
     """``seg_sort`` and ``gather_agg_bwd`` against their plain versions
@@ -1423,7 +1605,7 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
     from repro_torch.kernels.gather_agg.ref import gather_agg_bwd_ref
     from repro_torch.kernels.seg_sort import ops as sort_ops
     from repro_torch.kernels.seg_sort.ref import seg_sort_ref
-    from repro_torch.kernels.seg_sort.seg_sort import CLUSTER, TILE, passes
+    from repro_torch.kernels.seg_sort.seg_sort import CLUSTER, TILE
 
     sentinel = 2 ** 31 - 1
     _, cb = captured[0]
@@ -1431,49 +1613,6 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    def sort_row(keys, payload, num_bits, what):
-        got = sort_ops.seg_sort(keys, payload, num_bits=num_bits)
-        want = seg_sort_ref(keys, payload)
-        _equal(torch, got[0], want[0])
-        if payload is not None:
-            _equal(torch, got[1], want[1])
-        n = keys.shape[0]
-        n_pass = passes(num_bits)
-        width = 4 if payload is None else 8        # bytes a key carries
-
-        def call():
-            return sort_ops.seg_sort(keys, payload, num_bits=num_bits)
-        _equal(torch, call()[0], got[0])
-        ops = device_ops(torch, call)
-        r = {"what": what, "n": n, "num_bits": num_bits,
-             # each key read once and written once (the row's bound) ...
-             "bound": bound_ms(n * 2 * width, n * n_pass),
-             # ... and this design's own floor: read by the histogram and
-             # by every pass, written by every pass
-             "design_floor_ms": bound_ms(n * width * (1 + 2 * n_pass),
-                                         0)[0],
-             "ms": device_ms(torch, call),
-             "ms_in_a_graph": device_ms_per_call(torch, call, calls=10),
-             "plain_ms": device_ms(torch, lambda: seg_sort_ref(
-                 keys, payload)),
-             "library_ms": device_ms(torch, lambda: torch.sort(
-                 keys, stable=True)),
-             "op_ms": op_times_ms(torch, call),
-             "passes": n_pass, "device_ops": len(ops), "ops": ops}
-        log(f"seg_sort {what}: n={n} num_bits={num_bits} "
-            f"ms={r['ms']:.4f} ({r['ms_in_a_graph']:.4f} a call in a graph "
-            f"of 10) plain_ms={r['plain_ms']:.4f} library_ms="
-            f"{r['library_ms']:.4f} bound_ms={r['bound'][0]:.4f} (read and "
-            f"write once; the design's floor {r['design_floor_ms']:.4f}); "
-            f"{len(ops)} card ops a call ({', '.join(ops)}) for {n_pass} "
-            f"passes in clusters of {CLUSTER} tiles, each op's ms "
-            f"{json.dumps({k: round(v, 4) for k, v in r['op_ms'].items()})}"
-            f"; bit-equal to its plain version and to a second call")
-        if len(ops) > 1 + n_pass:
-            raise RuntimeError(f"seg_sort {what}: {len(ops)} card operations "
-                               f"a call, at most 1 + {n_pass} expected")
-        return r
 
     # the forward at training's two layer shapes, from the captured batch:
     # layer 0 over the step's input features, layer 1 over hidden rows
@@ -1491,90 +1630,16 @@ def train_kernel_phase(torch, device, cfg, sort_input, captured, m_max,
     # the compiler's largest stream (layer 0 of an epoch), keys only; the
     # backward no longer sorts (its order is built inside its own kernel,
     # timed in its row)
-    sorts = [sort_row(sort_input["keys"], None, sort_input["num_bits"],
-                      "layer-0 stream")]
+    sorts = [seg_sort_row(torch, sort_input["keys"], None,
+                          sort_input["num_bits"], "layer-0 stream")]
 
-    def bwd_row(layer, d, what, tol):
-        """The kernel must equal the plain version on the CPU bit for bit
-        (both add each row's quotients in edge order from +0) and give
-        the same bits twice; ``tol`` (rtol = atol) bounds its distance
-        from the plain version on the card, whose ``index_add_`` sums
-        with atomics in no fixed order."""
-        fo = fanouts[layer]
-        src, msk = t(cb.edge_src[layer]), t(cb.edge_mask[layer])
-        nd = src.shape[0] // fo
-        gen = torch.Generator(device="cpu").manual_seed(layer)
-        g = torch.randn((nd, d), generator=gen).to(device)
-        got = gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
-                                        fanout=fo)
-        again = gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
-                                          fanout=fo)
-        want = gather_agg_bwd_ref(g, src, msk, m_max, nd, fo)
-        cpu = gather_agg_bwd_ref(g.cpu(), src.cpu(), msk.cpu(), m_max, nd,
-                                 fo)
-        if not torch.equal(got.cpu(), cpu):
-            raise RuntimeError(
-                f"gather_agg_bwd {what} is not the CPU plain version bit for "
-                f"bit: max abs diff {(got.cpu() - cpu).abs().max().item()}")
-        if not torch.allclose(got, want, rtol=tol, atol=tol):
-            raise RuntimeError(f"gather_agg_bwd {what} differs from its "
-                               f"plain version on the card")
-        if not torch.equal(got, again):
-            raise RuntimeError(f"gather_agg_bwd {what}: two runs differ")
-        cnt = msk.reshape(nd, fo).sum(1).float().clamp(min=1.0)
-        msg = (g / cnt[:, None])[:, None, :].expand(nd, fo, d) \
-            .reshape(nd * fo, d) * msk[:, None].float()
-        src_l = src.long()
-
-        def library():
-            return torch.zeros((m_max, d), device=device).index_add_(
-                0, src_l, msg)
-        if not torch.allclose(library().cpu(), cpu, rtol=tol, atol=tol):
-            raise RuntimeError("index_add_ yardstick computes another "
-                               "function")
-        unmasked = int(msk.sum().item())
-        nbytes = nd * d * 4 + src.shape[0] * 5 + m_max * d * 4
-
-        def call():
-            return gather_ops.gather_agg_bwd(g, src, msk, m=m_max, nd=nd,
-                                             fanout=fo)
-        ops = device_ops(torch, call)
-        longest = int(torch.bincount(src[msk]).max().item()) \
-            if unmasked else 0
-        r = {"what": what, "err": (got - want).abs().max().item(),
-             "bound": bound_ms(nbytes, 2 * unmasked * d),
-             # the order's floor: each column's chain of dependent adds is
-             # as long as the longest run, and edge order forbids a tree
-             "order_floor_ms": longest * ADD_CYCLES / (max_sm_mhz() * 1e3),
-             "longest_run": longest,
-             "ms": device_ms(torch, call),
-             "ms_in_a_graph": device_ms_per_call(torch, call, calls=10),
-             "op_ms": op_times_ms(torch, call),
-             "plain_ms": device_ms(torch, lambda: gather_agg_bwd_ref(
-                 g, src, msk, m_max, nd, fo)),
-             "library_ms": device_ms(torch, library),
-             "cpu_err": 0.0, "device_ops": len(ops), "ops": ops,
-             "shape": f"g=({nd},{d}) m={m_max} fanout={fo} "
-                      f"unmasked={unmasked}"}
-        log(f"gather_agg_bwd {what}: {r['shape']} ms={r['ms']:.4f} "
-            f"({r['ms_in_a_graph']:.4f} a call in a graph of 10) plain_ms="
-            f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"(index_add_) bound_ms={r['bound'][0]:.4f} (bytes), the "
-            f"order's floor {r['order_floor_ms']:.4f} (longest run "
-            f"{longest} x {ADD_CYCLES} cycles at {max_sm_mhz():.0f} MHz); "
-            f"{len(ops)} card ops a call ({', '.join(ops)}), each op's ms "
-            f"{json.dumps({k: round(v, 4) for k, v in r['op_ms'].items()})}"
-            f"; max_abs_err={r['err']:.3e} against the card plain version, "
-            f"bit-equal to the CPU plain version and to a second run")
-        if len(ops) > 3:
-            raise RuntimeError(f"gather_agg_bwd ran {len(ops)} card "
-                               f"operations a call at {what}: {ops}")
-        return r
-    bwd1 = bwd_row(1, cfg.hidden_dim, "layer 1 (the path)", 1e-5)
+    bwd1 = gather_bwd_row(torch, device, cb, fanouts, m_max, 1,
+                          cfg.hidden_dim, "layer 1 (the path)", 1e-5)
     # layer 0's hub rows sum thousands of terms: the card's atomic order
     # moves the plain version by more than 1e-5 there
-    bwd0 = bwd_row(0, cfg.in_dim, "layer 0 (for reference, not launched "
-                                  "in training)", 1e-4)
+    bwd0 = gather_bwd_row(torch, device, cb, fanouts, m_max, 0, cfg.in_dim,
+                          "layer 0 (for reference, not launched in "
+                          "training)", 1e-4)
 
     # awkward shapes: around a tile and a cluster of tiles
     gen = torch.Generator(device="cpu").manual_seed(9)
@@ -2281,8 +2346,8 @@ def first_steps(tree, n: int):
     return tree[:n]
 
 
-def dist_world(g, pg):
-    """The paper's GraphSAGE on all PARTS workers of ``pg`` for one epoch:
+def dist_world(g, pg, parts=PARTS):
+    """The paper's GraphSAGE on all ``parts`` workers of ``pg``, one epoch:
     schedules, device view, both collations (hot caches and empty ones)
     and the stacked caches."""
     from repro_torch.configs.rapidgnn_paper import sage
@@ -2293,7 +2358,7 @@ def dist_world(g, pg):
     from repro_torch.graph import KHopSampler
     from repro_torch.models.gnn import GNNConfig
 
-    exp = sage(DATASET, TRAIN_BATCH, workers=PARTS, epochs=DIST_EPOCHS)
+    exp = sage(DATASET, TRAIN_BATCH, workers=parts, epochs=DIST_EPOCHS)
     sampler = KHopSampler(g, fanouts=list(exp.fanouts),
                           batch_size=exp.batch_size)
     cfg = GNNConfig(kind=exp.model, in_dim=g.feat_dim,
@@ -2303,14 +2368,14 @@ def dist_world(g, pg):
     t0 = time.perf_counter()
     schedules = [build_schedule(sampler, pg, worker=w, s0=exp.s0,
                                 num_epochs=DIST_EPOCHS, n_hot=exp.n_hot)
-                 for w in range(PARTS)]
+                 for w in range(parts)]
     dv = DeviceView.build(pg)
     es = [ws.epoch(0) for ws in schedules]
     m_max = max(e.m_max for e in es)
     edge_max = [max(x) for x in zip(*(epoch_edge_maxima(e) for e in es))]
     S = max(e.num_batches for e in es)
     caches = [dv.remap_cache(e.cache_ids) for e in es]
-    empty = empty_caches(PARTS, g.feat_dim)
+    empty = empty_caches(parts, g.feat_dim)
     k_max = epoch_k_max(es, caches, dv)
     k_base = epoch_k_max(es, empty, dv)
     rapid = collate_device_epoch(es, caches, dv, g.labels, exp.batch_size,
@@ -2318,7 +2383,7 @@ def dist_world(g, pg):
     base = collate_device_epoch(es, empty, dv, g.labels, exp.batch_size,
                                 m_max, edge_max, k_base, S)
     cids, cfeats = stack_caches(caches, dv, exp.n_hot)
-    log(f"dist world: {PARTS} workers x {S} steps, batch {exp.batch_size}, "
+    log(f"dist world: {parts} workers x {S} steps, batch {exp.batch_size}, "
         f"m_max={m_max} edge_max={edge_max} k_max rapid {k_max} on-demand "
         f"{k_base}, n_per={dv.n_per}; schedules and collation in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -2773,17 +2838,17 @@ def merge_kernel_row(torch, device, dist_in, emb_in, launches):
 RUNNER_EPOCHS = 3
 
 
-def runner_world(torch, device, g, pg):
-    """The paper's GraphSAGE on all PARTS workers for RUNNER_EPOCHS
-    epochs: schedules from the numpy compiler, and lazy ones compiled on
-    the card (rebuilt by the runner's staging thread)."""
+def runner_world(torch, device, g, pg, parts=PARTS, lazy=True):
+    """The paper's GraphSAGE on all ``parts`` workers for RUNNER_EPOCHS
+    epochs: schedules from the numpy compiler, and (``lazy``) lazy ones
+    compiled on the card (rebuilt by the runner's staging thread)."""
     from repro_torch.configs.rapidgnn_paper import sage
     from repro_torch.core import build_schedule
     from repro_torch.dist import DeviceView
     from repro_torch.graph import KHopSampler
     from repro_torch.models.gnn import GNNConfig
 
-    exp = sage(DATASET, TRAIN_BATCH, workers=PARTS, epochs=RUNNER_EPOCHS)
+    exp = sage(DATASET, TRAIN_BATCH, workers=parts, epochs=RUNNER_EPOCHS)
     sampler = KHopSampler(g, fanouts=list(exp.fanouts),
                           batch_size=exp.batch_size)
     cfg = GNNConfig(kind=exp.model, in_dim=g.feat_dim,
@@ -2793,21 +2858,21 @@ def runner_world(torch, device, g, pg):
     t0 = time.perf_counter()
     eager = [build_schedule(sampler, pg, worker=w, s0=exp.s0,
                             num_epochs=RUNNER_EPOCHS, n_hot=exp.n_hot)
-             for w in range(PARTS)]
+             for w in range(parts)]
     t1 = time.perf_counter()
     lazy = [build_schedule(sampler, pg, worker=w, s0=exp.s0,
                            num_epochs=RUNNER_EPOCHS, n_hot=exp.n_hot,
                            compiler="device", lazy=True, device=device)
-            for w in range(PARTS)]
+            for w in range(parts)] if lazy else None
     if device.type == "cuda":
         torch.cuda.synchronize()
     t2 = time.perf_counter()
-    log(f"runner world: {PARTS} workers x {RUNNER_EPOCHS} epochs, batch "
+    log(f"runner world: {parts} workers x {RUNNER_EPOCHS} epochs, batch "
         f"{exp.batch_size}, n_hot {exp.n_hot}; schedules numpy "
         f"{t1 - t0:.2f} s, lazy on the card (metadata prepass) "
         f"{t2 - t1:.2f} s")
     return {"exp": exp, "cfg": cfg, "g": g, "pg": pg, "eager": eager,
-            "lazy": lazy, "dv": DeviceView.build(pg)}
+            "lazy": lazy, "dv": DeviceView.build(pg), "parts": parts}
 
 
 def runner_make(w, device, kind="rapid", layout="flat", lazy=False, **kw):
@@ -2815,9 +2880,9 @@ def runner_make(w, device, kind="rapid", layout="flat", lazy=False, **kw):
                                   Topology, make_mesh)
     from repro_torch.train import AdamW
 
-    topo = Topology.parse(layout, PARTS)
+    topo = Topology.parse(layout, w["parts"])
     mesh = (topo.make_mesh(device) if topo.is_hierarchical
-            else make_mesh((PARTS,), ("data",), device=device))
+            else make_mesh((w["parts"],), ("data",), device=device))
     cls = DeviceRapidGNNRunner if kind == "rapid" else DeviceBaselineRunner
     return cls(w["lazy" if lazy else "eager"], w["dv"], w["cfg"],
                AdamW(lr=TRAIN_LR), mesh, w["exp"].batch_size, w["g"].labels,
@@ -2877,7 +2942,8 @@ def runner_cpu_losses(torch, w, runner):
                          cpu)
     opt = AdamW(lr=TRAIN_LR)
     fn = make_pipelined_epoch(w["cfg"], opt,
-                              make_mesh((PARTS,), ("data",), device=cpu),
+                              make_mesh((w["parts"],), ("data",),
+                                        device=cpu),
                               runner.m_max, assemble_backend="fused")
     return fn(params, opt.init(params), dv.table, dv.offsets, cids, cfeats,
               first_steps(batches, CPU_LOSS_STEPS))[2].numpy()
@@ -4839,9 +4905,746 @@ def dryrun_phase(torch, device, card_counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the paper's configurations the card had not run
+# ---------------------------------------------------------------------------
+
+#: (a) the training launcher's own settings (``launch/train.py`` ``main``:
+#: 4 metis parts, batch 1000, 3 epochs, n_hot 4096, Q 4, seed 42, hidden
+#: 256, fan-outs (25, 10) for both models, the ``device`` compiler by
+#: default): (dataset, model, system, schedule compiler)
+LAUNCHER_RUNS = (
+    ("ogbn_products_sim", "sage", "rapidgnn", "numpy"),
+    ("ogbn_products_sim", "sage", "rapidgnn", "device"),
+    ("ogbn_products_sim", "sage", "baseline", "device"),
+    ("ogbn_products_sim", "gcn", "rapidgnn", "device"),
+    ("ogbn_papers_sim", "sage", "rapidgnn", "device"))
+LAUNCHER_EPOCHS = 3
+#: (b) ``full_grid()``'s host scenario at this dataset and batch, its 2
+#: epochs cut to GRID_EPOCHS
+GRID_DATASET, GRID_BATCH, GRID_EPOCHS = "ogbn_products_sim", 100, 1
+#: (c) the paper's scaling axis: SCALE_PARTS workers on one card
+SCALE_PARTS, SCALE_LAYOUT = 8, "2x4"
+#: (d) one ``serve_step`` at the last position of ``long_500k``
+LONG_ARCHS = ("gemma2-2b", "granite-3-2b")
+LONG_SEED = LM_SEED + 15
+#: the whole step's bf16 logits against the step through the plain
+#: version: a relative perturbation of 1e-7 to 1e-4 of every attention
+#: output moves the logits of a 26- or 40-layer bf16 model by 1.2-5 % of
+#: their largest (bf16 rounding of the residual stream, whatever the
+#: perturbation's size), dropping 1/64 of the keys by 17-43 %
+#: (``tools/bf16_logit_floor.py``); each layer's attention is held to
+#: phase 6's ``rtol=1e-4, atol=1e-5`` on its own inputs besides
+LONG_LOGIT_SHARE = 0.125
+
+
+def launcher_exp(dataset: str, model: str):
+    """The launcher's settings as a ``GNNExperimentConfig``."""
+    import dataclasses
+    from repro_torch.configs.rapidgnn_paper import sage
+    return dataclasses.replace(
+        sage(dataset, TRAIN_BATCH, workers=PARTS, epochs=LAUNCHER_EPOCHS),
+        model=model)
+
+
+def fetch_counters(metrics) -> dict:
+    tot = metrics.totals()
+    out = {k: tot[k] for k in ("rpc_count", "remote_bytes", "hit_rate",
+                               "cache_hits", "cache_misses")}
+    out["miss_matrix"] = [e.cache_misses for e in metrics.epochs]
+    return out
+
+
+def launcher_phase(torch, device, counters):
+    """(a) each LAUNCHER_RUNS configuration through the launcher's
+    pipeline on the card, twice, against the same run on the CPU (the
+    first CPU_LOSS_STEPS steps trained with the plain versions, the rest
+    fetched alone), with the ``device`` schedule bit-equal to the numpy
+    compiler's. -> (per-run records, the first batch of each dataset's
+    sage run, the products device schedule's largest sort stream)."""
+    import numpy as np
+    from repro_torch.core import build_schedule
+    from repro_torch.graph import KHopSampler, load_dataset, partition_graph
+    from repro_torch.models.gnn import GNNConfig
+
+    cpu = torch.device("cpu")
+    worlds, refs, cpu_runs, out, batches = {}, {}, {}, {}, {}
+    sort_input = None
+    for dataset, model, system, compiler in LAUNCHER_RUNS:
+        name = f"{dataset} {model} {system} {compiler}"
+        exp = launcher_exp(dataset, model)
+        if dataset not in worlds:
+            t0 = time.perf_counter()
+            g = load_dataset(dataset)
+            pg = partition_graph(g, PARTS, exp.partition)
+            worlds[dataset] = (g, pg, time.perf_counter() - t0)
+            log(f"launcher world {dataset}: {g.num_nodes} nodes, "
+                f"{g.num_edges} edges, d={g.feat_dim}, {g.num_classes} "
+                f"classes, {PARTS} {exp.partition} parts in "
+                f"{worlds[dataset][2]:.2f} s")
+        g, pg, _ = worlds[dataset]
+        sampler = KHopSampler(g, fanouts=list(exp.fanouts),
+                              batch_size=exp.batch_size)
+        cfg = GNNConfig(kind=model, in_dim=g.feat_dim,
+                        hidden_dim=exp.hidden_dim,
+                        num_classes=g.num_classes,
+                        num_layers=exp.num_layers,
+                        fanouts=tuple(exp.fanouts), agg_backend="kernel")
+        if dataset not in refs:
+            t0 = time.perf_counter()
+            refs[dataset] = (build_schedule(sampler, pg, compiler="batched",
+                                            **schedule_kw(exp)),
+                             time.perf_counter() - t0)
+        ref, numpy_s = refs[dataset]
+
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        if compiler == "device":
+            ws, build_s, seen = build_device_schedule(torch, device, exp,
+                                                      sampler, pg)
+            if dataset == LAUNCHER_RUNS[0][0] and sort_input is None:
+                sort_input = seen
+        else:
+            ws, build_s = ref, numpy_s
+        sorts = next(c.value for c in counters if c.name == "seg_sort")
+        hist, metrics, wall, captured, split = train_run(
+            torch, device, exp, cfg, ws, pg, capture=1, system=system)
+        torch.cuda.synchronize()
+        launches = {c.name: c.value for c in counters}
+        peak = torch.cuda.max_memory_allocated()
+        if compiler == "device":
+            check_schedules_equal(ref, ws, exp.num_epochs)
+        steps = sum(ws.epoch(e).num_batches for e in range(exp.num_epochs))
+        if len(hist) != steps or not np.isfinite(hist).all():
+            raise RuntimeError(f"launcher {name}: {len(hist)} steps of "
+                               f"{steps}, losses {hist}")
+        if launches["gather_agg"] == 0 or launches["gather_agg_bwd"] != \
+                steps or launches["seg_sort"] != sorts or \
+                (sorts == 0) == (compiler == "device") or \
+                launches["search"] or launches["merge_gather"] or \
+                launches["assemble"]:
+            raise RuntimeError(f"launcher {name}: launches {launches} "
+                               f"({sorts} seg_sort by the schedule)")
+        again = train_run(torch, device, exp, cfg, ws, pg, system=system)
+        if again[0] != hist:
+            raise RuntimeError(f"launcher {name}: a second card run gave "
+                               f"another loss curve")
+        key = (dataset, model, system)
+        if key not in cpu_runs:
+            t0 = time.perf_counter()
+            run = train_run(torch, cpu, exp, cfg, ref, pg, system=system,
+                            train_steps=CPU_LOSS_STEPS)
+            cpu_runs[key] = (run[0], fetch_counters(run[1]),
+                             time.perf_counter() - t0)
+        cpu_losses_, cpu_fetch, cpu_s = cpu_runs[key]
+        np.testing.assert_allclose(hist[:CPU_LOSS_STEPS], cpu_losses_,
+                                   rtol=1e-4, atol=1e-5)
+        fetch = fetch_counters(metrics)
+        if fetch != cpu_fetch or fetch_counters(again[1]) != fetch:
+            raise RuntimeError(f"launcher {name}: fetch counters {fetch} "
+                               f"(second run {fetch_counters(again[1])}), "
+                               f"on the CPU {cpu_fetch}")
+        per = steps // exp.num_epochs
+        first, last = np.mean(hist[:per]), np.mean(hist[-per:])
+        if not last < first:
+            raise RuntimeError(f"launcher {name}: the loss did not fall "
+                               f"(epoch means {first} -> {last})")
+        if compiler == "device" and (dataset, model, system, "numpy") in \
+                out and out[(dataset, model, system, "numpy")][
+                    "losses"] != hist:
+            raise RuntimeError(f"launcher {name}: the device schedule "
+                               f"trained another curve than the numpy one")
+        if model == "sage" and system == "rapidgnn":
+            batches.setdefault(dataset, (captured[0], cfg,
+                                         ws.pad_bounds()[0]))
+        tot = metrics.totals()
+        h2d = sorted(a for a, _ in split)
+        out[(dataset, model, system, compiler)] = r = {
+            "steps": steps, "losses": hist, "cpu_losses": cpu_losses_,
+            "schedule_ms_per_epoch": 1e3 * build_s / exp.num_epochs,
+            "steps_per_s": steps / wall, "wall_s": wall,
+            "wall_s_second_run": again[2],
+            "stall_ms_per_step": 1e3 * tot["fetch_stall_s"] / steps,
+            "compute_ms_per_step": 1e3 * tot["compute_time_s"] / steps,
+            "h2d_ms_median": 1e3 * h2d[len(h2d) // 2],
+            "peak_bytes": peak, "launches": launches, "fetch": fetch,
+            "cpu_run_s": cpu_s}
+        log(f"launcher {name}: {steps} steps ({exp.num_epochs} epochs) in "
+            f"{wall:.3f} s = {r['steps_per_s']:.2f} steps/s (second run "
+            f"{again[2]:.3f} s); per step stall "
+            f"{r['stall_ms_per_step']:.2f} ms + compute "
+            f"{r['compute_ms_per_step']:.2f} ms (H2D median "
+            f"{r['h2d_ms_median']:.2f} ms); schedule "
+            f"{r['schedule_ms_per_epoch']:.1f} ms an epoch ({compiler}"
+            f"{', bit-equal to numpy' if compiler == 'device' else ''}); "
+            f"hit_rate {fetch['hit_rate']:.4f}, rpc_count "
+            f"{fetch['rpc_count']}, remote_bytes {fetch['remote_bytes']}, "
+            f"miss matrix {fetch['miss_matrix']} (= the CPU run's); peak "
+            f"{peak / 2 ** 20:.1f} MiB; launches {json.dumps(launches)}; "
+            f"losses {hist[0]:.6f} -> {hist[-1]:.6f} (epoch means "
+            f"{first:.6f} -> {last:.6f}), first {CPU_LOSS_STEPS} within "
+            f"rtol=1e-4 atol=1e-5 of the CPU, second run bit-identical")
+    return out, batches, sort_input
+
+
+@contextlib.contextmanager
+def captured_batches(n: int, out: list):
+    """Records in ``out`` the first ``n`` (features, batch) pairs
+    ``repro_torch.models.batch_to_device`` is handed (the host cells'
+    step inputs)."""
+    import repro_torch.models as models
+
+    real = models.batch_to_device
+
+    def recording(cb, feats, device):
+        if len(out) < n:
+            out.append((feats.copy(), cb))
+        return real(cb, feats, device)
+    models.batch_to_device = recording
+    try:
+        yield out
+    finally:
+        models.batch_to_device = real
+
+
+def grid_phase(torch, device, counters):
+    """(b) ``full_grid()``'s GRID_DATASET, batch-GRID_BATCH scenario: the
+    four host systems through ``run_host_cell`` on the card, the
+    differential checks and the report; the ``gcn`` cell (fan-outs 50,
+    50) again, bit-equal, its first steps against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.eval import (CampaignSpec, run_host_cell,
+                                  validate_report)
+    from repro_torch.eval.cells import cell_config
+    from repro_torch.eval.spec import full_grid
+    from repro_torch.graph import load_dataset
+
+    cells = tuple(dataclasses.replace(c, epochs=GRID_EPOCHS)
+                  for c in full_grid().host_cells()
+                  if c.dataset == GRID_DATASET
+                  and c.batch_size == GRID_BATCH)
+    spec = CampaignSpec(name=f"full-{GRID_DATASET}-b{GRID_BATCH}"
+                        f"-e{GRID_EPOCHS}", cells=cells)
+    run = campaign_run(torch, device, spec, counters,
+                       os.path.join(OUT_DIR, "BENCH_torch_full_ogbn.json"))
+    report = run["report"]
+    probs = validate_report(report)
+    fails = [c for c in report["differential"] if c["status"] == "FAIL"]
+    if probs or fails or not report["all_checks_pass"]:
+        raise RuntimeError(f"grid {spec.name}: invalid {probs}, failed "
+                           f"{fails}")
+    i = next(j for j, c in enumerate(run["cells"]) if c.system == "gcn")
+    gcn, captured = run["cells"][i], []
+    with captured_batches(CPU_LOSS_STEPS, captured):
+        again = run_host_cell(cells[i], device=device)
+    if again.losses != gcn.losses or any(
+            getattr(again, k) != getattr(gcn, k) for k in CELL_COUNTS
+            if k not in ("losses", "accs")):
+        raise RuntimeError("grid: a second run of the gcn cell differs")
+    # the cell's step: initial_params(cfg, seed) and AdamW(lr=3e-3)
+    cfg = cell_config(cells[i], load_dataset(GRID_DATASET))
+    cpu_losses_ = cpu_losses(torch, cells[i].seed, cfg, captured)
+    np.testing.assert_allclose(gcn.losses[:CPU_LOSS_STEPS], cpu_losses_,
+                               rtol=1e-4, atol=1e-5)
+    campaign_cell_lines("grid", run)
+    fo50 = run["launches"][i]["gather_agg"]
+    log(f"grid gcn cell (fan-outs {cfg.fanouts}, hidden {cfg.hidden_dim}): "
+        f"second run bit-equal (losses and every counter), first "
+        f"{CPU_LOSS_STEPS} losses within rtol=1e-4 atol=1e-5 of the CPU "
+        f"{['%.6f' % x for x in cpu_losses_]}; gather_agg launches at "
+        f"fan-out 50: {fo50}, gather_agg_bwd {run['launches'][i]['gather_agg_bwd']}"
+        f"; {GRID_EPOCHS} epoch of the grid's 2")
+    return {"cells": [c.to_dict() for c in run["cells"]],
+            "pairs": report["pairs"], "launches": run["launches"],
+            "peaks": run["peaks"], "wall_s": run["wall_s"],
+            "gcn_cpu_losses": cpu_losses_, "gcn_fanout50_launches": fo50,
+            "checks": {s: sum(1 for c in report["differential"]
+                              if c["status"] == s)
+                       for s in ("PASS", "FAIL", "SKIP")}}, \
+        (captured[0], cfg)
+
+
+def scale_phase(torch, device, g, pg, counters):
+    """(c) the runner on ``DATASET`` at SCALE_PARTS workers, flat (twice)
+    and SCALE_LAYOUT, beside the same flat run at PARTS; the device
+    campaign pair at SCALE_PARTS, flat and SCALE_LAYOUT, under phase 9's
+    checks."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.dist import assert_host_parity, make_mesh
+    from repro_torch.dist.gnn_step import tree_to_device
+    from repro_torch.eval import CampaignSpec, grid, validate_report
+    from repro_torch.graph import partition_graph
+
+    pgs = {PARTS: pg, SCALE_PARTS: partition_graph(g, SCALE_PARTS,
+                                                   "greedy")}
+    side, curves = {}, {}
+    for P in (PARTS, SCALE_PARTS):
+        w = runner_world(torch, device, g, pgs[P], parts=P, lazy=False)
+        layouts = ("flat",) if P == PARTS else ("flat", "flat",
+                                                SCALE_LAYOUT)
+        runs = []
+        for layout in layouts:
+            runner = runner_make(w, device, layout=layout)
+            reports, launches, peak = runner_drive(torch, runner, counters)
+            idle = [k for k in ("assemble", "gather_agg", "gather_agg_bwd")
+                    if launches[k] == 0]
+            if idle or launches["merge_gather"] or launches["search"] or \
+                    runner.trace_count != 1:
+                raise RuntimeError(f"scale P={P} {layout}: launches "
+                                   f"{launches}, trace_count "
+                                   f"{runner.trace_count}")
+            runs.append((runner, reports, launches, peak))
+        runner, reports, launches, peak = runs[0]
+        curve = _curve(reports)
+        if not np.isfinite(curve).all():
+            raise RuntimeError(f"scale P={P}: bad curve {curve.tolist()}")
+        assert_host_parity(w["eager"], pgs[P], w["exp"].batch_size, reports)
+        cpu = runner_cpu_losses(torch, w, runner)
+        np.testing.assert_allclose(curve[:CPU_LOSS_STEPS], cpu, rtol=1e-4,
+                                   atol=1e-5)
+        for _, rep, _, _ in runs[1:]:
+            if _curve(rep).tobytes() != curve.tobytes():
+                raise RuntimeError(f"scale P={P}: a rerun or the "
+                                   f"{SCALE_LAYOUT} run gave another curve")
+        if P == SCALE_PARTS:
+            hier = runs[2][1]
+            for r, h in zip(reports, hier):
+                if not np.array_equal(h.intra_lanes + h.inter_lanes,
+                                      r.miss_lanes) or \
+                        h.intra_wire_rows + h.inter_wire_rows != \
+                        h.wire_rows or not h.inter_wire_rows:
+                    raise RuntimeError(f"scale epoch {r.epoch}: the "
+                                       f"{SCALE_LAYOUT} tiers do not add up")
+        curves[P] = curve
+        dw = dist_world(g, pgs[P], parts=P)
+        x = tree_to_device({"table": dw["dv"].table,
+                            "offsets": dw["dv"].offsets.reshape(-1),
+                            "rapid": dw["rapid"]}, device)
+        xms = exchange_ms(torch, make_mesh((P,), ("data",), device=device),
+                          x, "rapid", dw["m_max"], dw["S"])
+        del x, dw
+        eps = runner_epochs(reports)
+        row = g.feat_dim * 4
+        side[P] = {
+            "steps_per_epoch": runner.num_steps,
+            "train_ms_per_step": [e["train_ms_per_step"] for e in eps],
+            "exchange_ms_per_step": xms,
+            "wire_bytes": sum(e["wire_rows"] for e in eps) * row,
+            "miss_lanes": [e["miss_lanes"] for e in eps],
+            "launches": launches, "peak_bytes": peak,
+            "layouts": {lay: runner_epochs(rep) for lay, (_, rep, _, _)
+                        in zip(("flat", "flat again", SCALE_LAYOUT)[
+                            :len(runs)], runs)}}
+        log(f"scale P={P} ({'flat' if P == PARTS else f'flat x2 and {SCALE_LAYOUT}'}): "
+            f"{RUNNER_EPOCHS} epochs x {runner.num_steps} steps, ms a step "
+            f"{['%.2f' % v for v in side[P]['train_ms_per_step']]}, "
+            f"exchange alone {xms:.3f} ms a step (flat, epoch 0), wire "
+            f"bytes {side[P]['wire_bytes']}, miss lanes "
+            f"{side[P]['miss_lanes'][0]} (epoch 0), peak "
+            f"{peak / 2 ** 20:.1f} MiB, launches {json.dumps(launches)}; "
+            f"trace_count 1, host parity, first {CPU_LOSS_STEPS} losses "
+            f"within rtol=1e-4 atol=1e-5 of the CPU"
+            + (f", rerun and {SCALE_LAYOUT} bit-equal to flat"
+               if P == SCALE_PARTS else ""))
+    a, b = side[PARTS], side[SCALE_PARTS]
+    log(f"scale side by side P={PARTS} | P={SCALE_PARTS}: warm ms a step "
+        f"{np.mean(a['train_ms_per_step'][1:]):.2f} | "
+        f"{np.mean(b['train_ms_per_step'][1:]):.2f}; exchange ms a step "
+        f"{a['exchange_ms_per_step']:.3f} | {b['exchange_ms_per_step']:.3f};"
+        f" wire bytes {a['wire_bytes']} | {b['wire_bytes']}; launches "
+        f"{json.dumps(a['launches'])} | {json.dumps(b['launches'])} "
+        f"(printed, not claimed)")
+
+    cells = grid(backends=("device",), systems=("rapidgnn", "dgl-metis"),
+                 datasets=(DATASET,), batch_sizes=(TRAIN_BATCH,),
+                 workers=(SCALE_PARTS,), n_hots=(CAMPAIGN_N_HOT,),
+                 epochs=CAMPAIGN_EPOCHS, seed=42, fanouts=(25, 10),
+                 hidden=256, partition="greedy")
+    cells += [dataclasses.replace(c, topology=SCALE_LAYOUT) for c in cells]
+    spec = CampaignSpec(name=f"paper-{DATASET}-P{SCALE_PARTS}",
+                        cells=tuple(cells))
+    run = campaign_run(torch, device, spec, counters, os.path.join(
+        OUT_DIR, f"BENCH_torch_paper_P{SCALE_PARTS}.json"))
+    report = run["report"]
+    probs = validate_report(report)
+    fails = [c for c in report["differential"] if c["status"] == "FAIL"]
+    ran = {c["check"] for c in report["differential"]}
+    want = ("fetch_not_more", "loss_agreement", "topology_miss_parity",
+            "topology_byte_sum", "topology_loss_parity", "one_compilation")
+    missing = [k for k in want if k not in ran]
+    if probs or fails or missing or not report["all_checks_pass"]:
+        raise RuntimeError(f"campaign P={SCALE_PARTS}: invalid {probs}, "
+                           f"failed {fails}, layers missing {missing}")
+    if [c.trace_count for c in run["cells"]] != [1] * len(cells):
+        raise RuntimeError("campaign P=8: a cell traced more than once")
+    rapid = next(c for c in run["cells"] if c.system == "rapidgnn"
+                 and c.spec["topology"] == "flat")
+    if np.asarray(rapid.losses, np.float32).tobytes() != \
+            curves[SCALE_PARTS].tobytes():
+        raise RuntimeError(f"the P={SCALE_PARTS} campaign's rapid cell is not "
+                           f"the runner's flat run")
+    campaign_cell_lines(f"P={SCALE_PARTS}", run)
+    return {"side": side, "campaign": {
+        "cells": [c.to_dict() for c in run["cells"]],
+        "pairs": report["pairs"], "launches": run["launches"],
+        "peaks": run["peaks"], "wall_s": run["wall_s"]}}
+
+
+def fill_caches(torch, states, seed: int, device):
+    """Every k/v cache of ``states`` from its own seeded generator on
+    ``device`` (drawn in the cache's dtype): layer (i, r)'s k and v are
+    ``cache_fill(...)`` of (seed, i, r, 0 or 1)."""
+    for i, st in enumerate(states["scan"]):
+        for r in range(st["k"].shape[0]):
+            for j, name in enumerate(("k", "v")):
+                st[name][r].copy_(cache_fill(torch, st[name][r], seed, i, r,
+                                             j, device))
+
+
+def cache_fill(torch, like, seed, i, r, j, device):
+    gen = torch.Generator(device=device).manual_seed(
+        seed * 1_000_003 + i * 10_007 + r * 101 + j)
+    return torch.randn(like.shape, generator=gen, device=device,
+                       dtype=like.dtype).to(like.device)
+
+
+def check_ring_slots(torch, states, seed: int, pos: int, device) -> list:
+    """After a step at ``pos``, each cache differs from its fill at the
+    one slot the reference writes, ``pos % S_cache``, and nowhere else.
+    -> the slots."""
+    slots = []
+    for i, st in enumerate(states["scan"]):
+        S = st["k"].shape[2]
+        for r in range(st["k"].shape[0]):
+            for j, name in enumerate(("k", "v")):
+                cache = st[name][r]
+                diff = (cache != cache_fill(torch, cache, seed, i, r, j,
+                                            device)).flatten(2).any(-1)
+                got = diff.nonzero().tolist()
+                if got != [[0, pos % S]]:
+                    raise RuntimeError(f"ring slots: layer ({i}, {r}) {name} "
+                                       f"written at {got[:4]}, the "
+                                       f"reference writes slot {pos % S} "
+                                       f"of {S}")
+        slots.append((S, pos % S))
+    return slots
+
+
+def long_decode_arch(torch, device, name, counters):
+    """(d) one arch: full width and depth, bf16, B = 1, its long_500k
+    caches (a window of LONG_WINDOW slots outside SUBQUADRATIC) filled
+    from LONG_SEED; one ``serve_step`` at the last position, again
+    (bit-equal), then with each layer's ``flash_decode`` checked against
+    its plain version on its own inputs, then through the plain version;
+    the ring slots; one global layer's kernel row."""
+    import dataclasses
+    import operator
+
+    import torch.nn.functional as F
+    import repro_torch.models.transformer.attention as attention
+    from repro_torch.configs import INPUT_SHAPES, SUBQUADRATIC, get_arch
+    from repro_torch.kernels.flash_decode.ref import (flash_decode_batched_ref,
+                                                      finalize)
+    from repro_torch.launch.specs import LONG_WINDOW
+    from repro_torch.models.transformer import (init_decode_state,
+                                                init_params, serve_step)
+
+    S_full = INPUT_SHAPES["long_500k"][0]
+    pos = S_full - 1
+    window = 0 if name in SUBQUADRATIC else LONG_WINDOW
+    cfg = dataclasses.replace(get_arch(name), dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        LM_SEED), device)
+    states = init_decode_state(cfg, 1, S_full, device=device,
+                               window_override=window)
+    fill_caches(torch, states, LONG_SEED, device)
+    torch.cuda.synchronize()
+    cache_bytes = sum(st[k].numel() * st[k].element_size()
+                      for st in states["scan"] for k in ("k", "v"))
+    setup_s = time.perf_counter() - t0
+    tok = torch.from_numpy(lm_tokens(cfg, (1, 1), 0x4C35)).to(device)
+    p = torch.full((1,), pos, dtype=torch.int32, device=device)
+    real = attention.flash_decode_batched
+
+    def step():
+        with torch.inference_mode():
+            out = serve_step(cfg, params, states, tok, p,
+                             window_override=window)[0][0, 0]
+        torch.cuda.synchronize()
+        return out
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.reset()
+    t0 = time.perf_counter()
+    logits = step()
+    step_s = time.perf_counter() - t0
+    launches = {c.name: c.value for c in counters}
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"flash_attention": 0, "flash_decode": attn_layers(cfg)}:
+        raise RuntimeError(f"long_500k {name}: launches {launches}, one "
+                           f"flash_decode an attention layer expected")
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"long_500k {name}: logits not finite")
+    slots = check_ring_slots(torch, states, LONG_SEED, pos, device)
+    t0 = time.perf_counter()
+    again = step()
+    again_s = time.perf_counter() - t0
+    if not torch.equal(again, logits):
+        raise RuntimeError(f"long_500k {name}: a second step differs")
+
+    errs, kept = [], {}
+
+    def checked(*a, **kw):
+        out = real(*a, **kw)
+        acc, _, l = flash_decode_batched_ref(*a, **kw)
+        want = finalize(acc, l)
+        errs.append(float((out - want).abs().max()))
+        if not torch.allclose(out, want, rtol=1e-4, atol=1e-5):
+            raise RuntimeError(f"long_500k {name}: flash_decode at a layer "
+                               f"(cache {tuple(a[1].shape)}) differs from "
+                               f"its plain version by {errs[-1]}")
+        kept.setdefault(a[1].shape[1], (a, kw))
+        return out
+    attention.flash_decode_batched = checked
+    try:
+        checked_logits = step()
+    finally:
+        attention.flash_decode_batched = real
+    if not torch.equal(checked_logits, logits) or \
+            len(errs) != attn_layers(cfg):
+        raise RuntimeError(f"long_500k {name}: the checked step differs")
+    attention.flash_decode_batched = lambda *a, **kw: finalize(
+        *operator.itemgetter(0, 2)(flash_decode_batched_ref(*a, **kw)))
+    try:
+        plain = step()
+    finally:
+        attention.flash_decode_batched = real
+    top = float(plain.abs().max())
+    logit_err = float((logits - plain).abs().max())
+    if not logit_err <= LONG_LOGIT_SHARE * top:
+        raise RuntimeError(f"long_500k {name}: logits differ from the plain "
+                           f"step's by {logit_err} > {LONG_LOGIT_SHARE} x "
+                           f"{top}")
+
+    # the kernel row at the layer with the longest cache, on its inputs
+    S = max(kept)
+    (q, k, v, length, start), kw = kept[S]
+    B, H, dh = q.shape
+    kvH = k.shape[2]
+
+    def call():
+        return real(q, k, v, length, start, **kw)
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+    if kw.get("softcap", 0.0) == 0.0:
+        lib_err = float((sdpa()[:, :, 0].float() - call()).abs().max())
+        if lib_err > 0.05:
+            raise RuntimeError(f"SDPA yardstick (long_500k {name}) "
+                               f"computes another function: {lib_err}")
+    nbytes = 2 * B * S * kvH * dh * k.element_size() + \
+        q.numel() * q.element_size() + B * H * dh * 4
+    ops = device_ops(torch, call)
+    row = {"name": f"flash_decode_{name}_long_500k", "route": "cuda",
+           "source": DECODE_SOURCE,
+           "replaces": "src/repro/kernels/flash_decode/flash_decode.py:29",
+           "launches": launches["flash_decode"], "max_abs_err": max(errs),
+           "ms": device_ms(torch, call),
+           "plain_ms": device_ms(torch, lambda: flash_decode_batched_ref(
+               q, k, v, length, start, **kw), iters=5),
+           "library_ms": device_ms(torch, sdpa, iters=5),
+           "device_ops": len(ops),
+           "shape": f"q=({B},{H},{dh}) cache=({B},{S},{kvH},{dh}) bf16, "
+                    f"G={H // kvH}, softcap {kw.get('softcap', 0.0)}"}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 4 * dh * H * B * S,
+                                                BF16_FLOPS_PER_S)
+    out = {"cfg": {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                   "window_override": window, "cache_bytes": cache_bytes},
+           "pos": pos, "setup_s": setup_s, "step_ms": 1e3 * step_s,
+           "second_step_ms": 1e3 * again_s, "peak_bytes": peak,
+           "launches": launches, "ring_slots": sorted(set(slots)),
+           "layer_max_abs_err": max(errs), "logit_max_abs_err": logit_err,
+           "max_logit": top, "row": row}
+    log(f"long_500k {name}: {cfg.num_layers} layers d={cfg.d_model} bf16, "
+        f"B=1 at position {pos}, window_override {window}, caches "
+        f"{cache_bytes / 2 ** 30:.2f} GiB from seed {LONG_SEED} (set up in "
+        f"{setup_s:.1f} s); a step {1e3 * step_s:.1f} ms (second "
+        f"{1e3 * again_s:.1f} ms, bit-equal), peak "
+        f"{peak / 2 ** 30:.2f} GiB, launches {json.dumps(launches)}; ring "
+        f"slots (S_cache, slot) {sorted(set(slots))} as the reference's "
+        f"pos % S_cache; each layer's flash_decode within rtol=1e-4 "
+        f"atol=1e-5 of its plain version on its own inputs (max abs err "
+        f"{max(errs):.3e}); logits max |diff| from the step through the "
+        f"plain version {logit_err:.4g} of largest {top:.4g} (bound "
+        f"{LONG_LOGIT_SHARE} x largest, bf16)")
+    log(f"flash_decode long_500k {name} {row['shape']}: ms={row['ms']:.4f} "
+        f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f}"
+        f" (SDPA enable_gqa, no softcap) bound_ms={row['bound_ms']:.4f} "
+        f"({row['bound_by']}, {nbytes / 1e6:.1f} MB), "
+        f"{100 * row['bound_ms'] / row['ms']:.1f} % of the bound; "
+        f"{len(ops)} card op a call")
+    del params, states, kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_reduced_check(torch, device, counters):
+    """(d) the reduced float32 configs of LONG_ARCHS at long_500k's length
+    (the window outside SUBQUADRATIC), caches filled on the CPU: two
+    ``serve_step``s at the last positions, on the card and on the CPU
+    from the same parameters, logits within ``rtol=1e-4, atol=1e-4``; a
+    second card run bit-equal; one launch an attention a step."""
+    from repro_torch.configs import INPUT_SHAPES, SUBQUADRATIC, get_reduced
+    from repro_torch.launch.specs import LONG_WINDOW
+    from repro_torch.models.transformer import (init_decode_state,
+                                                init_params, serve_step)
+    from repro_torch.train.optim import tree_map
+
+    cpu = torch.device("cpu")
+    S_full = INPUT_SHAPES["long_500k"][0]
+    out = {}
+    for name in LONG_ARCHS:
+        cfg = get_reduced(name)
+        window = 0 if name in SUBQUADRATIC else LONG_WINDOW
+        host_p = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
+        card_p = tree_map(lambda t: t.to(device), host_p)
+        toks = torch.from_numpy(lm_tokens(cfg, (1, 2), 0x4C52))
+
+        def run(dev, params):
+            states = init_decode_state(cfg, 1, S_full, device=dev,
+                                       window_override=window)
+            fill_caches(torch, states, LONG_SEED, cpu)
+            got = []
+            with torch.inference_mode():
+                for i in range(2):
+                    lg, _ = serve_step(
+                        cfg, params, states, toks[:, i:i + 1].to(dev),
+                        torch.full((1,), S_full - 2 + i, dtype=torch.int32,
+                                   device=dev), window_override=window)
+                    got.append(lg[0, 0].cpu())
+            return torch.stack(got)
+        for c in counters:
+            c.reset()
+        card = run(device, card_p)
+        launches = {c.name: c.value for c in counters}
+        again = run(device, card_p)
+        host = run(cpu, host_p)
+        err = float((card - host).abs().max())
+        if launches != {"flash_attention": 0,
+                        "flash_decode": 2 * attn_layers(cfg)}:
+            raise RuntimeError(f"long_500k {name} (reduced): launches "
+                               f"{launches}")
+        if not torch.allclose(card, host, rtol=1e-4, atol=1e-4):
+            raise RuntimeError(f"long_500k {name} (reduced): card logits "
+                               f"differ from the CPU's by {err}")
+        if not torch.equal(card, again):
+            raise RuntimeError(f"long_500k {name} (reduced): a second card "
+                               f"run differs")
+        out[name] = {"max_abs_err": err, "launches": launches}
+        log(f"long_500k {name} (reduced, float32, window_override {window}):"
+            f" 2 steps at positions {S_full - 2}, {S_full - 1} on the card "
+            f"within rtol=1e-4 atol=1e-4 of the CPU (max abs err "
+            f"{err:.3e}); second card run bit-equal; launches "
+            f"{json.dumps(launches)}")
+    return out
+
+
+def long_phase(torch, device, counters):
+    out = {"reduced": long_reduced_check(torch, device, counters)}
+    for name in LONG_ARCHS:
+        out[name] = long_decode_arch(torch, device, name, counters)
+    return out
+
+
+def phase15_kernel_rows(torch, device, batches, sort_input, gcn_batch):
+    """The new shapes of rows 3, 3b and 4: the ``gather_agg`` forward at
+    layer 0 of each dataset (d 100 and 128) and at the gcn cell's fan-out
+    50, its backward at layer 1 of the first dataset (ogbn_products_sim)
+    and of the gcn cell, ``seg_sort`` at the first dataset's largest
+    schedule stream."""
+    import numpy as np
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    forward, backward = [], []
+    for dataset, ((feats, cb), cfg, m_max) in batches.items():
+        fo = cfg.fanouts[0]
+        forward.append(gather_agg_row(
+            torch, t(feats), t(cb.edge_src[0]), t(cb.edge_mask[0]),
+            cb.edge_src[0].shape[0] // fo, fo, f"{dataset} layer 0")["row"])
+        if dataset == LAUNCHER_RUNS[0][0]:
+            backward.append(gather_bwd_row(
+                torch, device, cb, cfg.fanouts, m_max, 1, cfg.hidden_dim,
+                f"{dataset} layer 1", 1e-5))
+    (feats, cb), cfg = gcn_batch
+    fo = cfg.fanouts[0]
+    forward.append(gather_agg_row(
+        torch, t(feats), t(cb.edge_src[0]), t(cb.edge_mask[0]),
+        cb.edge_src[0].shape[0] // fo, fo, "gcn cell layer 0")["row"])
+    backward.append(gather_bwd_row(torch, device, cb, cfg.fanouts,
+                                   feats.shape[0], 1, cfg.hidden_dim,
+                                   "gcn cell layer 1", 1e-5))
+    sorts = [seg_sort_row(torch, sort_input["keys"], None,
+                          sort_input["num_bits"],
+                          f"{LAUNCHER_RUNS[0][0]} layer-0 stream")]
+    for r in forward + backward + sorts:
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+    return {"gather_agg": forward, "gather_agg_bwd": backward,
+            "seg_sort": sorts}
+
+
+def phase15(torch, device, g, pg, counters, decode_counters):
+    """Phase 15: (a)-(d), then the new kernel shapes. -> (record, the
+    launches each kernel made on the phase's counted runs, the new
+    flash_decode rows)."""
+    walls, t0 = {}, time.perf_counter()
+    launcher, batches, sort_input = launcher_phase(torch, device, counters)
+    walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid_out, gcn_batch = grid_phase(torch, device, counters)
+    walls["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scale = scale_phase(torch, device, g, pg, counters)
+    walls["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = phase15_kernel_rows(torch, device, batches, sort_input, gcn_batch)
+    walls["rows"] = time.perf_counter() - t0
+    del batches, sort_input, gcn_batch
+    t0 = time.perf_counter()
+    long = long_phase(torch, device, decode_counters)
+    walls["d"] = time.perf_counter() - t0
+    total = {}
+    counted = [r["launches"] for r in launcher.values()] + \
+        grid_out["launches"] + scale["campaign"]["launches"] + \
+        [s["launches"] for s in scale["side"].values()]
+    for ln in counted:
+        for k, v in ln.items():
+            total[k] = total.get(k, 0) + v
+    total["flash_decode"] = sum(long[n]["launches"]["flash_decode"]
+                                for n in LONG_ARCHS) + sum(
+        r["launches"]["flash_decode"] for r in long["reduced"].values())
+    log(f"phase 15 launches over its counted runs {json.dumps(total)}; "
+        f"walls s {json.dumps({k: round(v, 1) for k, v in walls.items()})}"
+        f", the phase {sum(walls.values()):.1f} s")
+    return {"launcher": {" ".join(k): v for k, v in launcher.items()},
+            "grid": grid_out, "scale": scale,
+            "long": {k: v for k, v in long.items()},
+            "kernel_shapes": rows, "launches": total,
+            "walls": walls}, total, [long[n]["row"] for n in LONG_ARCHS]
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -4968,6 +5771,17 @@ def main() -> int:
     for P in DRYRUN_GNN_WORKERS:
         for name, n in dryrun["gnn"][P]["launches"].items():
             next(k for k in kernels if k["name"] == name)["launches"] += n
+    p15, p15_launches, p15_rows = phase15(
+        torch, device, g, pg, dist_counters,
+        [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    # phase 15's launches (the first run of each configuration, its
+    # grid's and campaign's cells, its long_500k steps) and new shapes
+    for name, n in p15_launches.items():
+        next(k for k in kernels if k["name"] == name)["launches"] += n
+    for name, shapes in p15["kernel_shapes"].items():
+        next(k for k in kernels if k["name"] == name)["phase15_shapes"] = \
+            shapes
+    kernels += p15_rows
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -4976,6 +5790,8 @@ def main() -> int:
              "max_abs_err": k["max_abs_err"], "shape": k["shape"]}))
 
     card = card_line()
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (phase 15 "
+        f"{sum(p15['walls'].values()):.1f} s)")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serve": phases,
@@ -4984,7 +5800,7 @@ def main() -> int:
                    "dist": dist, "embedding": emb, "runner": runner,
                    "campaign": campaign, "lm_train": lm_train,
                    "mixers": mixers, "encdec_vlm": encdec_vlm,
-                   "mesh": mesh, "dryrun": dryrun}, f,
+                   "mesh": mesh, "dryrun": dryrun, "phase15": p15}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -180,9 +180,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def rope_freqs(head_dim: int, theta: float,
                device: Optional[torch.device] = None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    """1 / theta^(2i / head_dim) in float32, evaluated on the host and
+    copied to ``device`` once: the card's ``pow`` rounds some bands an
+    ulp away from the host's, which a position near 2^19 turns into an
+    angle 0.03 rad off."""
+    return _host_freqs(head_dim, float(theta), torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _host_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+        return (1.0 / (theta ** exps)).to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

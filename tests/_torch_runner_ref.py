@@ -1,18 +1,20 @@
 """The JAX package's multi-epoch device runners for the port's tests
-(``tests/test_torch_runner.py``), on 4 emulated host devices.
+(``tests/test_torch_runner.py`` at 4 workers,
+``tests/test_torch_runner8.py`` at 8), on P emulated host devices.
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \\
-        PYTHONPATH=src python tests/_torch_runner_ref.py OUT.npz
+        PYTHONPATH=src python tests/_torch_runner_ref.py OUT.npz [P]
 
 The device count of JAX is fixed when it first starts, so this runs in
 a process of its own. Runs ``DeviceRapidGNNRunner`` and
-``DeviceBaselineRunner`` on the ``tiny`` graph, 4 greedy parts, B = 16,
-GraphSAGE hidden 32, AdamW lr 3e-3, 3 epochs, parameters from
-``jax.random.key(0)``, on the flat mesh and on ``Topology.
-hierarchical(2, 2)``; writes each run's per-epoch report (``{run}_{e}_
-{field}``), its ``to_dict`` keys, the final parameters and the initial
-ones (``init_*``) to one ``.npz``. Runs are named ``rapid_flat``,
-``rapid_2x2``, ``baseline_flat`` and ``baseline_2x2``.
+``DeviceBaselineRunner`` on the ``tiny`` graph, P greedy parts (4 by
+default), B = 16, GraphSAGE hidden 32, AdamW lr 3e-3, 3 epochs,
+parameters from ``jax.random.key(0)``, on the flat mesh and on
+``Topology.hierarchical(2, P // 2)``; writes each run's per-epoch report
+(``{run}_{e}_{field}``), its ``to_dict`` keys, the final parameters and
+the initial ones (``init_*``) to one ``.npz``. Runs are named
+``rapid_flat``, ``rapid_2xD``, ``baseline_flat`` and ``baseline_2xD``
+(D = P // 2).
 """
 import sys
 
@@ -24,7 +26,7 @@ FIELDS = ("losses", "accs", "miss_lanes", "wire_rows", "intra_lanes",
           "inter_lanes", "intra_wire_rows", "inter_wire_rows", "steps")
 
 
-def main(path: str) -> None:
+def main(path: str, P_: int = P_) -> None:
     from repro.core import build_schedule
     from repro.dist import (DeviceBaselineRunner, DeviceRapidGNNRunner,
                             DeviceView, Topology, make_mesh)
@@ -51,7 +53,8 @@ def main(path: str) -> None:
     for kind, cls in (("rapid", DeviceRapidGNNRunner),
                       ("baseline", DeviceBaselineRunner)):
         for name, topo in (("flat", None),
-                           ("2x2", Topology.hierarchical(2, 2))):
+                           (f"2x{P_ // 2}",
+                            Topology.hierarchical(2, P_ // 2))):
             mesh = (make_mesh((P_,), ("data",)) if topo is None
                     else topo.make_mesh())
             runner = cls(schedules, dv, cfg, AdamW(lr=LR), mesh, B,
@@ -71,4 +74,4 @@ def main(path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1], *map(int, sys.argv[2:]))

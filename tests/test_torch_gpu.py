@@ -1476,3 +1476,23 @@ def test_dryrun_argument_bytes_are_what_the_card_allocates(cuda, shape):
         out[0] if isinstance(out, tuple) else out)
     assert bool(torch.isfinite(first.float()).all())
     assert rec["memory"]["argument_size_bytes"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim,theta", [(256, 10000.0), (64, 10000.0),
+                                            (128, 1000000.0), (64, 1e6)])
+def test_rope_at_long_500k_positions_on_card_equals_cpu(cuda, head_dim,
+                                                        theta):
+    """The RoPE frequencies on the card are the host's bit for bit, so a
+    rotation at the positions of ``long_500k`` (up to 524,287) agrees
+    with the CPU's; the card's own ``pow`` rounded some bands an ulp off,
+    0.03 rad at those positions."""
+    from repro_torch.models.transformer.common import apply_rope, rope_freqs
+    assert torch.equal(rope_freqs(head_dim, theta, cuda).cpu(),
+                       rope_freqs(head_dim, theta))
+    gen = torch.Generator().manual_seed(head_dim)
+    x = torch.randn((1, 4, 2, head_dim), generator=gen)
+    pos = torch.tensor([[0, 4097, 524_286, 524_287]], dtype=torch.int32)
+    got = apply_rope(x.to(cuda), pos.to(cuda), theta).cpu()
+    np.testing.assert_allclose(got, apply_rope(x, pos, theta), rtol=1e-5,
+                               atol=1e-5)
