@@ -335,6 +335,33 @@ Phases (any failure raises, so the exit code is non-zero):
    shapes timed: the ``gather_agg`` forward at d 100 and 128 and at
    fan-out 50, its backward at the products and gcn layer 1, ``seg_sort``
    at the products schedule; two ``flash_decode`` rows. Prints its wall.
+16. The LM paths the card had not run, last. (a) The non-dense
+   families trained reduced in float32, as phase 10 (b): qwen3-moe-30b-a3b
+   and arctic-480b (the MoE dispatch and combine under autograd),
+   mamba2-1.3b (the SSD chunk scan), recurrentgemma-9b at 5 layers (the
+   RG-LRU scan, local attention, the rglru tail), seamless-m4t-medium
+   (``encode``, cross-attention) and qwen2-vl-72b (M-RoPE streams, patch
+   ``embeds``): 3 steps on the card within ``rtol=1e-4, atol=1e-5`` of
+   the CPU, a second card run bit-equal, no kernel launched; then each
+   through the launcher, ``launch.train.main(["--workload", "lm",
+   ...])`` on ``cuda``, its last loss below its first, no kernel
+   launched. (b) mamba2-1.3b at full width and depth in bfloat16 as phase
+   10 (a) trains granite-3-2b (B=1, S=4096, 8 steps, the remat path and
+   the in-place AdamW): losses finite and falling, a second fresh run
+   bit-equal; ms a step, tokens/s, peak memory, the step's split and the
+   traced step's card ms by op. (c) qwen1.5-32b at full width and depth
+   in bfloat16 (64 layers, 35.2 B parameters, 70.4 GB, the largest model
+   one card holds whole), after every earlier phase's tensors are freed:
+   phase 6's prefill at B=1 and the longest S of (8192, 4096, 2048) whose
+   reckoned bytes fit beside the weights (64 ``flash_attention`` a
+   prefill) and its greedy loop at B=8, prompt 16, gen 32 (64
+   ``flash_decode`` a step), each a second run bit-equal; the decode
+   step's card time beside its byte bound (every weight read once at 3.35
+   TB/s); ``flash_attention`` (1, S, 40, 128) causal and ``flash_decode``
+   (8, 4096, 40, 128) and the loop's (8, 48) cache, G = 1 bf16 (the
+   CUDA-core kernel), each against its plain version, one card operation
+   a call, timed beside it, SDPA and its bound; then the reduced config
+   through ``reduced_check``. Prints each part's wall.
 
 Output: one ``kernel {...}`` line per kernel row (phase 11 adds
 ``flash_attention_g16``/``flash_decode_g16`` and ``flash_attention_g8``/
@@ -346,7 +373,9 @@ qwen3-moe-30b-a3b's 8 q heads a kv head; phase 12
 the last over the cross caches; phase 13 ``flash_decode_sharded``;
 phase 14 and 15 add their launches to the rows of the kernels they
 ran, phase 15 ``flash_decode_gemma2-2b_long_500k`` and
-``flash_decode_granite-3-2b_long_500k``), the script's wall, the
+``flash_decode_granite-3-2b_long_500k``, phase 16
+``flash_attention_g1_h128`` and ``flash_decode_g1_h128`` at
+qwen1.5-32b's heads), the script's wall, the
 card's name and power limit, one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
@@ -516,10 +545,14 @@ def device_ops(torch, fn) -> list:
     """The card operations (kernels, copies, memsets) one ``fn()`` call
     runs: one call captured in a CUDA graph, its nodes counted with
     libcuda's ``cuGraphGetNodes``. A profiler trace loses events of short
-    kernels late in a long run; a graph holds exactly what was launched."""
+    kernels late in a long run; a graph holds exactly what was launched.
+    The capture's stream and graph take card memory outside PyTorch's
+    cache, so the cache's unused blocks go back to the card first (beside
+    qwen1.5-32b's 70.4 GB the cache held the rest)."""
     import ctypes
     fn()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
@@ -597,8 +630,9 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S):
 
 def beside_old(name: str, ms: float, lib_ms: float, loop: bool = False):
     """A ``flash_decode`` row's time against SDPA's and the CUDA-core
-    design's (``OLD_DECODE_MS``), as a log phrase."""
-    old = OLD_DECODE_MS[name][1 if loop else 0]
+    design's (``OLD_DECODE_MS``; none for a row it has no time for), as a
+    log phrase."""
+    old = OLD_DECODE_MS.get(name, (None, None))[1 if loop else 0]
     txt = f"{ms / lib_ms:.2f}x SDPA's time"
     if old is not None:
         txt += f"; the CUDA-core design {old:.4f} ({old / ms:.2f}x this)"
@@ -3505,14 +3539,15 @@ def _close(a, b, rtol=1e-4, atol=1e-5) -> bool:
     return all(abs(x - y) <= atol + rtol * abs(y) for x, y in zip(a, b))
 
 
-def lm_train_phase(torch, device, counters):
-    import dataclasses
-    from repro_torch.configs import get_arch, get_reduced
-
+def full_train(torch, device, cfg, counters):
+    """``cfg`` at full width and depth in bfloat16, LM_TRAIN_B x
+    LM_TRAIN_S, LM_TRAIN_STEPS steps from parameters drawn on the card,
+    twice: no kernel launched, the losses finite and the last below the
+    first, the second fresh run's curve bit-equal. Logs the ms a step,
+    tokens/s, TFLOP/s of 6*N*T, peak memory, the step's split by CUDA
+    events and the traced step's card ms by op."""
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    cfg = get_arch(LM_TRAIN_ARCH) if LM_FULL else get_reduced(LM_TRAIN_ARCH)
-    cfg = dataclasses.replace(cfg, dtype="bfloat16")
     tokens = LM_TRAIN_B * LM_TRAIN_S
     runs = [lm_train_run(torch, device, cfg, LM_TRAIN_B, LM_TRAIN_S,
                          LM_TRAIN_STEPS, device, counters, trace)
@@ -3536,14 +3571,16 @@ def lm_train_phase(torch, device, counters):
            "held_at_start_bytes": held, "runs": runs, "ms": ms,
            "tokens_per_s": tokens / (ms / 1e3),
            "model_tflops_per_s": flops / (ms / 1e3) / 1e12}
+    kinds = "/".join(sorted(set(cfg.pattern + cfg.tail)))
     log(f"lm train {cfg.name}: {'full' if LM_FULL else 'reduced'} "
-        f"{cfg.num_layers} layers d={cfg.d_model} H={cfg.num_heads} "
-        f"kvH={cfg.num_kv_heads} dh={cfg.head_dim} {cfg.dtype}, "
-        f"{a['parameters'] / 1e9:.3f} B parameters, B={LM_TRAIN_B} "
-        f"S={LM_TRAIN_S}; {held / 2**30:.2f} GiB held at the start")
-    log(f"lm train: {LM_TRAIN_STEPS} steps, losses {losses}; ms a step "
-        f"{[round(x, 2) for x in a['step_ms']]} (first includes warm-up), "
-        f"{ms:.2f} after it ({out['tokens_per_s']:.0f} tok/s, "
+        f"{cfg.num_layers} layers ({kinds}) d={cfg.d_model} "
+        f"H={cfg.num_heads} kvH={cfg.num_kv_heads} dh={cfg.head_dim} "
+        f"{cfg.dtype}, {a['parameters'] / 1e9:.3f} B parameters, "
+        f"B={LM_TRAIN_B} S={LM_TRAIN_S}; {held / 2**30:.2f} GiB held at the "
+        f"start")
+    log(f"lm train {cfg.name}: {LM_TRAIN_STEPS} steps, losses {losses}; ms "
+        f"a step {[round(x, 2) for x in a['step_ms']]} (first includes "
+        f"warm-up), {ms:.2f} after it ({out['tokens_per_s']:.0f} tok/s, "
         f"{out['model_tflops_per_s']:.1f} TFLOP/s of 6*N*T, "
         f"{100 * out['model_tflops_per_s'] * 1e12 / BF16_FLOPS_PER_S:.1f} % "
         f"of 989); peak device memory {a['peak_bytes'] / 2**30:.2f} GiB; "
@@ -3551,20 +3588,58 @@ def lm_train_phase(torch, device, counters):
         f"second fresh run bit-equal (its ms a step "
         f"{[round(x, 2) for x in b['step_ms']]})")
     split = a["split_ms"]
-    attn = attention_share(torch, device, cfg, LM_TRAIN_S)
-    out["attention"] = attn
-    log(f"lm train step split (CUDA events): forward {split['forward']:.1f} "
-        f"ms, backward with the rematerialised forwards "
-        f"{split['backward']:.1f} ms, AdamW in place {split['update']:.1f} "
-        f"ms; one layer's chunked attention (1, {LM_TRAIN_S}, "
-        f"{cfg.num_heads}/{cfg.num_kv_heads}, {cfg.head_dim}) bf16: forward "
-        f"{attn['forward_ms']:.2f} ms, backward {attn['backward_ms']:.2f} "
-        f"ms, x {cfg.num_layers} layers x (2 forwards + 1 backward) = "
-        f"{attn['step_ms']:.1f} ms, {100 * attn['step_ms'] / ms:.1f} % of "
-        f"the step")
-    log(f"lm train traced step (card activity only): wall "
+    log(f"lm train {cfg.name} step split (CUDA events): forward "
+        f"{split['forward']:.1f} ms, backward with the rematerialised "
+        f"forwards {split['backward']:.1f} ms, AdamW in place "
+        f"{split['update']:.1f} ms")
+    log(f"lm train {cfg.name} traced step (card activity only): wall "
         f"{a['traced_ms']:.2f} ms, card busy {a['card_busy_ms']:.2f} ms; "
         f"card ms by op {json.dumps(a['card_ms_by_op'])}")
+    return out
+
+
+def reduced_train(torch, device, cfg, counters, what):
+    """``cfg`` (a reduced config) in float32, LM_REDUCED_STEPS steps of
+    the launcher's batch (LM_REDUCED_B x LM_REDUCED_S) on the card, again
+    on the card and on the CPU, from the same CPU-drawn parameters: the
+    card's losses within ``rtol=1e-4, atol=1e-5`` of the CPU's, the second
+    card run bit-equal, no kernel launched."""
+    cpu = torch.device("cpu")
+    args = (cfg, LM_REDUCED_B, LM_REDUCED_S, LM_REDUCED_STEPS, cpu)
+    card = lm_train_run(torch, device, *args, counters)
+    again = lm_train_run(torch, device, *args)
+    host = lm_train_run(torch, cpu, *args)
+    if any(n for n in card["launches"].values()):
+        raise RuntimeError(f"{what} training launched {card['launches']}")
+    if not _close(card["losses"], host["losses"]):
+        raise RuntimeError(f"{what}: card losses {card['losses']} vs CPU "
+                           f"{host['losses']}")
+    if again["losses"] != card["losses"]:
+        raise RuntimeError(f"{what}: a second card run gave "
+                           f"{again['losses']}, not {card['losses']}")
+    log(f"lm train {what} (reduced, float32, {LM_REDUCED_B}x"
+        f"{LM_REDUCED_S}): card {card['losses']} within rtol=1e-4 "
+        f"atol=1e-5 of the CPU {host['losses']}; second card run "
+        f"bit-equal; launches {json.dumps(card['launches'])}")
+    return {"card": card["losses"], "cpu": host["losses"],
+            "card_step_ms": card["step_ms"], "launches": card["launches"]}
+
+
+def lm_train_phase(torch, device, counters):
+    import dataclasses
+    from repro_torch.configs import get_arch, get_reduced
+
+    cfg = get_arch(LM_TRAIN_ARCH) if LM_FULL else get_reduced(LM_TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    out = full_train(torch, device, cfg, counters)
+    attn = attention_share(torch, device, cfg, LM_TRAIN_S)
+    out["attention"] = attn
+    log(f"lm train attention: one layer's chunked attention (1, "
+        f"{LM_TRAIN_S}, {cfg.num_heads}/{cfg.num_kv_heads}, {cfg.head_dim}) "
+        f"bf16: forward {attn['forward_ms']:.2f} ms, backward "
+        f"{attn['backward_ms']:.2f} ms, x {cfg.num_layers} layers x (2 "
+        f"forwards + 1 backward) = {attn['step_ms']:.1f} ms, "
+        f"{100 * attn['step_ms'] / out['ms']:.1f} % of the step")
     from repro_torch.data.pipeline import synthetic_lm_batches
     toks = next(synthetic_lm_batches(cfg, batch=LM_TRAIN_B, seq=LM_TRAIN_S,
                                      steps=1, s0=LM_SEED))["tokens"]
@@ -3576,30 +3651,9 @@ def lm_train_phase(torch, device, counters):
             f"{cfg.d_model}) bf16, two runs bit-equal: "
             f"{emb[name]['bit_equal']}; card ms a call by op "
             f"{json.dumps(emb[name]['card_ms_by_op'])}")
-
-    cpu = torch.device("cpu")
-    out["reduced"] = {}
-    for arch in LM_TRAIN_REDUCED:
-        rcfg = get_reduced(arch)
-        args = (rcfg, LM_REDUCED_B, LM_REDUCED_S, LM_REDUCED_STEPS, cpu)
-        card = lm_train_run(torch, device, *args, counters)
-        again = lm_train_run(torch, device, *args)
-        host = lm_train_run(torch, cpu, *args)
-        if any(n for n in card["launches"].values()):
-            raise RuntimeError(f"{arch} training launched {card['launches']}")
-        if not _close(card["losses"], host["losses"]):
-            raise RuntimeError(f"{arch}: card losses {card['losses']} vs CPU "
-                               f"{host['losses']}")
-        if again["losses"] != card["losses"]:
-            raise RuntimeError(f"{arch}: a second card run gave "
-                               f"{again['losses']}, not {card['losses']}")
-        out["reduced"][arch] = {"card": card["losses"],
-                                "cpu": host["losses"],
-                                "card_step_ms": card["step_ms"]}
-        log(f"lm train {arch} (reduced, float32, {LM_REDUCED_B}x"
-            f"{LM_REDUCED_S}): card {card['losses']} within rtol=1e-4 "
-            f"atol=1e-5 of the CPU {host['losses']}; second card run "
-            f"bit-equal; launches {json.dumps(card['launches'])}")
+    out["reduced"] = {arch: reduced_train(torch, device, get_reduced(arch),
+                                          counters, arch)
+                      for arch in LM_TRAIN_REDUCED}
     return out
 
 
@@ -3904,7 +3958,7 @@ def mixer_decode_row(torch, device, cfg, launches, full_s=None, loop=True,
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"],
-            "old_design_ms": OLD_DECODE_MS[name][0],
+            "old_design_ms": OLD_DECODE_MS.get(name, (None,))[0],
             "shape": f"{cfg.name}{f' {what}' if what else ''} q=({B},{H},"
                      f"{dh}) cache=({B},{sizes[0]},{kvH},{dh}) bf16 (G={G}),"
                      f" lengths {lens_txt}",
@@ -5641,6 +5695,194 @@ def phase15(torch, device, g, pg, counters, decode_counters):
             "walls": walls}, total, [long[n]["row"] for n in LONG_ARCHS]
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the LM paths the card had not run
+# ---------------------------------------------------------------------------
+
+#: the non-dense families trained reduced (config fields set on each):
+#: MoE (arctic with its dense residual), SSD, RG-LRU and local attention
+#: (5 layers: one (rglru, rglru, local) repeat and the two rglru tail
+#: blocks), enc-dec (``encode``, cross-attention) and M-RoPE (patch
+#: ``embeds``, three position streams)
+FAMILY_TRAIN = {"qwen3-moe-30b-a3b": {}, "arctic-480b": {},
+                "mamba2-1.3b": {}, "recurrentgemma-9b": {"num_layers": 5},
+                "seamless-m4t-medium": {}, "qwen2-vl-72b": {}}
+#: ``--steps`` of each launcher run: the fewest at which the launcher's
+#: last loss is at least 0.02 below its first on the card (its defaults:
+#: the reduced config, batch 8 x 128, seed 42; NVIDIA H100 80GB HBM3,
+#: torch 2.11, numpy 2.3.5, whose draws differ from other versions').
+#: mamba2-1.3b's second and third losses are within 0.02 of its first,
+#: seamless-m4t-medium's second above it
+FAMILY_LAUNCHER_STEPS = {"qwen3-moe-30b-a3b": 2, "arctic-480b": 2,
+                         "mamba2-1.3b": 4, "recurrentgemma-9b": 2,
+                         "seamless-m4t-medium": 3, "qwen2-vl-72b": 2}
+#: the SSD family's full-width training, as phase 10's granite-3-2b run
+SSD_TRAIN_ARCH = "mamba2-1.3b"
+#: the largest model one card holds whole, served at full width and
+#: depth; its prefill at the longest of these S that fits beside the
+#: weights (``serve_prefill_s``)
+SERVE_ARCH = "qwen1.5-32b"
+SERVE_PREFILL_S = (8192, 4096, 2048)
+#: what the card keeps free beyond the reckoned prefill (the allocator's
+#: rounding, the profiler's buffers)
+SERVE_SPARE_BYTES = 2 << 30
+#: the ``flash_decode`` row's cache: as long as qwen3-moe-30b-a3b's
+SERVE_DECODE_CACHE = 4096
+
+
+def family_train(torch, device, counters):
+    """(a) each family reduced: ``reduced_train`` (card against CPU, a
+    second card run bit-equal, no kernel launched), then the launcher,
+    ``launch.train.main(["--workload", "lm", ...])`` on the card, its
+    last loss below its first (its own assertion), no kernel launched."""
+    import dataclasses
+    import io
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.train import main as train_main
+
+    out = {}
+    for arch, fields in FAMILY_TRAIN.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_reduced(arch), **fields)
+        res = reduced_train(torch, device, cfg, counters,
+                            f"{arch}{f' {fields}' if fields else ''}")
+        steps = FAMILY_LAUNCHER_STEPS[arch]
+        for c in counters:
+            c.reset()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            train_main(["--workload", "lm", "--arch", arch,
+                        "--steps", str(steps), "--device", device.type])
+        launches = {c.name: c.value for c in counters}
+        head = f"== lm {arch} (reduced) on {device.type} == {steps} steps"
+        line = next((x for x in text.getvalue().splitlines()
+                     if x.startswith(head)), None)
+        if line is None or any(launches.values()):
+            raise RuntimeError(f"the launcher on {arch}: {text.getvalue()!r}"
+                               f", launches {launches}")
+        res.update(launcher=line, launcher_launches=launches,
+                   wall_s=time.perf_counter() - t0)
+        log(f"lm launcher {arch}: {line}; launches {json.dumps(launches)}")
+        out[arch] = res
+    return out
+
+
+def serve_prefill_s(cfg, free: int) -> tuple:
+    """The longest of SERVE_PREFILL_S whose reckoned bytes fit in
+    ``free`` less SERVE_SPARE_BYTES, and the reckoning: the largest of
+    one layer's FFN (gate, up, their product) and q/k/v; the head's bf16
+    product beside its float32 copy; ``prefill_phase``'s finite check of
+    the float32 logits (``isfinite`` takes a float32 ``abs`` and three
+    boolean masks beside them); and the ``flash_attention`` row's plain
+    version (float32 k/v, four float32 score blocks of 1024 query
+    rows)."""
+    H, kvH, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def need(S):
+        layer = S * cfg.d_ff * 2 * 3 + S * (H + 2 * kvH) * dh * 2 * 2
+        logits = S * cfg.vocab_size
+        row = 4 * H * min(S, 1024) * S * 4 + 2 * S * kvH * dh * 4
+        return max(layer, logits * (2 + 4), logits * (4 + 4 + 3), row)
+    reck = {S: need(S) for S in SERVE_PREFILL_S}
+    fits = [S for S in SERVE_PREFILL_S if reck[S] + SERVE_SPARE_BYTES <= free]
+    if not fits:
+        raise RuntimeError(f"{cfg.name}: no prefill of {SERVE_PREFILL_S} "
+                           f"fits in {free} free bytes ({reck})")
+    return fits[0], reck
+
+
+def serve_full(torch, device, counters):
+    """(c) SERVE_ARCH at full width and depth in bfloat16, parameters from
+    a seeded generator on the card: ``prefill_phase`` at B=1 and the
+    longest S that fits, ``decode_phase``'s greedy loop (one launch an
+    attention layer, a second run bit-equal), the decode step's byte
+    bound (every weight read once), the two kernel rows at the model's
+    heads (G = 1, dh 128); the model freed, then its reduced config in
+    ``reduced_check``."""
+    import dataclasses
+    from repro_torch.configs import get_arch, get_reduced
+    from repro_torch.models.transformer import init_params
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"serve {SERVE_ARCH}: {held} bytes ({held / 2**30:.3f} GiB) held on "
+        f"the card at the start")
+    cfg = get_arch(SERVE_ARCH) if LM_FULL else get_reduced(SERVE_ARCH)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        LM_SEED), device)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n = sum(t.numel() for t in leaves)
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    # the float32 draws' blocks, cached by the allocator, back to the card
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(device)
+    seq, reck = serve_prefill_s(cfg, free)
+    log(f"serve {cfg.name}: {'full' if LM_FULL else 'reduced'} "
+        f"{cfg.num_layers} layers d={cfg.d_model} H={cfg.num_heads} "
+        f"kvH={cfg.num_kv_heads} dh={cfg.head_dim} d_ff={cfg.d_ff} "
+        f"{cfg.dtype}: {n / 1e9:.3f} B parameters, {weights / 1e9:.2f} GB "
+        f"from seed {LM_SEED} in {time.perf_counter() - t0:.2f} s; "
+        f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free; prefill bytes "
+        f"reckoned {json.dumps({S: round(b / 1e9, 3) for S, b in reck.items()})}"
+        f" GB (+ {SERVE_SPARE_BYTES / 2**30:.0f} GiB spare): S={seq}")
+    prefill = prefill_phase(torch, device, cfg, params, counters, seq=seq)
+    decode = decode_phase(torch, device, cfg, params, counters, host=False,
+                          trace_steps=MIXER_TRACE_STEPS)
+    bound = 1e3 * weights / MEM_BYTES_PER_S
+    log(f"decode {cfg.name} byte bound: {weights / 1e9:.2f} GB of weights "
+        f"read once a step at 3.35 TB/s = {bound:.3f} ms, "
+        f"{100 * bound / decode['card_busy_ms_per_step']:.1f} % of the traced"
+        f" step's card busy {decode['card_busy_ms_per_step']:.3f} ms; its "
+        f"wall {decode['traced_ms_per_step']:.3f} ms")
+    rows = [mixer_attention_row(
+                torch, device, cfg, params, seq,
+                prefill["launches"]["flash_attention"],
+                name="flash_attention_g1_h128"),
+            mixer_decode_row(
+                torch, device, cfg, decode["launches"]["flash_decode"],
+                full_s=SERVE_DECODE_CACHE, name="flash_decode_g1_h128")]
+    del params, leaves
+    torch.cuda.empty_cache()
+    out = {"held_at_start_bytes": held, "parameters": n,
+           "weight_bytes": weights, "free_bytes": free, "prefill_s": seq,
+           "reckoned_bytes": reck, "prefill": prefill, "decode": decode,
+           "decode_bound_ms": bound,
+           "reduced": reduced_check(torch, device, counters, (SERVE_ARCH,),
+                                    "serve")}
+    return out, rows
+
+
+def phase16(torch, device, counters):
+    """Phase 16: (a) the non-dense families' training, reduced, and their
+    launcher runs; (b) SSD_TRAIN_ARCH trained at full width and depth;
+    (c) SERVE_ARCH served at full width and depth, with its kernel rows.
+    Each part prints its wall."""
+    import dataclasses
+    from repro_torch.configs import get_arch, get_reduced
+
+    walls, out = {}, {}
+    t0 = time.perf_counter()
+    out["families"] = family_train(torch, device, counters)
+    walls["families"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = get_arch(SSD_TRAIN_ARCH) if LM_FULL else \
+        get_reduced(SSD_TRAIN_ARCH)
+    out["ssd_train"] = full_train(torch, device,
+                                  dataclasses.replace(cfg, dtype="bfloat16"),
+                                  counters)
+    walls["ssd_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["serve"], rows = serve_full(torch, device, counters)
+    walls["serve"] = time.perf_counter() - t0
+    out["walls"] = walls
+    log(f"phase 16 walls s {json.dumps({k: round(v, 1) for k, v in walls.items()})}, "
+        f"the phase {sum(walls.values()):.1f} s")
+    return out, rows
+
+
 def main() -> int:
     import torch
 
@@ -5709,6 +5951,12 @@ def main() -> int:
                            f"spills {spills}")
     log(f"ptxas gate: instances {json.dumps(found)}, 0 bytes of spill")
 
+    # each phase's wall, from the end of the one before it
+    marks = [("build", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     counters = [search_ops.LAUNCHES, assemble_ops.LAUNCHES,
                 gather_ops.LAUNCHES]
     exp, g, pg, sampler, cfg, params = build_world(torch, device)
@@ -5719,6 +5967,7 @@ def main() -> int:
 
     x = served_inputs(torch, device, svc, streams, responses)
     kernels = kernel_phase(torch, device, x, launches)
+    mark("2-3")
 
     train_counters = counters + [gather_ops.BWD_LAUNCHES, sort_ops.LAUNCHES]
     train, sort_input, captured, m_max, train_cfg = train_phase(
@@ -5732,8 +5981,10 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "gather_agg")[
         "training_layers"] = forward
     del captured, sort_input
+    mark("4-5")
     lm, lm_rows = lm_phase(torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
     kernels += lm_rows
+    mark("6")
     dist_counters = train_counters + [search_ops.MERGE_LAUNCHES]
     dist, dist_in = dist_phase(torch, device, g, pg, dist_counters)
     emb, emb_in = embedding_phase(torch, device, dist_counters)
@@ -5747,22 +5998,30 @@ def main() -> int:
         dist["launches"]["rapid staged"]["search"]
         + emb["launches"]["search"])
     del dist_in, emb_in
+    mark("7")
     runner = runner_phase(torch, device, g, pg, dist_counters)
+    mark("8")
     campaign = campaign_phase(torch, device, dist_counters, runner)
+    mark("9")
     lm_train = lm_train_phase(torch, device,
                               [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    mark("10")
     mixers, mixer_rows = mixer_phase(torch, device,
                                      [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
     kernels += mixer_rows
+    mark("11")
     encdec_vlm, encdec_vlm_rows = encdec_vlm_phase(
         torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
     kernels += encdec_vlm_rows
+    mark("12")
     mesh = mesh_phase(torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    mark("13")
     # the sharded row's launches: phase 13's decode loops over a mesh,
     # qwen3-moe-30b-a3b's (a) and gemma2-2b's (b)
     next(k for k in kernels if k["name"] == "flash_decode_sharded")[
         "launches"] += lm["mesh"]["decode"]["launches"]["flash_decode"]
     dryrun = dryrun_phase(torch, device, [fa_ops.LAUNCHES, fd_ops.LAUNCHES])
+    mark("14")
     # phase 14's launches: (b)'s one-card steps and (c)'s counted step of
     # each rank 0
     for row in dryrun["card"]:
@@ -5782,6 +6041,16 @@ def main() -> int:
         next(k for k in kernels if k["name"] == name)["phase15_shapes"] = \
             shapes
     kernels += p15_rows
+    mark("15")
+    p16, p16_rows = phase16(torch, device, [fa_ops.LAUNCHES,
+                                            fd_ops.LAUNCHES])
+    mark("16")
+    # the rows at qwen1.5-32b's heads carry its full model's launches and
+    # its reduced config's (the reduced families' training launches none)
+    for row, kind in zip(p16_rows, ("flash_attention", "flash_decode")):
+        row["launches"] += p16["serve"]["reduced"][SERVE_ARCH]["launches"][
+            kind]
+    kernels += p16_rows
     for k in kernels:
         log("kernel " + json.dumps(
             {"kernel": k["name"], "ms": k["ms"], "plain_ms": k["plain_ms"],
@@ -5790,8 +6059,11 @@ def main() -> int:
              "max_abs_err": k["max_abs_err"], "shape": k["shape"]}))
 
     card = card_line()
-    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s (phase 15 "
-        f"{sum(p15['walls'].values()):.1f} s)")
+    walls = {name: round(t - marks[i][1], 1)
+             for i, (name, t) in enumerate(marks[1:])}
+    walls["build"] = round(marks[0][1] - t_start, 1)
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s; phase walls "
+        f"s {json.dumps(walls)}")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "serve": phases,
@@ -5800,7 +6072,8 @@ def main() -> int:
                    "dist": dist, "embedding": emb, "runner": runner,
                    "campaign": campaign, "lm_train": lm_train,
                    "mixers": mixers, "encdec_vlm": encdec_vlm,
-                   "mesh": mesh, "dryrun": dryrun, "phase15": p15}, f,
+                   "mesh": mesh, "dryrun": dryrun, "phase15": p15,
+                   "phase16": p16, "walls": walls}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -29,6 +29,7 @@ from repro.fault.chaos import (HOST_SWEEP as J_HOST_SWEEP,
                                run_chaos as j_run_chaos)
 from repro_torch.fault import chaos as t_chaos
 from repro_torch.fault.chaos import HOST_SWEEP, SERVE_SWEEP, run_chaos
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TRAIN_PLANS = list(HOST_SWEEP) + ["chaos-0", "chaos-1"]
@@ -133,8 +134,7 @@ def test_chaos_needs_a_device_or_an_explicit_cpu(monkeypatch):
 
 
 def test_cli_serve_only_exits_zero():
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
-               OMP_NUM_THREADS="1")
+    env = capped_env(PYTHONPATH=str(REPO / "src"))
     p = subprocess.run(
         [sys.executable, "-m", "repro_torch.fault.chaos", "--fast",
          "--serve-only", "--device", "cpu"],

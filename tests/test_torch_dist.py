@@ -85,6 +85,7 @@ from repro_torch.models.gnn import params_from_numpy, params_to_numpy
 from repro_torch.models.transformer.embedding import (
     HotEmbeddingSim as TSim, device_embedding_lookup)
 from repro_torch.train import AdamW as TAdamW
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -113,8 +114,8 @@ def jax_ref(tmp_path_factory):
     """The JAX package's mesh results (4 emulated devices) from one
     subprocess."""
     out = tmp_path_factory.mktemp("jax_ref") / "ref.npz"
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env = capped_env("--xla_force_host_platform_device_count=4",
+                     PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
     p = subprocess.run([sys.executable, str(REPO / "tests" /
                                             "_torch_dist_ref.py"), str(out)],
                        env=env, cwd=REPO, capture_output=True, text=True,
@@ -351,7 +352,7 @@ def test_pull_shard_on_gloo_ranks_equals_pull_features(jax_ref, tmp_path):
              send_pos=jax_ref["pull_send_pos"],
              send_mask=jax_ref["pull_send_mask"],
              offsets=jax_ref["pull_offsets"], m_max=jax_ref["pull_m_max"])
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = capped_env(PYTHONPATH=str(REPO / "src"))
     p = subprocess.run([sys.executable, str(REPO / "tests" /
                                             "_torch_dist_gloo.py"), str(inp),
                         str(tmp_path)], env=env, cwd=REPO,

@@ -50,6 +50,7 @@ from repro_torch.models.transformer import (init_decode_state, init_params,
 from repro_torch.models.transformer.attention import (attention,
                                                       decode_attention)
 from repro_torch.models.transformer.common import dense_init
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tests"))
@@ -62,11 +63,10 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def _env(devices: int) -> dict:
-    env = dict(os.environ)
+    env = capped_env(f"--xla_force_host_platform_device_count={devices}")
     env["PYTHONPATH"] = str(REPO / "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
     env["JAX_PLATFORMS"] = "cpu"
-    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
     return env
 
 
@@ -527,7 +527,7 @@ def rank_epochs(tmp_path_factory):
     np.savez(tmp / "in.npz", **{k: v for k, v in inp.items()
                                 if not k.endswith("batches")
                                 and k not in ("cfg", "params")})
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = capped_env(PYTHONPATH=str(REPO / "src"))
     p = subprocess.run([sys.executable, str(REPO / "tests" /
                                             "_torch_gnn_gloo.py"),
                         str(tmp / "in.npz"), str(tmp)], env=env, cwd=REPO,

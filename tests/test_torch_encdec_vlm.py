@@ -45,6 +45,7 @@ from repro_torch.models.transformer import (encode, forward,
 from repro_torch.models.transformer.attention import attention
 from repro_torch.models.transformer.common import apply_mrope, apply_rope
 from repro_torch.train.optim import tree_leaves, tree_map
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 ENCDEC, VLM = "seamless-m4t-medium", "qwen2-vl-72b"

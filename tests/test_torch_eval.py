@@ -43,6 +43,7 @@ from repro_torch.eval.campaign import (run_campaign as t_run_campaign,
 from repro_torch.eval.replay import (replay_device_bytes as t_replay,
                                      replay_topology_bytes as t_replay_topo)
 from repro_torch.models.gnn import params_from_numpy
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -411,8 +412,7 @@ def test_fault_campaign_passes_with_a_degraded_cell(port_fault):
 
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
-               OMP_NUM_THREADS="1")
+    env = capped_env(PYTHONPATH=str(REPO / "src"))
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.eval.campaign", *args],
         env=env, cwd=REPO, capture_output=True, text=True, timeout=300)

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 from repro.kernels.flash_attention.flash_attention import (
     flash_attention as j_pallas_attn)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_TOL = dict(rtol=2 ** -7, atol=1e-5)

@@ -5,8 +5,9 @@ device-compiled schedule, the train step) against the CPU path, and the
 transformer decode-serving slice (prefill and decode; the enc-dec and
 M-RoPE models too) against the CPU path, the device-distributed epoch (the ``merge_gather`` kernel,
 ``cache_gather``, a staged epoch), the multi-epoch runner (flat and
-``2x2``, and a checkpointed resume) and LM training (reduced configs)
-against the CPU path, and LM training at granite-3-2b's width run twice
+``2x2``, and a checkpointed resume) and LM training (reduced configs,
+the MoE, SSD, RG-LRU, enc-dec and M-RoPE families among them) against
+the CPU path, and LM training at granite-3-2b's width run twice
 bit-equal. They import
 no JAX, so they run on a machine with only PyTorch:
 
@@ -40,6 +41,7 @@ from repro_torch.kernels.gather_agg import ops as t_gather_ops
 from repro_torch.kernels.gather_agg.ref import gather_agg_ref as t_gather_ref
 from repro_torch.kernels.seg_sort import ops as t_sort_ops
 from repro_torch.kernels.seg_sort.seg_sort import CLUSTER, TILE
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 
 def device_kernels(torch_fn):
@@ -550,6 +552,8 @@ WGMMA_ROWS = {
     "seamless_self_s2048": (1, 2048, 2048, 16, 16, 64, True, 0, 0.0),
     "seamless_encoder_s1024": (1, 1024, 1024, 16, 16, 64, False, 0, 0.0),
     "seamless_cross_s2048": (1, 2048, 1024, 16, 16, 64, False, 0, 0.0),
+    "qwen15_32b_s1024_g1_dh128": (1, 1024, 1024, 40, 40, 128, True, 0,
+                                  0.0),
 }
 
 
@@ -797,6 +801,9 @@ MMA_ROWS = {
     "qwen2-vl-48": (8, 48, 64, 8, 128, 0),
     "qwen2-vl-4096": (8, 4096, 64, 8, 128, 0),
     "recurrentgemma-window": (8, 4096, 16, 1, 256, 2048),
+    # G = 1 in bfloat16: the CUDA-core kernel
+    "qwen1.5-32b-48": (8, 48, 40, 40, 128, 0),
+    "qwen1.5-32b-4096": (8, 4096, 40, 40, 128, 0),
 }
 
 
@@ -1343,6 +1350,32 @@ def test_lm_training_reduced_on_card_matches_cpu(cuda, arch):
     second card run bit-equal, no kernel launched."""
     from repro_torch.configs import get_reduced
     cfg = get_reduced(arch)
+    cpu = torch.device("cpu")
+    card, launched = _lm_train(cfg, cuda, cpu, 8, 128)
+    again, _ = _lm_train(cfg, cuda, cpu, 8, 128)
+    host, _ = _lm_train(cfg, cpu, cpu, 8, 128)
+    assert launched == (0, 0) and card == again
+    np.testing.assert_allclose(card, host, rtol=1e-4, atol=1e-5)
+
+
+#: the non-dense families (config fields set on each): recurrentgemma-9b
+#: at 5 layers holds its two rglru tail blocks
+FAMILIES = {"qwen3-moe-30b-a3b": {}, "arctic-480b": {}, "mamba2-1.3b": {},
+            "recurrentgemma-9b": {"num_layers": 5},
+            "seamless-m4t-medium": {}, "qwen2-vl-72b": {}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_lm_training_families_on_card_match_cpu(cuda, arch):
+    """The MoE dispatch and combine, the SSD chunk scan, the RG-LRU scan,
+    the encoder with cross-attention and M-RoPE under autograd: 3 steps of
+    the launcher's run in float32 from the same parameters, the card's
+    losses within the reference's tolerance of the CPU's, a second card
+    run bit-equal, no kernel launched."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    cfg = dataclasses.replace(get_reduced(arch), **FAMILIES[arch])
     cpu = torch.device("cpu")
     card, launched = _lm_train(cfg, cuda, cpu, 8, 128)
     again, _ = _lm_train(cfg, cuda, cpu, 8, 128)

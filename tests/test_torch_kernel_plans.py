@@ -66,6 +66,7 @@ from repro_torch.kernels.flash_decode.ref import (combine,
 from repro_torch.kernels.gather_agg.gather_agg import (
     MAX_TILE_ROWS, plan_backward, row_columns, slice_rows, unit_share)
 from repro_torch.kernels.gather_agg.ref import gather_agg_bwd_ref
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 #: the H100's multiprocessors, for the split plan

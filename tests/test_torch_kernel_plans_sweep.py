@@ -53,6 +53,7 @@ from repro_torch.kernels.seg_sort.ref import seg_sort_ref
 from repro_torch.kernels.seg_sort.seg_sort import (CLUSTER, DIGIT_BITS,
                                                    ROUNDS, THREADS, TILE,
                                                    passes)
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 #: the H100's multiprocessors

@@ -34,6 +34,7 @@ from repro_torch.kernels.gather_agg import ops as t_gather_ops
 from _torch_cases import (ASSEMBLE_CASES, GATHER_CASES, SEARCH_CASES,
                           SENTINEL, assemble_case, cache_ids_for,
                           gather_case, search_case, to_t)
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from repro_torch.models.transformer import (init_decode_state, init_params,
 from repro_torch.models.transformer.attention import attention
 from repro_torch.train import AdamW, load_checkpoint, save_checkpoint
 from repro_torch.train.optim import tree_leaves, tree_map
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 CHUNKS = dict(attn_q_chunk=8, attn_kv_chunk=16)

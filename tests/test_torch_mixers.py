@@ -47,6 +47,7 @@ from repro_torch.models.transformer.rglru import (_gates, rglru_decode_step,
                                                   rglru_forward, rglru_scan)
 from repro_torch.models.transformer.ssm import (ssd_scan, ssm_decode_step,
                                                 ssm_forward)
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 NEW_ARCHS = ("qwen3-moe-30b-a3b", "mamba2-1.3b", "recurrentgemma-9b",

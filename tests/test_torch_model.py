@@ -45,6 +45,7 @@ from repro_torch.models.gnn import (forward as t_forward,
 from repro_torch.serve.gnn.collator import ServeCollator as TCollator
 from repro_torch.serve.gnn.request import InferenceRequest as TRequest
 from repro_torch.serve.gnn.warmer import CacheWarmer as TWarmer
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -240,7 +241,7 @@ def test_port_imports_no_jax_and_no_reference_package():
         "             ('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = capped_env(PYTHONPATH=str(REPO / "src"))
     p = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stdout + p.stderr

@@ -23,6 +23,7 @@ from repro.models.transformer.common import rope_freqs as j_rope_freqs
 from repro_torch.graph import generate as t_generate
 from repro_torch.graph import load_dataset, partition_graph
 from repro_torch.models.transformer.common import rope_freqs
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 PAPER = ("ogbn_products_sim", "ogbn_papers_sim")
 #: the partition cases' graphs: the paper specs at this many nodes

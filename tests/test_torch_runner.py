@@ -60,6 +60,7 @@ from repro_torch.models.gnn import (GNNConfig, init_params,
 from repro_torch.train import (AdamW, CheckpointCorruptError, latest_step,
                                load_run_state, save_run_state)
 from repro_torch.train.checkpoint import _flatten as t_flatten
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -77,8 +78,8 @@ def jax_runner_ref(tmp_path_factory):
     """The JAX runners' reports (4 emulated devices) from one
     subprocess."""
     out = tmp_path_factory.mktemp("jax_runner") / "ref.npz"
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env = capped_env("--xla_force_host_platform_device_count=4",
+                     PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
     p = subprocess.run([sys.executable,
                         str(REPO / "tests" / "_torch_runner_ref.py"),
                         str(out)], env=env, cwd=REPO, capture_output=True,
@@ -623,7 +624,7 @@ def test_pull_shard_two_tier_on_gloo_ranks(tmp_path):
     inp = tmp_path / "in.npz"
     np.savez(inp, table=table, offsets=offsets, m_max=np.int64(m_max),
              devices_per_host=np.int64(2), **two)
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = capped_env(PYTHONPATH=str(REPO / "src"))
     p = subprocess.run([sys.executable,
                         str(REPO / "tests" / "_torch_dist_gloo.py"),
                         str(inp), str(tmp_path)], env=env, cwd=REPO,

@@ -27,6 +27,7 @@ from repro_torch.graph import KHopSampler, load_dataset, partition_graph
 from repro_torch.models.gnn import (GNNConfig, params_from_numpy,
                                     params_to_numpy)
 from repro_torch.train import AdamW
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -45,8 +46,8 @@ def jax_runner_ref(tmp_path_factory):
     """The JAX runners' reports (8 emulated devices) from one
     subprocess."""
     out = tmp_path_factory.mktemp("jax_runner8") / "ref.npz"
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={P_}")
+    env = capped_env(f"--xla_force_host_platform_device_count={P_}",
+                     PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
     p = subprocess.run([sys.executable,
                         str(REPO / "tests" / "_torch_runner_ref.py"),
                         str(out), str(P_)], env=env, cwd=REPO,

@@ -36,6 +36,7 @@ from repro_torch.graph.device_sampler import (device_remote_freq,
                                               sample_epoch_batched_device)
 from repro_torch.graph.graph import Graph as TGraph
 from repro_torch.kernels.seg_sort import ops as t_sort_ops
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 CPU = torch.device("cpu")
 

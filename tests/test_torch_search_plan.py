@@ -40,6 +40,7 @@ from repro_torch.kernels.assemble.ops import assemble_features as t_assemble
 from repro_torch.kernels.assemble.ref import assemble_ref
 from repro_torch.kernels.cache_lookup.ops import search as t_search
 from repro_torch.kernels.cache_lookup.ref import search_ref
+import _torch_threads  # noqa: F401  (torch's threads capped in a worker)
 
 #: ``csrc/search.cu``'s splitter table words and the ids of a line
 TABLE_WORDS, LINE = 2048, 32

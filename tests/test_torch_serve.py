@@ -39,6 +39,7 @@ from repro_torch.serve.gnn import (TIER_FRESH, TIER_STALE, TIER_UNCACHED,
                                    GNNInferenceService as TService,
                                    ServePullError as TServePullError,
                                    WarmerError as TWarmerError)
+from _torch_threads import capped_env
 
 S0 = 7
 FANOUTS = (3, 3)
@@ -204,7 +205,7 @@ def test_launcher_serves_a_stream_on_the_cpu():
     """``python -m repro_torch.launch.serve_gnn --device cpu`` serves a
     small Poisson stream end to end and prints its health snapshot."""
     repo = pathlib.Path(__file__).resolve().parents[1]
-    env = dict(os.environ, PYTHONPATH=str(repo / "src"))
+    env = capped_env(PYTHONPATH=str(repo / "src"))
     p = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve_gnn", "--device",
          "cpu", "--requests", "12", "--rate", "400", "--fanouts", "3", "3"],

@@ -52,6 +52,7 @@ from repro_torch.models.transformer.common import ArchConfig
 from repro_torch.serve import sharded_decode_attention
 from repro_torch.train import AdamW
 from repro_torch.train.optim import tree_leaves, tree_map
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -77,8 +78,8 @@ def ref(tmp_path_factory):
     """The JAX package's mesh results (4 emulated devices) from one
     subprocess."""
     out = tmp_path_factory.mktemp("shard_ref") / "ref.npz"
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    env = capped_env("--xla_force_host_platform_device_count=4",
+                     PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu")
     p = subprocess.run([sys.executable, str(REPO / "tests" /
                                             "_torch_shard_ref.py"), str(out)],
                        env=env, cwd=REPO, capture_output=True, text=True,
@@ -349,7 +350,7 @@ def test_process_group_bodies_on_gloo_equal_the_in_process_forms(
         ref, tmp_path, dp, tp):
     inp, cfg = _gloo_inputs(ref)
     np.savez(tmp_path / "in.npz", world=dp * tp, tp=tp, **inp)
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = capped_env(PYTHONPATH=str(REPO / "src"))
     p = subprocess.run([sys.executable, str(REPO / "tests" /
                                             "_torch_shard_gloo.py"),
                         str(tmp_path / "in.npz"), str(tmp_path)], env=env,

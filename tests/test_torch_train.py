@@ -62,6 +62,7 @@ from repro_torch.train import (checkpoint_step as t_ckpt_step,
                                opt_state_from_numpy,
                                save_checkpoint as t_save_ckpt)
 from repro_torch.train.optim import tree_leaves
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -337,7 +338,7 @@ def test_runner_loss_curve_and_counters_match_jax(worlds, runner):
 # ---------------------------------------------------------------------------
 
 def test_launcher_trains_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = capped_env(PYTHONPATH=str(REPO / "src"))
     p = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--dataset", "tiny", "--epochs", "2", "--batch-size", "64"],

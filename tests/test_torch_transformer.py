@@ -58,6 +58,7 @@ from repro_torch.models.transformer.common import apply_rope, rms_norm
 from repro_torch.dist.mesh import make_mesh
 from repro_torch.models.transformer.model import _embed, _unstack
 from repro_torch.models.transformer.moe import moe_apply
+from _torch_threads import capped_env
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -520,7 +521,7 @@ def test_unported_options_raise():
 
 
 def test_serve_decode_launcher_on_cpu():
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = capped_env(PYTHONPATH=str(REPO / "src"))
     p = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve_decode", "--device",
          "cpu", "--arch", "gemma2-2b", "--batch", "2", "--prompt-len", "8",
