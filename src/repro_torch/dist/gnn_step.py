@@ -44,6 +44,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.schedule import EpochSchedule, collate
 from repro_torch.dist.feature_a2a import (build_pull_plan, pack_pull_lanes,
                                           pack_pull_lanes_two_tier,
@@ -530,15 +531,18 @@ def _pmean_train_step(cfg: GNNConfig, opt, params, opt_state,
     -> (params, opt_state, loss, acc)."""
     P_ = len(feats)
     loss = acc = grads = None
-    for w in range(P_):
-        l, a, g = loss_and_grads(cfg, params, _worker_batch(x, w, feats[w]))
-        if grads is None:
-            loss, acc, grads = l, a, g
-        else:
-            loss, acc = loss + l, acc + a
-            grads = tree_map(torch.add, grads, g)
-    grads = tree_map(lambda t: t / P_, grads)
-    p2, o2 = opt.update(grads, opt_state, params)
+    with trace.span("step.forward_backward"):
+        for w in range(P_):
+            l, a, g = loss_and_grads(cfg, params,
+                                     _worker_batch(x, w, feats[w]))
+            if grads is None:
+                loss, acc, grads = l, a, g
+            else:
+                loss, acc = loss + l, acc + a
+                grads = tree_map(torch.add, grads, g)
+        grads = tree_map(lambda t: t / P_, grads)
+    with trace.span("step.optimizer"):
+        p2, o2 = opt.update(grads, opt_state, params)
     return p2, o2, loss / P_, acc / P_
 
 
@@ -593,54 +597,64 @@ def make_pipelined_epoch(cfg: GNNConfig, opt, mesh, m_max: int,
     workers. The last step's prefetch (the masked wrap of
     ``prefetch_stream``) is not issued. A hierarchical ``topology``
     switches the pull to the two-tier exchange: bit-equal curves.
+
+    With the tracer on (``repro_torch.core.trace``) the host's part is
+    recorded: ``epoch.prologue`` up to the first pull, then one
+    ``epoch.step`` a step around ``step.exchange`` (the next pull's
+    launch; empty on the last step), ``step.assemble``,
+    ``step.forward_backward`` and ``step.optimizer``.
     """
     pull_keys, exchange = _exchange(mesh, m_max, topology)
     device = mesh.device
 
     def epoch_fn(params, opt_state, table, offsets, cache_ids, cache_feats,
                  batches):
-        table, offsets, cache_ids, cache_feats, bt = tree_to_device(
-            [table, offsets, cache_ids, cache_feats, batches], device)
-        P_, _, d = table.shape
-        bases = [int(b) for b in offsets.reshape(-1).tolist()]
-        cids32 = to_device_ids(cache_ids)           # (P, n_hot) int32
-        query = to_device_ids(bt["input_nodes"])    # (S, P, m_max) int32
-        send = {k: bt[k] for k in pull_keys}
-        nxt_send = prefetch_stream(send)
-        S = query.shape[0]
-
         def pull(plan, i, out):
             return exchange(table, offsets, plan, i, out=out)
 
-        # two pulled-feature buffers: step i reads bufs[i % 2] while step
-        # i+1's pull writes the other
-        bufs = [torch.empty((P_, m_max, d), dtype=table.dtype, device=device)
-                for _ in range(2)]
-        side = (torch.cuda.Stream(device=device) if device.type == "cuda"
-                else None)
-        pull(send, 0, bufs[0])
+        with trace.span("epoch.prologue"):
+            table, offsets, cache_ids, cache_feats, bt = tree_to_device(
+                [table, offsets, cache_ids, cache_feats, batches], device)
+            P_, _, d = table.shape
+            bases = [int(b) for b in offsets.reshape(-1).tolist()]
+            cids32 = to_device_ids(cache_ids)           # (P, n_hot) int32
+            query = to_device_ids(bt["input_nodes"])    # (S, P, m_max)
+            send = {k: bt[k] for k in pull_keys}
+            nxt_send = prefetch_stream(send)
+            S = query.shape[0]
+            # two pulled-feature buffers: step i reads bufs[i % 2] while
+            # step i+1's pull writes the other
+            bufs = [torch.empty((P_, m_max, d), dtype=table.dtype,
+                                device=device) for _ in range(2)]
+            side = (torch.cuda.Stream(device=device)
+                    if device.type == "cuda" else None)
+            pull(send, 0, bufs[0])
         losses, accs = [], []
         for i in range(S):
-            pulled = bufs[i % 2]
-            if i + 1 < S:
-                if side is None:
-                    pull(nxt_send, i, bufs[(i + 1) % 2])
-                else:
-                    # the buffer's last reader (step i-1's assembly) and
-                    # every input of the pull precede it on this stream
-                    side.wait_stream(torch.cuda.current_stream(device))
-                    with torch.cuda.stream(side):
+            with trace.span("epoch.step", step=i):
+                pulled = bufs[i % 2]
+                with trace.span("step.exchange"):  # empty on the last step
+                    if i + 1 < S and side is None:
                         pull(nxt_send, i, bufs[(i + 1) % 2])
-            feats = [assemble_features(
-                table[w], bases[w], cids32[w], cache_feats[w], query[i, w],
-                pulled[w], backend=assemble_backend) for w in range(P_)]
-            params, opt_state, loss, acc = _pmean_train_step(
-                cfg, opt, params, opt_state, feats, _step_inputs(bt, i))
-            losses.append(loss)
-            accs.append(acc)
-            if side is not None:
-                # step i+1 reads the buffer the side stream just wrote
-                torch.cuda.current_stream(device).wait_stream(side)
+                    elif i + 1 < S:
+                        # the buffer's last reader (step i-1's assembly)
+                        # and every input of the pull precede it on this
+                        # stream
+                        side.wait_stream(torch.cuda.current_stream(device))
+                        with torch.cuda.stream(side):
+                            pull(nxt_send, i, bufs[(i + 1) % 2])
+                with trace.span("step.assemble"):
+                    feats = [assemble_features(
+                        table[w], bases[w], cids32[w], cache_feats[w],
+                        query[i, w], pulled[w], backend=assemble_backend)
+                        for w in range(P_)]
+                params, opt_state, loss, acc = _pmean_train_step(
+                    cfg, opt, params, opt_state, feats, _step_inputs(bt, i))
+                losses.append(loss)
+                accs.append(acc)
+                if side is not None:
+                    # step i+1 reads the buffer the side stream just wrote
+                    torch.cuda.current_stream(device).wait_stream(side)
         return params, opt_state, torch.stack(losses), torch.stack(accs)
 
     return epoch_fn
@@ -664,21 +678,26 @@ def make_ondemand_epoch(cfg: GNNConfig, opt, mesh, m_max: int,
     device = mesh.device
 
     def epoch_fn(params, opt_state, table, offsets, batches):
-        table, offsets, bt = tree_to_device([table, offsets, batches],
-                                            device)
-        P_ = table.shape[0]
-        bases = [int(b) for b in offsets.reshape(-1).tolist()]
-        query = to_device_ids(bt["input_nodes"])
+        with trace.span("epoch.prologue"):
+            table, offsets, bt = tree_to_device([table, offsets, batches],
+                                                device)
+            P_ = table.shape[0]
+            bases = [int(b) for b in offsets.reshape(-1).tolist()]
+            query = to_device_ids(bt["input_nodes"])
         losses, accs = [], []
         for i in range(query.shape[0]):
-            pulled = exchange(table, offsets, bt, i)
-            feats = [assemble_features(
-                table[w], bases[w], None, None, query[i, w], pulled[w],
-                backend=assemble_backend) for w in range(P_)]
-            params, opt_state, loss, acc = _pmean_train_step(
-                cfg, opt, params, opt_state, feats, _step_inputs(bt, i))
-            losses.append(loss)
-            accs.append(acc)
+            with trace.span("epoch.step", step=i):
+                with trace.span("step.exchange"):
+                    pulled = exchange(table, offsets, bt, i)
+                with trace.span("step.assemble"):
+                    feats = [assemble_features(
+                        table[w], bases[w], None, None, query[i, w],
+                        pulled[w], backend=assemble_backend)
+                        for w in range(P_)]
+                params, opt_state, loss, acc = _pmean_train_step(
+                    cfg, opt, params, opt_state, feats, _step_inputs(bt, i))
+                losses.append(loss)
+                accs.append(acc)
         return params, opt_state, torch.stack(losses), torch.stack(accs)
 
     return epoch_fn

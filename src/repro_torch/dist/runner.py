@@ -39,6 +39,15 @@ with the ``[start_epoch, stop_epoch)`` resume window. The fault plane's
 ``stage``, ``stage_cache`` and ``run_crash`` probes sit where the
 reference's do.
 
+Every timing of a report is the length of a ``repro_torch.core.trace``
+span (``runner.epoch``, ``runner.boundary_copy``, ``runner.stage``,
+``runner.await_stage``, ``runner.recover``), read whether the tracer
+records or not; with it on, ``run`` also records ``runner.run``,
+``runner.table_copy``, ``runner.drain``, the stage's parts
+(``stage.compile``, ``stage.hot_set``, ``stage.collate``) on the staging
+thread, and counts the bytes it copies to the card
+(``runner.h2d_bytes``).
+
 ``DeviceBaselineRunner`` is the same loop over ``make_ondemand_epoch``
 with EMPTY caches: no C_s, no software pipeline, every remote id pulled
 on the critical path.
@@ -59,6 +68,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.schedule import WorkerSchedule, merge_pad_bounds
 from repro_torch.dist.gnn_step import (DeviceCache, DeviceView,
                                        collate_device_epoch, empty_caches,
@@ -148,6 +158,15 @@ class DeviceEpochReport:
                 "degraded": int(self.degraded),
                 "degrade_reason": self.degrade_reason,
                 "stage_retries": int(self.stage_retries)}
+
+
+def _nbytes(tree) -> int:
+    """Bytes of the numpy arrays in a staged tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_nbytes(v) for v in tree)
+    return int(tree.nbytes)
 
 
 def shape_key(tree) -> Tuple:
@@ -278,18 +297,22 @@ class _DeviceRunnerBase:
 
     # -- per-epoch staging (the host half of the double buffer) ---------
 
-    def _stage(self, e: int, attempt: int = 0) -> Dict[str, Any]:
+    def _stage(self, e: int, attempt: int = 0,
+               cause: Optional[trace.Span] = None, **attrs
+               ) -> Dict[str, Any]:
+        """Stage epoch ``e`` in a ``runner.stage`` span (``cause``: the
+        ``runner.epoch`` span that submitted it from another thread)."""
         fault_point("stage", attempt=attempt, epoch=e)
-        t0 = time.perf_counter()
-        if self._stage_stream is None:
-            out = self._stage_inner(e)
-        else:
-            with torch.cuda.stream(self._stage_stream):
+        with trace.timed("runner.stage", cause=cause, epoch=e,
+                         **attrs) as sp:
+            if self._stage_stream is None:
                 out = self._stage_inner(e)
-        dt = time.perf_counter() - t0
+            else:
+                with torch.cuda.stream(self._stage_stream):
+                    out = self._stage_inner(e)
         with self._lock:
-            self.stage_time_s += dt
-        out["stage_s"] = dt
+            self.stage_time_s += sp.seconds
+        out["stage_s"] = sp.seconds
         return out
 
     def _collate_and_account(self, es_list, caches, k_max: int,
@@ -336,23 +359,28 @@ class _DeviceRunnerBase:
         }
 
     def _stage_inner(self, e: int) -> Dict[str, Any]:
-        es_list = [ws.epoch(e) for ws in self.schedules]
-        caches = self._caches_for(es_list)
-        staged = self._collate_and_account(es_list, caches, self.k_max,
-                                           self.k_max_inter)
+        with trace.span("stage.compile"):   # lazy schedules compile here
+            es_list = [ws.epoch(e) for ws in self.schedules]
+        with trace.span("stage.hot_set"):
+            caches = self._caches_for(es_list)
+        with trace.span("stage.collate"):
+            staged = self._collate_and_account(es_list, caches, self.k_max,
+                                               self.k_max_inter)
         if self.uses_cache:
             # the staged C_s can be LOST (fault plane): the epoch then
             # degrades to an uncached rebuild instead of failing the run
             if fault_point("stage_cache", epoch=e):
                 staged["cache_lost"] = True
             else:
-                staged["cids"], staged["cfeats"] = stack_caches(
-                    caches, self.dv, self.n_hot)
+                with trace.span("stage.hot_set"):
+                    staged["cids"], staged["cfeats"] = stack_caches(
+                        caches, self.dv, self.n_hot)
         return staged
 
-    def _stage_supervised(self, e: int, start_attempt: int = 0
+    def _stage_supervised(self, e: int, start_attempt: int = 0, **attrs
                           ) -> Tuple[Dict[str, Any], int]:
-        """Stage epoch ``e`` with a bounded transient-retry budget.
+        """Stage epoch ``e`` with a bounded transient-retry budget
+        (``attrs``: the ``runner.stage`` span's).
 
         Returns ``(staged, retries_used)``. Staging is deterministic
         given ``(schedule, e)``, so a retried or eagerly rebuilt stage is
@@ -364,7 +392,8 @@ class _DeviceRunnerBase:
                 time.sleep(self.stage_retry_base_s * 2 ** (i - 1))
                 self.stage_retries += 1
             try:
-                return self._stage(e, attempt=start_attempt + i), i
+                return self._stage(e, attempt=start_attempt + i,
+                                   **attrs), i
             except TransientFault as exc:
                 err = exc
         raise StagingError(f"staging epoch {e} failed after "
@@ -382,11 +411,11 @@ class _DeviceRunnerBase:
             self.deadline_overruns += 1
         except Exception:   # a dead stage thread: the rebuild retries
             pass
-        t0 = time.perf_counter()
         # start_attempt=1: the background attempt 0 already fired, so a
         # transient fault keyed to attempt 0 clears here deterministically
-        staged, retries = self._stage_supervised(e, start_attempt=1)
-        self.recovery_wall_s += time.perf_counter() - t0
+        with trace.timed("runner.recover") as sp:
+            staged, retries = self._stage_supervised(e, start_attempt=1)
+        self.recovery_wall_s += sp.seconds
         self.stage_retries += 1
         return staged, retries + 1
 
@@ -419,13 +448,14 @@ class _DeviceRunnerBase:
         """The epoch-boundary swap: the staged host arrays the epoch
         function reads, copied to the card. -> (tensors, copy seconds,
         synchronised)."""
-        t0 = time.perf_counter()
-        x = tree_to_device({k: staged[k] for k in ("batches", "cids",
-                                                   "cfeats")
-                            if k in staged}, self.device)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return x, time.perf_counter() - t0
+        host = {k: staged[k] for k in ("batches", "cids", "cfeats")
+                if k in staged}
+        trace.count("runner.h2d_bytes", _nbytes(host))
+        with trace.timed("runner.boundary_copy") as sp:
+            x = tree_to_device(host, self.device)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        return x, sp.seconds
 
     # -- the epoch loop --------------------------------------------------
 
@@ -449,40 +479,51 @@ class _DeviceRunnerBase:
                                  self.device)
         if opt_state is None:
             opt_state = self.opt.init(params)
-        table = torch.from_numpy(self.dv.table).to(self.device)
-        offsets = torch.from_numpy(self.dv.offsets).to(self.device)
+        with trace.span("runner.run"):
+            return self._run(params, opt_state, start_epoch, stop_epoch)
+
+    def _run(self, params, opt_state, start_epoch: int, stop_epoch: int
+             ) -> List[DeviceEpochReport]:
+        with trace.span("runner.table_copy"):
+            table = torch.from_numpy(self.dv.table).to(self.device)
+            offsets = torch.from_numpy(self.dv.offsets).to(self.device)
+        trace.count("runner.h2d_bytes",
+                    self.dv.table.nbytes + self.dv.offsets.nbytes)
         reports: List[DeviceEpochReport] = []
         # bootstrap C_s (Alg. 1 l.4), supervised: transient stage faults
         # retry in place instead of killing the run
-        staged, pending_retries = self._stage_supervised(start_epoch)
-        with ThreadPoolExecutor(max_workers=1) as pool:
+        staged, pending_retries = self._stage_supervised(start_epoch,
+                                                         bootstrap=1)
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="runner-stage") as pool:
             for e in range(start_epoch, stop_epoch):
-                t0 = time.perf_counter()
-                degraded, reason = 0, ""
-                if self.uses_cache and staged.get("cache_lost"):
-                    # staged cache lost: run e UNCACHED (one degraded
-                    # epoch, Alg. 1 degenerating to the baseline path)
-                    t_rec = time.perf_counter()
-                    staged = self._degrade_uncached(e)
-                    self.recovery_wall_s += time.perf_counter() - t_rec
-                    self.degraded_epochs += 1
-                    degraded, reason = 1, "cache_lost"
-                x, copy_s = self._to_device(staged)
-                # stage e+1 (lazy schedule build + C_sec + plans) in the
-                # background WHILE this thread dispatches epoch e
-                fut = (pool.submit(self._stage, e + 1, 0)
-                       if e + 1 < stop_epoch else None)
-                self._shape_keys.add(shape_key(x))
-                params, opt_state, losses, accs = self._run_epoch(
-                    params, opt_state, table, offsets, x)
-                losses = losses.cpu().numpy()   # waits for the epoch
-                accs = accs.cpu().numpy()
-                t_done = time.perf_counter()
-                nxt, nxt_retries = ((None, 0) if fut is None
-                                    else self._await_stage(fut, e + 1))
-                exposed = (time.perf_counter() - t_done
-                           if fut is not None else 0.0)
-                self.exposed_stage_s += exposed
+                with trace.timed("runner.epoch", epoch=e) as ep:
+                    degraded, reason = 0, ""
+                    if self.uses_cache and staged.get("cache_lost"):
+                        # staged cache lost: run e UNCACHED (one degraded
+                        # epoch, Alg. 1 degenerating to the baseline path)
+                        with trace.timed("runner.recover") as rec:
+                            staged = self._degrade_uncached(e)
+                        self.recovery_wall_s += rec.seconds
+                        self.degraded_epochs += 1
+                        degraded, reason = 1, "cache_lost"
+                    x, copy_s = self._to_device(staged)
+                    # stage e+1 (lazy schedule build + C_sec + plans) in
+                    # the background WHILE this thread dispatches epoch e
+                    fut = (pool.submit(self._stage, e + 1, 0, ep)
+                           if e + 1 < stop_epoch else None)
+                    self._shape_keys.add(shape_key(x))
+                    params, opt_state, losses, accs = self._run_epoch(
+                        params, opt_state, table, offsets, x)
+                    with trace.span("runner.drain"):   # waits for the epoch
+                        losses = losses.cpu().numpy()
+                        accs = accs.cpu().numpy()
+                    nxt, nxt_retries, exposed = None, 0, 0.0
+                    if fut is not None:
+                        with trace.timed("runner.await_stage") as aw:
+                            nxt, nxt_retries = self._await_stage(fut, e + 1)
+                        exposed = aw.seconds
+                    self.exposed_stage_s += exposed
                 reports.append(DeviceEpochReport(
                     epoch=e, steps=self.num_steps,
                     miss_lanes=staged["lanes"],
@@ -492,7 +533,7 @@ class _DeviceRunnerBase:
                     intra_wire_rows=staged.get("intra_wire_rows", 0),
                     inter_wire_rows=staged.get("inter_wire_rows", 0),
                     losses=losses, accs=accs,
-                    wall_time_s=time.perf_counter() - t0,
+                    wall_time_s=ep.seconds,
                     stage_s=(nxt["stage_s"] if nxt is not None else 0.0),
                     exposed_stage_s=exposed,
                     degraded=degraded, degrade_reason=reason,

@@ -1529,3 +1529,58 @@ def test_rope_at_long_500k_positions_on_card_equals_cpu(cuda, head_dim,
     got = apply_rope(x.to(cuda), pos.to(cuda), theta).cpu()
     np.testing.assert_allclose(got, apply_rope(x, pos, theta), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_trace_spans_on_the_profilers_clock_on_card(cuda):
+    """The tracer's stamps and the profiler's device trace share one
+    clock: a span around a kernel's launch and a synchronise contains
+    the kernel's device interval, a span around the launch alone
+    contains the profiler's host record of it, and their edges lie
+    within 100 us of each other (the median of five launches). The
+    first operator under the profiler is left out: the profiler sets up
+    its thread's event queue before that operator's stamp."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import trace
+    x = torch.randn(2048, 2048, device=cuda)
+    x @ x                                   # warm: the handle, the kernel
+    torch.cuda.synchronize()
+    trace.clear()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            x @ x
+            torch.cuda.synchronize()
+            for i in range(5):
+                with trace.span("outer", step=i):
+                    with trace.span("launch"):
+                        x @ x
+                    torch.cuda.synchronize()
+        spans = trace.export()["spans"]
+    finally:
+        trace.disable()
+        trace.clear()
+    events = prof.profiler.kineto_results.events()
+    mm = sorted((e for e in events if e.name() == "aten::mm"
+                 and e.device_type() == DeviceType.CPU),
+                key=lambda e: e.start_ns())[1:]
+    dev = sorted((e for e in events if e.device_type() == DeviceType.CUDA
+                  and not (hasattr(e, "is_user_annotation")
+                           and e.is_user_annotation())),
+                 key=lambda e: e.start_ns())[1:]
+    outer = [s for s in spans if s["name"] == "outer"]
+    launch = [s for s in spans if s["name"] == "launch"]
+    assert len(mm) == len(dev) == len(outer) == len(launch) == 5
+    starts, ends = [], []
+    for o, l, op, k in zip(outer, launch, mm, dev):
+        assert o["start_ns"] <= k.start_ns()
+        assert k.start_ns() + k.duration_ns() <= o["end_ns"]
+        assert l["start_ns"] <= op.start_ns()
+        assert op.start_ns() + op.duration_ns() <= l["end_ns"]
+        starts.append(op.start_ns() - l["start_ns"])
+        ends.append(l["end_ns"] - op.start_ns() - op.duration_ns())
+    assert float(np.median(starts)) < 100_000, starts
+    assert float(np.median(ends)) < 100_000, ends
