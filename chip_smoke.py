@@ -98,7 +98,10 @@ Phases (any failure raises, so the exit code is non-zero):
 7. The device-distributed epoch: all 4 workers of ``reddit_sim`` in one
    process on the card (``make_mesh((4,), ("data",))``) at the paper's
    GraphSAGE width (``sage("reddit_sim", 1000)``, one epoch, AdamW lr
-   3e-3). (a) ``make_pipelined_epoch`` with the fused and with the
+   3e-3), collated on the card by ``collate_epoch_on_device`` as the
+   runners stage an epoch, every tensor bit-equal to the numpy
+   ``collate_device_epoch`` (hot caches and empty ones). (a)
+   ``make_pipelined_epoch`` with the fused and with the
    staged assembly and ``make_ondemand_epoch`` over empty caches, each
    twice in turns: every loss curve bit-equal to the first (the second
    fused run's weights too), the first 3 losses within ``rtol=1e-4,
@@ -2424,7 +2427,39 @@ def dist_world(g, pg, parts=PARTS):
     return {"exp": exp, "cfg": cfg, "schedules": schedules, "dv": dv,
             "m_max": m_max, "S": S, "rapid": rapid, "base": base,
             "cids": cids, "cfeats": cfeats, "k_max": k_max,
-            "k_base": k_base}
+            "k_base": k_base, "es": es, "caches": caches, "empty": empty,
+            "edge_max": edge_max}
+
+
+def card_collate(device, g, w):
+    """``dist_world``'s two collations again on ``device`` through
+    ``collate_epoch_on_device``, as the runners stage an epoch: every
+    tensor bit-equal (dtype, shape, bytes) to the numpy collation, the
+    oracle. -> {"rapid", "base"} as tensors on ``device``."""
+    from repro_torch.dist.device_collate import (collate_epoch_on_device,
+                                                 to_host_epoch, upload)
+
+    dv = w["dv"]
+    labels, g2d = upload(g.labels, device), upload(dv.g2d, device)
+    out = {}
+    for key, caches, k in (("rapid", w["caches"], w["k_max"]),
+                           ("base", w["empty"], w["k_base"])):
+        out[key], _ = collate_epoch_on_device(
+            w["es"], caches, dv, labels, w["exp"].batch_size, w["m_max"],
+            w["edge_max"], k, w["S"], device=device, g2d=g2d)
+        got, want = to_host_epoch(out[key]), w[key]
+        if sorted(got) != sorted(want):
+            raise RuntimeError(f"{key}: card collation keys {sorted(got)}")
+        for name, v in want.items():
+            pairs = zip(got[name], v) if isinstance(v, list) \
+                else [(got[name], v)]
+            if any(a.dtype != b.dtype or a.shape != b.shape
+                   or a.tobytes() != b.tobytes() for a, b in pairs):
+                raise RuntimeError(f"{key}: the card collation's {name} "
+                                   f"differs from collate_device_epoch")
+    log("dist world: the card collation bit-equal to the numpy one, hot "
+        "caches and empty")
+    return out
 
 
 def dist_run(torch, device, w, x, kind, backend):
@@ -2526,8 +2561,8 @@ def dist_phase(torch, device, g, pg, counters):
     w = dist_world(g, pg)
     x = tree_to_device({"table": w["dv"].table,
                         "offsets": w["dv"].offsets.reshape(-1),
-                        "cids": w["cids"], "cfeats": w["cfeats"],
-                        "rapid": w["rapid"], "base": w["base"]}, device)
+                        "cids": w["cids"], "cfeats": w["cfeats"]}, device)
+    x.update(card_collate(device, g, w))
     S, m_max = w["S"], w["m_max"]
     # two rounds of the three runs, in turns: every curve must be the
     # first one bit for bit, and the spread of ms/step shows

@@ -2,7 +2,7 @@
 ``("dcn", "data")`` worker mesh (and the transformer's ``("data",
 "model")`` mesh, ``make_mesh``/``dp_axes``): the device relabelling of the
 partitioned graph, the offline pull plans (two-tier on a hierarchical
-topology), the all-to-all cache-first feature exchange, the pipelined
+topology) and the epoch's collation on the device, the all-to-all cache-first feature exchange, the pipelined
 and on-demand epoch programs, the multi-epoch runners and the dry-run's
 placement specs (``shardings``) (the port of ``repro.dist``)."""
 from repro_torch.dist.mesh import Mesh, dp_axes, make_mesh
@@ -21,6 +21,7 @@ from repro_torch.dist.gnn_step import (CACHE_PAD, DeviceCache, DeviceView,
                                        make_ondemand_epoch,
                                        make_pipelined_epoch, prefetch_stream,
                                        stack_caches)
+from repro_torch.dist.device_collate import collate_epoch_on_device
 from repro_torch.dist.runner import (DeviceBaselineRunner, DeviceEpochReport,
                                      DeviceRapidGNNRunner, StagingError,
                                      assert_host_parity, host_miss_matrix)
@@ -36,6 +37,7 @@ __all__ = [
     "CACHE_PAD", "DeviceCache", "DeviceView", "epoch_k_max",
     "epoch_k_max_split",
     "collate_device_epoch", "collate_device_epoch_loop", "stack_caches",
+    "collate_epoch_on_device",
     "make_pipelined_epoch", "make_ondemand_epoch", "empty_caches",
     "prefetch_stream",
     "StagingError", "DeviceEpochReport", "DeviceRapidGNNRunner",

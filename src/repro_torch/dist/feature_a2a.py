@@ -155,6 +155,18 @@ def _fast_key_fits(num_groups: int, num_parts: int, span_i: int,
     return num_groups * num_parts * span_i * span_p < 2 ** 62
 
 
+def lane_overflow(cnt: np.ndarray, num_parts: int, k_max: int
+                  ) -> ValueError:
+    """The error of a lane packing whose (group, owner) counts ``cnt``
+    (flat over ``group * num_parts + owner``) pass ``k_max``."""
+    over = np.flatnonzero(cnt > k_max)
+    return ValueError(
+        f"pull plan overflow: (group, owner) pairs "
+        f"{[divmod(int(o), num_parts) for o in over[:8].tolist()]} "
+        f"requested {cnt[over[:8]].tolist()} rows > k_max={k_max}; "
+        f"raise k_max (epoch_k_max gives the exact bound)")
+
+
 def pack_pull_lanes(ids: np.ndarray, pos: np.ndarray, group: np.ndarray,
                     owner: np.ndarray, num_groups: int, num_parts: int,
                     k_max: int, assume_unique: bool = False):
@@ -225,12 +237,7 @@ def pack_pull_lanes(ids: np.ndarray, pos: np.ndarray, group: np.ndarray,
     g_s, i_s, p_s = gidx[order], ids[order], pos[order]
     cnt = np.bincount(g_s, minlength=num_groups * num_parts)
     if int(cnt.max()) > k_max:
-        over = np.flatnonzero(cnt > k_max)
-        raise ValueError(
-            f"pull plan overflow: (group, owner) pairs "
-            f"{[divmod(int(o), num_parts) for o in over[:8].tolist()]} "
-            f"requested {cnt[over[:8]].tolist()} rows > k_max={k_max}; "
-            f"raise k_max (epoch_k_max gives the exact bound)")
+        raise lane_overflow(cnt, num_parts, k_max)
     start = np.zeros(cnt.size + 1, np.int64)
     np.cumsum(cnt, out=start[1:])
     lane = np.arange(g_s.size) - start[g_s]

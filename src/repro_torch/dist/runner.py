@@ -6,10 +6,14 @@ with the paper's double-buffer protocol: while epoch e trains on the
 card against C_s, a background staging thread builds epoch e+1 -- the
 next epoch's schedule itself when the ``WorkerSchedule`` is lazy (the
 train-overlapped next-epoch build), then its C_sec (``remap_cache`` +
-``stack_caches``) and pull plans through the vectorised
-``collate_device_epoch``. Staging builds host (numpy) arrays only; at
-the epoch boundary (Alg. 1 l.18) the main thread swaps them in by one
-copy to the card, timed per epoch (``DeviceEpochReport.copy_s``).
+``stack_caches``) and pull plans. The collation runs on the runner's
+device (``device_collate.collate_epoch_on_device``, bit-equal to the
+numpy ``collate_device_epoch``): the staging thread uploads the
+workers' flat schedules and the stacked C_sec once, unpadded, and
+builds the padded (S, P, ...) tensors there, on a CUDA stream of its
+own. At the epoch boundary (Alg. 1 l.18) the main thread swaps them in
+with no copy: its stream waits on the event the staging stream recorded
+after them (``DeviceEpochReport.copy_s``, the handoff's wall).
 Whatever staging wall is left after training completes is the EXPOSED
 staging wall (``exposed_stage_s``).
 
@@ -18,9 +22,9 @@ kernel. So the stage of epoch e+1 is submitted BEFORE epoch e starts,
 and its numpy work competes with the dispatch for the interpreter lock.
 When the lazy schedule compiler runs on the card (``compiler="device"``)
 its kernels (``seg_sort``, the device sampler) are issued from the
-staging thread on a CUDA stream of its own, and it hands back host
-arrays only, so it neither queues behind the epoch's kernels nor shares
-a tensor across streams.
+staging thread on that stream too, and it hands back host arrays, so
+neither the compile nor the collation queues behind the epoch's
+kernels; the staged tensors are the only ones that cross the streams.
 
 Every epoch is collated to GLOBAL static bounds: ``merge_pad_bounds``
 across workers, one ``k_max`` (and ``k_max_inter`` on a hierarchical
@@ -46,7 +50,9 @@ records or not; with it on, ``run`` also records ``runner.run``,
 ``runner.table_copy``, ``runner.drain``, the stage's parts
 (``stage.compile``, ``stage.hot_set``, ``stage.collate``) on the staging
 thread, and counts the bytes it copies to the card
-(``runner.h2d_bytes``).
+(``runner.h2d_bytes``: the table a ``run`` call, the staging thread's
+uploads) and the epochs staged through the device collation
+(``runner.card_collations``).
 
 ``DeviceBaselineRunner`` is the same loop over ``make_ondemand_epoch``
 with EMPTY caches: no C_s, no software pipeline, every remote id pulled
@@ -70,12 +76,12 @@ import torch
 
 from repro_torch.core import trace
 from repro_torch.core.schedule import WorkerSchedule, merge_pad_bounds
-from repro_torch.dist.gnn_step import (DeviceCache, DeviceView,
-                                       collate_device_epoch, empty_caches,
+from repro_torch.dist.device_collate import (collate_epoch_on_device,
+                                             lane_totals, upload)
+from repro_torch.dist.gnn_step import (DeviceCache, DeviceView, empty_caches,
                                        epoch_k_max, epoch_k_max_split,
                                        make_ondemand_epoch,
-                                       make_pipelined_epoch, stack_caches,
-                                       tree_to_device)
+                                       make_pipelined_epoch, stack_caches)
 from repro_torch.dist.topology import Topology
 from repro_torch.fault.inject import TransientFault, fault_point
 from repro_torch.models.gnn import GNNConfig, init_params
@@ -119,9 +125,9 @@ class DeviceEpochReport:
     #: padded-row split of ``wire_rows`` by tier (flat: all intra)
     intra_wire_rows: int = 0
     inter_wire_rows: int = 0
-    #: the port's epoch-boundary swap: host wall of copying this epoch's
-    #: staged arrays to the card (synchronised). Not in ``to_dict``,
-    #: whose keys are the reference's.
+    #: the port's epoch-boundary swap: host wall of handing this epoch's
+    #: staged tensors, already on the card, from the staging stream to
+    #: the runner's. Not in ``to_dict``, whose keys are the reference's.
     copy_s: float = 0.0
 
     @property
@@ -160,13 +166,13 @@ class DeviceEpochReport:
                 "stage_retries": int(self.stage_retries)}
 
 
-def _nbytes(tree) -> int:
-    """Bytes of the numpy arrays in a staged tree (dicts and lists)."""
+def _tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a staged tree (dicts and lists)."""
     if isinstance(tree, dict):
-        return sum(_nbytes(v) for v in tree.values())
+        return [t for v in tree.values() for t in _tensors(v)]
     if isinstance(tree, (list, tuple)):
-        return sum(_nbytes(v) for v in tree)
-    return int(tree.nbytes)
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
 
 
 def shape_key(tree) -> Tuple:
@@ -273,6 +279,9 @@ class _DeviceRunnerBase:
         self._stage_stream = (torch.cuda.Stream(device=self.device)
                               if self.device.type == "cuda" else None)
         self._lock = threading.Lock()
+        # the collation's lookups, uploaded at the first stage
+        self._g2d: Optional[torch.Tensor] = None
+        self._labels: Optional[torch.Tensor] = None
         self.params: Optional[Any] = None
         self.opt_state: Optional[Any] = None
         self.stage_time_s = 0.0     # host-side staging wall (cumulative)
@@ -317,34 +326,34 @@ class _DeviceRunnerBase:
 
     def _collate_and_account(self, es_list, caches, k_max: int,
                              k_max_inter: int) -> Dict[str, Any]:
-        """Collate one epoch and derive its per-tier lane/wire
-        accounting: true per-requesting-worker lane counts from the
-        masks, padded wire rows from the static shapes. On a flat
-        topology the whole exchange counts as the intra tier (every
-        peer is same-host); hierarchical splits by tier, and the tiers'
-        lanes sum to exactly what the flat plan would count."""
-        batches = collate_device_epoch(
-            es_list, caches, self.dv, self.labels, self.batch_size,
+        """Collate one epoch on the runner's device and derive its
+        per-tier lane/wire accounting: true per-requesting-worker lane
+        counts (the collation's, brought back to the host), padded wire
+        rows from the static shapes. On a flat topology the whole
+        exchange counts as the intra tier (every peer is same-host);
+        hierarchical splits by tier, and the tiers' lanes sum to exactly
+        what the flat plan would count."""
+        if self._g2d is None:
+            self._g2d = upload(self.dv.g2d, self.device)
+            self._labels = upload(self.labels, self.device)
+        batches, counts = collate_epoch_on_device(
+            es_list, caches, self.dv, self._labels, self.batch_size,
             self.m_max, self.edge_max, k_max, self.num_steps,
-            topology=self.topo, k_max_inter=k_max_inter)
+            topology=self.topo, k_max_inter=k_max_inter,
+            device=self.device, g2d=self._g2d)
+        trace.count("runner.card_collations", 1)
+        intra, inter = lane_totals(counts)
         # padded rows the exchange moves: the pipelined epoch pulls once
         # before its steps (the reference's pulled0; the port skips the
         # dead final prefetch, the reference moves it fully masked and
         # counts it, and so does this count), the on-demand epoch S times
         pulls = self.num_steps + self.pulls_beyond_steps
         if self.topo.is_hierarchical:
-            intra = batches["intra_mask"].sum(axis=(0, 2, 3)) \
-                .astype(np.int64)
-            inter = batches["inter_mask"].sum(axis=(0, 2, 3)) \
-                .astype(np.int64)
             _, P_, D, k_i = batches["intra_mask"].shape
             k_x = batches["inter_mask"].shape[-1]
             wire_intra = pulls * P_ * D * k_i
             wire_inter = pulls * P_ * P_ * k_x
         else:
-            intra = batches["send_mask"].sum(axis=(0, 2, 3)) \
-                .astype(np.int64)
-            inter = np.zeros_like(intra)
             _, P_, _, k = batches["send_mask"].shape
             wire_intra = pulls * P_ * P_ * k
             wire_inter = 0
@@ -373,8 +382,24 @@ class _DeviceRunnerBase:
                 staged["cache_lost"] = True
             else:
                 with trace.span("stage.hot_set"):
-                    staged["cids"], staged["cfeats"] = stack_caches(
-                        caches, self.dv, self.n_hot)
+                    self._stage_caches(staged, caches)
+        return self._handoff(staged)
+
+    def _stage_caches(self, staged: Dict[str, Any],
+                      caches: Sequence[DeviceCache]) -> None:
+        """C_sec stacked (``stack_caches``) and uploaded with the epoch."""
+        cids, cfeats = stack_caches(caches, self.dv, self.n_hot)
+        staged["cids"] = upload(cids, self.device)
+        staged["cfeats"] = upload(cfeats, self.device)
+
+    def _handoff(self, staged: Dict[str, Any]) -> Dict[str, Any]:
+        """Mark the staged tensors ready: on the card, an event recorded
+        on the stream that built them (the staging stream, or the runner's
+        own for a rebuild on the critical path), which the boundary
+        waits on."""
+        if self.device.type == "cuda":
+            staged["ready"] = torch.cuda.Event()
+            staged["ready"].record(torch.cuda.current_stream(self.device))
         return staged
 
     def _stage_supervised(self, e: int, start_attempt: int = 0, **attrs
@@ -439,22 +464,30 @@ class _DeviceRunnerBase:
             k = max(self.k_max, epoch_k_max(es_list, caches, self.dv))
             kx = self.k_max_inter
         staged = self._collate_and_account(es_list, caches, k, kx)
-        staged["cids"], staged["cfeats"] = stack_caches(caches, self.dv,
-                                                        self.n_hot)
+        self._stage_caches(staged, caches)
         staged["stage_s"] = 0.0
-        return staged
+        return self._handoff(staged)
 
     def _to_device(self, staged: Dict[str, Any]) -> Tuple[Dict, float]:
-        """The epoch-boundary swap: the staged host arrays the epoch
-        function reads, copied to the card. -> (tensors, copy seconds,
-        synchronised)."""
-        host = {k: staged[k] for k in ("batches", "cids", "cfeats")
-                if k in staged}
-        trace.count("runner.h2d_bytes", _nbytes(host))
+        """The epoch-boundary swap: the staged tensors the epoch function
+        reads, already on the device, handed to this thread's stream,
+        which waits on the staging stream's event. -> (tensors, seconds).
+
+        The tensors were allocated on the staging stream; each is marked
+        used on this stream (``record_stream``), so the caching allocator
+        does not hand its memory to the next stage before this stream's
+        work on it is done. (That work is done anyway when the tensors are
+        released: the next boundary comes after ``runner.drain``, which
+        waits for the epoch, its side-stream pulls joined into it.)"""
+        x = {k: staged[k] for k in ("batches", "cids", "cfeats")
+             if k in staged}
         with trace.timed("runner.boundary_copy") as sp:
-            x = tree_to_device(host, self.device)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            ready = staged.get("ready")
+            if ready is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(ready)
+                for t in _tensors(x):
+                    t.record_stream(cur)
         return x, sp.seconds
 
     # -- the epoch loop --------------------------------------------------

@@ -4,9 +4,11 @@ against its own oracle and the CPU path, the training slice (the
 device-compiled schedule, the train step) against the CPU path, and the
 transformer decode-serving slice (prefill and decode; the enc-dec and
 M-RoPE models too) against the CPU path, the device-distributed epoch (the ``merge_gather`` kernel,
-``cache_gather``, a staged epoch), the multi-epoch runner (flat and
-``2x2``, and a checkpointed resume) and LM training (reduced configs,
-the MoE, SSD, RG-LRU, enc-dec and M-RoPE families among them) against
+``cache_gather``, a staged epoch, the epoch's collation on the card),
+the multi-epoch runner (flat and ``2x2``, a checkpointed resume, lazy
+epochs compiled and collated on the card run twice bit-equal) and LM
+training (reduced configs, the MoE, SSD, RG-LRU, enc-dec and M-RoPE
+families among them) against
 the CPU path, and LM training at granite-3-2b's width run twice
 bit-equal. They import
 no JAX, so they run on a machine with only PyTorch:
@@ -1199,14 +1201,14 @@ def _runner_world(epochs: int = 3):
     return g, pg, ws, DeviceView.build(pg), cfg
 
 
-def _device_runner(world, device, layout="flat", **kw):
+def _device_runner(world, device, layout="flat", batch=16, **kw):
     from repro_torch.dist import DeviceRapidGNNRunner, Topology, make_mesh
     from repro_torch.train import AdamW
     g, _, ws, dv, cfg = world
     topo = Topology.parse(layout, 4)
     mesh = (topo.make_mesh(device) if topo.is_hierarchical
             else make_mesh((4,), ("data",), device=device))
-    return DeviceRapidGNNRunner(ws, dv, cfg, AdamW(lr=3e-3), mesh, 16,
+    return DeviceRapidGNNRunner(ws, dv, cfg, AdamW(lr=3e-3), mesh, batch,
                                 g.labels, topology=topo, **kw)
 
 
@@ -1241,6 +1243,114 @@ def test_device_runner_on_card_matches_cpu(cuda, layout):
         np.testing.assert_allclose(a.losses, b.losses, rtol=1e-4, atol=1e-5)
     _, pg, ws, _, _ = world
     assert_host_parity(ws, pg, 16, card)
+
+
+def _products_world(epochs: int, **schedule_kw):
+    """ogbn_products_sim's shape cut to 24,000 nodes (degree 50, d 100,
+    fan-outs 25/10), 4 greedy parts, batch 250, n_hot 1024."""
+    import dataclasses
+
+    from repro_torch.core import build_schedule
+    from repro_torch.dist import DeviceView
+    from repro_torch.graph import KHopSampler, partition_graph
+    from repro_torch.graph.generate import DATASETS, make_powerlaw_graph
+    from repro_torch.models.gnn import GNNConfig
+
+    g = make_powerlaw_graph(dataclasses.replace(
+        DATASETS["ogbn_products_sim"], num_nodes=24_000), seed=0)
+    pg = partition_graph(g, 4, "greedy")
+    sampler = KHopSampler(g, fanouts=[25, 10], batch_size=250)
+    ws = [build_schedule(sampler, pg, worker=w, s0=11, num_epochs=epochs,
+                         n_hot=1024, **schedule_kw) for w in range(4)]
+    cfg = GNNConfig(kind="sage", in_dim=g.feat_dim, hidden_dim=64,
+                    num_classes=g.num_classes, num_layers=2,
+                    fanouts=(25, 10), agg_backend="kernel")
+    return g, pg, ws, DeviceView.build(pg), cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["flat", "2x2"])
+def test_device_collation_on_card_equals_numpy(cuda, layout):
+    """A products-shaped epoch collated on the card: every tensor
+    bit-equal to the numpy ``collate_device_epoch`` (dtype, shape,
+    bytes), the lane counts its masks' sums, no ``seg_sort`` launched
+    (the schedule compiler's sorts stay the only ones)."""
+    from repro_torch.core.schedule import merge_pad_bounds
+    from repro_torch.dist import (Topology, collate_device_epoch,
+                                  epoch_k_max, epoch_k_max_split)
+    from repro_torch.dist.device_collate import (collate_epoch_on_device,
+                                                 to_host_epoch, upload)
+    g, _, ws, dv, _ = _products_world(2)
+    labels, g2d = upload(g.labels, cuda), upload(dv.g2d, cuda)
+    topo = Topology.parse(layout, 4)
+    m_max, edge_max = merge_pad_bounds(ws)
+    for e in range(2):
+        es = [w.epoch(e) for w in ws]
+        caches = [dv.remap_cache(x.cache_ids) for x in es]
+        kw = dict(batch_size=250, m_max=m_max, edge_max=edge_max,
+                  num_steps=max(x.num_batches for x in es), topology=topo)
+        if topo.is_hierarchical:
+            kw["k_max"], kw["k_max_inter"] = epoch_k_max_split(
+                es, caches, dv, topo)
+        else:
+            kw["k_max"] = epoch_k_max(es, caches, dv)
+        want = collate_device_epoch(es, caches, dv, g.labels, **kw)
+        sorts = t_sort_ops.LAUNCHES.value
+        got, counts = collate_epoch_on_device(es, caches, dv, labels,
+                                              device=cuda, g2d=g2d, **kw)
+        torch.cuda.synchronize()
+        assert t_sort_ops.LAUNCHES.value == sorts
+        assert got["input_nodes"].device.type == cuda.type
+        host = to_host_epoch(got)
+        assert sorted(host) == sorted(want)
+        for k in want:
+            for a, b in zip(host[k] if isinstance(host[k], list)
+                            else [host[k]],
+                            want[k] if isinstance(want[k], list)
+                            else [want[k]]):
+                assert (a.dtype, a.shape) == (b.dtype, b.shape), k
+                assert a.tobytes() == b.tobytes(), k
+        for k, c in counts.items():
+            np.testing.assert_array_equal(c, want[f"{k}_mask"].sum(-1))
+
+
+@pytest.mark.gpu
+def test_lazy_runner_collating_on_card_bit_equal_twice(cuda):
+    """Five lazy epochs of the products-shaped world, compiled and
+    collated on the card by the staging thread and handed to the
+    runner's stream by an event: two runs give bit-equal curves and
+    weights (a race in the handoff would part them), equal lanes and host
+    parity, and ``runner.card_collations`` counts every staged epoch."""
+    from repro_torch.core import trace
+    from repro_torch.dist import assert_host_parity
+    world = _products_world(5, compiler="device", lazy=True, device=cuda)
+    eager = _products_world(5)
+    runs = []
+    for _ in range(2):
+        trace.clear()
+        trace.enable()
+        try:
+            runner = _device_runner(world, cuda, batch=250)
+            reports = runner.run()
+            torch.cuda.synchronize()
+            counters = trace.export()["counters"]
+        finally:
+            trace.disable()
+            trace.clear()
+        assert counters["runner.card_collations"] == len(reports) == 5
+        assert runner.trace_count == 1
+        runs.append((runner, reports))
+    (r1, a), (r2, b) = runs
+    assert np.concatenate([r.losses for r in a]).tobytes() == \
+        np.concatenate([r.losses for r in b]).tobytes()
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.miss_lanes, y.miss_lanes)
+        assert x.wire_rows == y.wire_rows
+    for la, lb in zip(r1.params["layers"], r2.params["layers"]):
+        for k in la:
+            assert torch.equal(la[k], lb[k])
+    _, pg, ws, _, _ = eager
+    assert_host_parity(ws, pg, 250, a)
 
 
 @pytest.mark.gpu

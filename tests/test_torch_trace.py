@@ -10,8 +10,8 @@ compiler's plain versions): one bootstrap ``runner.stage`` a ``run`` and
 one staged on the staging thread for every later epoch, S ``epoch.step``
 spans an epoch each with its four children, every ``DeviceEpochReport``
 timing equal to its span's length, ``runner.h2d_bytes`` equal to the
-bytes of the arrays copied, and losses and parameters bit-equal with
-tracing on and off.
+bytes of the arrays copied, ``runner.card_collations`` one a staged
+epoch, and losses and parameters bit-equal with tracing on and off.
 """
 import dataclasses
 import threading
@@ -83,12 +83,25 @@ def _by(spans, name, **attrs):
             and all(s["attrs"].get(k) == v for k, v in attrs.items())]
 
 
-def _nbytes(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_nbytes(v) for v in tree.values())
-    if isinstance(tree, list):
-        return sum(_nbytes(v) for v in tree)
-    return tree.nbytes
+def _staged_bytes(runner, e: int) -> int:
+    """Bytes staging epoch ``e`` copies to the device: the workers' flat
+    schedules (input nodes, seeds, every layer's edges), two int64
+    numbers a batch for each padded field's slots (input nodes, seeds, a
+    layer's edges), and with a cache the hot sets' ids and the stacked
+    C_sec (the baseline stages neither)."""
+    flats = [ws.epoch(e).flat for ws in runner.schedules]
+    n = sum(f.input_nodes.nbytes + f.seeds.nbytes
+            + sum(f.edge_src[l].nbytes + f.edge_dst[l].nbytes
+                  + f.edge_mask[l].nbytes for l in range(f.num_layers))
+            for f in flats)
+    n += 16 * (2 + len(runner.edge_max)) * sum(f.num_batches
+                                               for f in flats)
+    if runner.uses_cache:
+        ids = sum(int(np.asarray(ws.epoch(e).cache_ids).size)
+                  for ws in runner.schedules)
+        d = runner.dv.table.shape[-1]
+        n += 8 * ids + runner.P * runner.n_hot * (8 + 4 * d)
+    return n
 
 
 def _bits(tree) -> dict:
@@ -278,14 +291,14 @@ def test_runner_spans_and_reports(world, tracing, cls):
     assert runner.exposed_stage_s == pytest.approx(
         sum(_secs(s) for s in _by(sp, "runner.await_stage")), rel=1e-12)
     # the bytes copied to the device: the table and offsets at each run
-    # call, each epoch's staged arrays at its boundary
+    # call, the collation's id and label lookups once, what staging
+    # uploads for each epoch
     dv = runner.dv
-    want = 2 * (dv.table.nbytes + dv.offsets.nbytes)
-    for r in reports:
-        st = runner._stage_inner(r.epoch)
-        want += _nbytes({k: st[k] for k in ("batches", "cids", "cfeats")
-                         if k in st})
-    assert out["counters"] == {"runner.h2d_bytes": want}
+    want = 2 * (dv.table.nbytes + dv.offsets.nbytes) + dv.g2d.nbytes + \
+        runner.labels.nbytes
+    want += sum(_staged_bytes(runner, r.epoch) for r in reports)
+    assert out["counters"] == {"runner.h2d_bytes": want,
+                               "runner.card_collations": len(reports)}
 
 
 def test_runner_bit_equal_with_tracing_on_and_off(world):
